@@ -1,0 +1,726 @@
+"""System-level model: statics equilibrium, eigen, dynamic RAO solve, cases.
+
+Port of the single-FOWT path of ``raft_tpu/model.py`` (reference:
+raft/raft_model.py) on PyTorch:
+
+- `solveStatics` (reference :479-849): damped Newton on the 6-DOF pose
+  with the 5 line-search alphas evaluated as one batch
+  (``torch.func.vmap``), first-sufficient selection, full clipped step
+  when none improves, and the |dX| < tol stop on the undamped step; a
+  Python loop with one host check per iteration.
+- `solveDynamics` (reference :852-1146): the drag-linearization fixed
+  point around the fused impedance solve (kernel K1 on the card) in a
+  Python loop with the same iteration rule, then the factor-once system
+  solve ``inv_complex`` (kernel K2) applied to every heading.
+- `solveEigen` (reference :391-476), host NumPy.
+- `analyzeCases` / `saveTurbineOutputs` / `calcOutputs` / `run_raft`.
+
+Everything runs on ``Model.device`` (the card unless ``device="cpu"``).
+Not part of this slice: farms/arrays, potential flow and second-order
+loads, ballast trim, and the JAX package's observability, probes,
+journal/resume, quarantine and recovery ladder — failures raise typed
+errors, as the JAX package does with ``RAFT_TPU_RECOVERY=0``.
+"""
+from __future__ import annotations
+
+import copy
+import time
+
+import numpy as np
+import torch
+
+from raft_tpu_torch import errors, ledger as _ledger
+from raft_tpu_torch._config import COMPLEX, REAL, as_real, resolve_device
+from raft_tpu_torch.io.wamit import bem_coeffs
+from raft_tpu_torch.models import mooring as mr
+from raft_tpu_torch.models.fowt import (
+    FOWTModel, build_fowt, build_seastate, fowt_pose, fowt_statics,
+    fowt_hydro_constants, fowt_hydro_excitation, fowt_drag_precompute,
+    fowt_hydro_linearization_pre, fowt_drag_excitation, fowt_current_loads,
+    fowt_turbine_constants, fowt_bem_excitation,
+)
+from raft_tpu_torch.models.member import member_inertia
+from raft_tpu_torch.models.rotor import calc_aero
+from raft_tpu_torch.ops.linalg import impedance_solve, inv_complex
+from raft_tpu_torch.ops.spectra import get_psd, get_rao, get_rms
+from raft_tpu_torch.ops.transforms import transform_force, translate_matrix_6to6
+from raft_tpu_torch.utils.dicttools import get_from_dict
+
+RAD2DEG = 180.0 / np.pi
+
+
+def _np(x):
+    """Host numpy copy of a tensor (or pass-through for numpy/python)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _f(x) -> float:
+    return float(_np(x))
+
+
+def _dyn_solve_core(Zinv, Z_sys, F_all):
+    """Apply the factored inverse impedance to every heading's excitation
+    ((nw,6,6) x (nH,6,nw) -> (nH,6,nw)) and the per-heading relative
+    residual |Z Xi - F| / |F| of that reuse."""
+    Xi = torch.einsum("wij,hjw->hiw", Zinv, F_all)
+    R = torch.einsum("wij,hjw->hiw", Z_sys, Xi) - F_all
+    num = torch.sqrt(torch.sum(torch.abs(R) ** 2, dim=(1, 2)))
+    den = torch.sqrt(torch.sum(torch.abs(F_all) ** 2, dim=(1, 2)))
+    return Xi, num / (den + 1e-300)
+
+
+class Model:
+    """Single-FOWT frequency-domain model: Model(design) ->
+    analyzeUnloaded() -> analyzeCases() with results in `model.results`.
+
+    ``device`` defaults to the card (``cuda``) and raises when there is
+    none; pass ``device="cpu"`` to run on the host."""
+
+    #: line-search candidates of the damped statics Newton
+    _NEWTON_ALPHAS = (1.0, 0.5, 0.25, 0.125, 0.0625)
+    _NEWTON_MAX_ITERS = 50
+
+    def __init__(self, design: dict, device=None):
+        self.device = resolve_device(device)
+        design = copy.deepcopy(design)
+        design.setdefault("settings", {})
+        s = design["settings"]
+        min_freq = float(get_from_dict(s, "min_freq", default=0.01, dtype=float))
+        max_freq = float(get_from_dict(s, "max_freq", default=1.00, dtype=float))
+        self.XiStart = float(get_from_dict(s, "XiStart", default=0.1, dtype=float))
+        self.nIter = int(get_from_dict(s, "nIter", default=15, dtype=int))
+        self.w = np.arange(min_freq, max_freq + 0.5 * min_freq, min_freq) * 2 * np.pi
+        self.nw = len(self.w)
+        self.depth = float(get_from_dict(design["site"], "water_depth", dtype=float))
+        if "array" in design:
+            raise errors.ModelConfigError(
+                "farm/array designs are not part of the PyTorch port yet")
+        self.fowtList = [build_fowt(design, self.w, depth=self.depth,
+                                    device=self.device)]
+        self.nFOWT = 1
+        self.nDOF = 6
+        self.mooring_currentMod = int(get_from_dict(
+            design.get("mooring") or {}, "currentMod", dtype=int, default=0))
+        self._iCase = None
+        #: result ledger (raft_tpu.ledger/v1) of the most recent
+        #: analyzeCases invocation
+        self.last_ledger = None
+        self._case_records = {}
+        #: wall seconds per phase of the most recent analyzeCases
+        #: (statics, dynamics, outputs), each ending in a device sync
+        self.timings = {}
+        self.design = design
+        self.results = {}
+        self._state = [dict() for _ in self.fowtList]
+
+    # ------------------------------------------------------------------
+    # helpers
+    # ------------------------------------------------------------------
+
+    def _t(self, x):
+        return as_real(x, self.device)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _case_label(self) -> str:
+        return "unloaded" if self._iCase is None else str(self._iCase)
+
+    # ------------------------------------------------------------------
+    # statics
+    # ------------------------------------------------------------------
+
+    def _case_constants(self, fowt: FOWTModel, case, state):
+        """Statics + constant forcing at the zero-offset pose (reference:
+        raft_model.py:521-556)."""
+        X0 = np.array([fowt.x_ref, fowt.y_ref, 0, 0, 0, 0], float)
+        pose0 = fowt_pose(fowt, X0)
+        stat = fowt_statics(fowt, pose0)
+        state["pose0"] = pose0
+        state["statics"] = stat
+        state["K_hydrostatic"] = stat["C_struc"] + stat["C_hydro"]
+        state["F_undisplaced"] = stat["W_struc"] + stat["W_hydro"]
+
+        F_env = torch.zeros(6, dtype=REAL, device=self.device)
+        if case:
+            # statics-time constants use the PREVIOUS case's inflow
+            # heading for the hub->PRP transfer offset (reference
+            # statefulness; see fowt_turbine_constants)
+            stale = state.get("_stored_heading", [0.0] * len(fowt.rotors))
+            tc = fowt_turbine_constants(fowt, case, X0,
+                                        transfer_heading=stale)
+            status = str(get_from_dict(case, "turbine_status", shape=0,
+                                       dtype=str, default="operating"))
+            new_heads = list(stale)
+            for k, rot in enumerate(fowt.rotors):
+                spd = float(get_from_dict(
+                    case, "current_speed" if rot.hubHt < 0 else "wind_speed",
+                    shape=0, default=1.0 if rot.hubHt < 0 else 10.0))
+                if status == "operating" and rot.aeroServoMod > 0 and spd > 0:
+                    new_heads[k] = np.radians(float(get_from_dict(
+                        case, "current_heading" if rot.hubHt < 0
+                        else "wind_heading", shape=0, default=0.0)))
+            state["_stored_heading"] = new_heads
+            state["turbine"] = tc
+            hc = fowt_hydro_constants(fowt, pose0)
+            state["hydro0"] = hc
+            cur_speed = float(get_from_dict(case, "current_speed", shape=0, default=0.0))
+            cur_head = float(get_from_dict(case, "current_heading", shape=0, default=0))
+            D_hydro = fowt_current_loads(fowt, pose0, cur_speed, cur_head)
+            state["D_hydro"] = D_hydro
+            F_env = torch.sum(tc["f_aero0"], dim=1) + D_hydro
+            # current on the (simple-topology) mooring lines: the
+            # current-loaded line profiles (reference raft_model.py:559-578)
+            state["moor_current"] = None
+            if (self.mooring_currentMod > 0 and cur_speed > 0
+                    and fowt.mooring is not None):
+                state["moor_current"] = cur_speed * np.array(
+                    [np.cos(np.deg2rad(cur_head)),
+                     np.sin(np.deg2rad(cur_head)), 0.0])
+        else:
+            state["turbine"] = None
+            state["hydro0"] = fowt_hydro_constants(fowt, pose0)
+            state["D_hydro"] = torch.zeros(6, dtype=REAL, device=self.device)
+            state["moor_current"] = None
+        state["F_env_constant"] = F_env
+
+    def _statics_eval(self, F0, K_hs, Ucur):
+        """(net force, tangent stiffness) at one pose X (6,), written for
+        ``torch.func.vmap`` over the line-search alphas.  As in the JAX
+        Model, the mooring wrench always takes the current-loaded line
+        profiles with the case current (zero without one)."""
+        fowt = self.fowtList[0]
+        moor = fowt.mooring
+        ref = self._t([fowt.x_ref, fowt.y_ref, 0, 0, 0, 0])
+
+        def eval_FK(X):
+            F = F0 - K_hs @ (X - ref)
+            K = K_hs
+            if moor is not None:
+                F = F + mr.body_wrench(moor, X, current=Ucur)
+                K = K + mr.coupled_stiffness(moor, X, current=Ucur)
+            return F, K
+
+        return eval_FK
+
+    def solveStatics(self, case, display=0):
+        """Mean-offset equilibrium (reference: raft_model.py:479-849)."""
+        fowt = self.fowtList[0]
+        state = self._state[0]
+        self._case_constants(fowt, case, state)
+        refs = np.array([fowt.x_ref, fowt.y_ref, 0, 0, 0, 0], float)
+
+        K_hs = state["K_hydrostatic"]
+        F0 = state["F_undisplaced"] + state["F_env_constant"]
+        db = self._t([30, 30, 5, 0.1, 0.1, 0.1])
+        tol = self._t(np.array([0.05, 0.05, 0.05, 5e-3, 5e-3, 5e-3]) * 1e-3)
+        Ucur = self._t(state["moor_current"] if state.get("moor_current")
+                       is not None else np.zeros(3))
+        eval_FK = self._statics_eval(F0, K_hs, Ucur)
+        eval_batch = torch.func.vmap(eval_FK)
+        alphas = self._t(self._NEWTON_ALPHAS)
+
+        X = self._t(refs)
+        F, K = eval_FK(X)
+        n_iters = 0
+        while n_iters < self._NEWTON_MAX_ITERS:
+            # guard zero-stiffness diagonals like the reference (:713-715)
+            kdiag = torch.diagonal(K)
+            kfix = torch.where(kdiag == 0.0, torch.mean(kdiag), kdiag)
+            Kg = K + torch.diag(kfix - kdiag)
+            dX = torch.clamp(torch.linalg.solve(Kg, F), -db, db)
+            merit0 = torch.sum(F ** 2)
+            Fa, Ka = eval_batch(X + alphas[:, None] * dX)
+            merits = torch.sum(Fa ** 2, dim=1)
+            # first sufficient candidate wins; none improving -> the full
+            # clipped step (candidate 0, a = 1)
+            suff = torch.isfinite(merits) & (merits < merit0)
+            anys = torch.any(suff)
+            idx = torch.where(anys, torch.argmax(suff.to(torch.int32)), 0)
+            X = X + torch.where(anys, alphas[idx], 1.0) * dX
+            F, K = Fa[idx], Ka[idx]
+            n_iters += 1
+            # convergence on the UNDAMPED Newton step of this iteration
+            if bool(torch.all(torch.abs(dX) < tol)):
+                break
+        residual = _f(torch.sqrt(torch.sum(F ** 2)))
+        X = _np(X)
+        if not np.all(np.isfinite(X)) or not np.isfinite(residual):
+            raise errors.StaticsDivergence(
+                "statics Newton produced a non-finite pose",
+                case=self._iCase, iters=n_iters, residual=residual)
+        rec = self._case_records.setdefault(self._case_label(), {})
+        rec["statics_iters"] = n_iters
+        rec["statics_residual"] = residual
+
+        state["r6"] = X
+        state["Xi0"] = X - refs
+        if fowt.mooring is not None:
+            # MoorPy-parity ROTATION-VECTOR stiffness at the equilibrium
+            # pose for dynamics/eigen (see the JAX Model)
+            cur = state.get("moor_current")
+            cur_t = None if cur is None else self._t(cur)
+            state["C_moor"] = mr.coupled_stiffness_rotvec(
+                fowt.mooring, self._t(X), current=cur_t)
+            state["F_moor0"] = mr.body_wrench(fowt.mooring, self._t(X),
+                                              current=cur_t)
+        else:
+            state["C_moor"] = torch.zeros((6, 6), dtype=REAL, device=self.device)
+            state["F_moor0"] = torch.zeros(6, dtype=REAL, device=self.device)
+        if case and "iCase" in case:
+            self.results.setdefault("mean_offsets", []).append(X.copy())
+        return X
+
+    # ------------------------------------------------------------------
+    # eigen
+    # ------------------------------------------------------------------
+
+    def solveEigen(self, display=0):
+        """Undamped natural frequencies and modes (reference:
+        raft_model.py:391-476), host NumPy with the DOF-claiming sort."""
+        nDOF = self.nDOF
+        fowt = self.fowtList[0]
+        state = self._state[0]
+        stat = state["statics"]
+        hc = state.get("hydro0") or fowt_hydro_constants(fowt, state["pose0"])
+        M_tot = _np(stat["M_struc"]) + _np(hc["A_hydro_morison"])
+        C_tot = _np(stat["C_struc"]) + _np(stat["C_hydro"]) + _np(state["C_moor"])
+        C_tot[5, 5] += fowt.yawstiff
+
+        for i in range(nDOF):
+            if M_tot[i, i] < 1.0 or C_tot[i, i] < 1.0:
+                raise errors.EigenFailure(
+                    "small/negative diagonal in system matrices",
+                    dof=i, M_ii=float(M_tot[i, i]), C_ii=float(C_tot[i, i]))
+
+        eigenvals, eigenvectors = np.linalg.eig(np.linalg.solve(M_tot, C_tot))
+        if any(eigenvals <= 0.0):
+            raise errors.EigenFailure(
+                "zero or negative system eigenvalues detected",
+                n_nonpositive=int(np.sum(eigenvals <= 0.0)))
+
+        ind_list = []
+        for i in range(nDOF - 1, -1, -1):
+            vec = np.abs(eigenvectors[i, :]).copy()
+            for _ in range(nDOF):
+                ind = int(np.argmax(vec))
+                if ind in ind_list:
+                    vec[ind] = 0.0
+                else:
+                    ind_list.append(ind)
+                    break
+        ind_list.reverse()
+        fns = np.sqrt(eigenvals[ind_list]) / 2.0 / np.pi
+        modes = eigenvectors[:, ind_list]
+        self.results["eigen"] = {"frequencies": fns, "modes": modes}
+        return fns, modes
+
+    # ------------------------------------------------------------------
+    # dynamics
+    # ------------------------------------------------------------------
+
+    def solveDynamics(self, case, tol=0.01, display=0):
+        """Drag-linearization fixed point + system RAO solve (reference:
+        raft_model.py:852-1146)."""
+        fowt = self.fowtList[0]
+        st = self._state[0]
+        self._fowt_linearize(case, tol=tol)
+
+        Z_sys = st["Z"].movedim(-1, 0)                     # (nw,6,6)
+        # factor once, reuse across headings (the reference's Zinv,
+        # raft_model.py:1038-1040) — kernel K2 on the card
+        Zinv = inv_complex(Z_sys)
+
+        # conditioning telemetry of the impedance stack
+        if bool(torch.all(torch.isfinite(Z_sys.real)
+                          & torch.isfinite(Z_sys.imag))):
+            cond = torch.linalg.cond(Z_sys)
+            self._case_records.setdefault(self._case_label(), {})[
+                "cond_max"] = _f(torch.max(cond))
+
+        nWaves = st["seastate"]["nWaves"]
+        st["F_drag"] = fowt_drag_excitation(fowt, st["pose_eq"], st["Bmat"],
+                                            st["excitation"]["u"][:nWaves])
+        F_all = (st["F_BEM"][:nWaves] + st["excitation"]["F_hydro_iner"][:nWaves]
+                 + st["F_drag"]).to(COMPLEX)
+        Xi_d, rel_d = _dyn_solve_core(Zinv, Z_sys, F_all)
+        rec = self._case_records.setdefault(self._case_label(), {})
+        rec["dyn_solve_residual"] = [float(r) for r in _np(rel_d)]
+
+        Xi_sys = np.zeros((nWaves + 1, 6, self.nw), dtype=complex)
+        Xi_sys[:nWaves] = _np(Xi_d)
+        st["Xi"] = Xi_sys
+        bad = ~np.isfinite(Xi_sys)
+        if bad.any():
+            raise errors.NonFiniteResult(
+                f"solveDynamics produced {int(bad.sum())} non-finite "
+                "response value(s); check drag-linearization convergence",
+                case=self._iCase, n_bad=int(bad.sum()), nWaves=int(nWaves))
+        self.Xi = Xi_sys
+        self.results["response"] = {}
+        return Xi_sys
+
+    def _fowt_linearize(self, case, tol=0.01):
+        """Drag-linearization fixed point producing the converged 6x6
+        impedance (reference: raft_model.py:877-1013)."""
+        fowt = self.fowtList[0]
+        state = self._state[0]
+        dev = self.device
+        nIter = self.nIter + 1
+        keep, relax = 0.2, 0.8
+        w = self._t(self.w)
+        nw = self.nw
+
+        seastate = build_seastate(fowt, case)
+        pose_eq = fowt_pose(fowt, state["r6"])
+        state["pose_eq"] = pose_eq
+        state["seastate"] = seastate
+        hc0 = state["hydro0"]
+
+        exc = fowt_hydro_excitation(fowt, pose_eq, seastate, hc0)
+        state["excitation"] = exc
+
+        tc = state["turbine"]
+        stat = state["statics"]
+        if fowt.nrotors > 0 and tc is not None:
+            M_turb = torch.sum(tc["A_aero"], dim=3)
+            B_turb = torch.sum(tc["B_aero"], dim=3)
+            B_gyro = torch.sum(tc["B_gyro"], dim=2)
+        else:
+            M_turb = torch.zeros((6, 6, nw), dtype=REAL, device=dev)
+            B_turb = torch.zeros((6, 6, nw), dtype=REAL, device=dev)
+            B_gyro = torch.zeros((6, 6), dtype=REAL, device=dev)
+
+        A_BEM, B_BEM = bem_coeffs(fowt.bem, nw, device=dev)
+        F_BEM = fowt_bem_excitation(fowt, seastate)            # (nH,6,nw)
+        state["F_BEM"] = F_BEM
+
+        M_lin = M_turb + stat["M_struc"][:, :, None] \
+            + hc0["A_hydro_morison"][:, :, None] + A_BEM
+        B_lin = B_turb + B_gyro[:, :, None] + B_BEM
+        C_lin = stat["C_struc"] + state["C_moor"] + stat["C_hydro"]
+        # the platform yaw stiffness does NOT enter the dynamics impedance
+        # (reference C_lin, raft_model.py:913)
+
+        u0 = exc["u"][0]
+        F_lin = F_BEM[0] + exc["F_hydro_iner"][0]                # (6, nw)
+        drag_pre = fowt_drag_precompute(fowt, pose_eq, u0)
+
+        XiLast = torch.zeros((6, nw), dtype=COMPLEX, device=dev) + self.XiStart
+        Xi = XiLast
+        Z = torch.zeros((6, 6, nw), dtype=COMPLEX, device=dev)
+        Bmat = torch.zeros((fowt.nodes.n, 3, 3), dtype=REAL, device=dev)
+        ii = 0
+        converged = False
+        while ii < nIter and not converged:
+            B_drag, Bmat = fowt_hydro_linearization_pre(fowt, pose_eq,
+                                                        drag_pre, XiLast)
+            F_drag = fowt_drag_excitation(fowt, pose_eq, Bmat, u0)
+            B_tot = B_lin + B_drag[:, :, None]
+            Z = (-w[None, None, :] ** 2 * M_lin
+                 + 1j * w[None, None, :] * B_tot
+                 + C_lin[:, :, None]).to(COMPLEX)
+            # one batched complex solve over all frequencies — the fused
+            # impedance kernel K1 on the card
+            Xi = impedance_solve(w, M_lin, B_tot, C_lin, F_lin + F_drag)
+            tolCheck = torch.abs(Xi - XiLast) / (torch.abs(Xi) + tol)
+            conv = bool(torch.all(tolCheck < tol))
+            if not conv:
+                XiLast = keep * XiLast + relax * Xi
+            ii += 1
+            converged = conv
+
+        Xi_np, XiLast_np = _np(Xi), _np(XiLast)
+        residual = float(np.max(np.abs(Xi_np - XiLast_np)
+                                / (np.abs(Xi_np) + tol)))
+        rec = self._case_records.setdefault(self._case_label(), {})
+        rec["fowt0"] = {"drag_iters": ii, "drag_residual": residual,
+                        "drag_converged": converged}
+        state["Z"] = Z
+        state["Bmat"] = Bmat
+
+    # ------------------------------------------------------------------
+    # case loop
+    # ------------------------------------------------------------------
+
+    def analyzeUnloaded(self, ballast=0, heave_tol=1.0):
+        """Unloaded equilibrium (reference: raft_model.py:184-241); ballast
+        trim is not part of the port yet."""
+        if ballast:
+            raise errors.ModelConfigError(
+                "ballast trim is not part of the PyTorch port yet")
+        self.results.setdefault("properties", {})
+        self.solveStatics(None)
+        self.results["properties"]["offset_unloaded"] = self._state[0]["Xi0"]
+        self.C_moor0 = _np(self._state[0]["C_moor"]).copy()
+        self.F_moor0 = _np(self._state[0]["F_moor0"]).copy()
+
+    def analyzeCases(self, display=0):
+        """Statics + dynamics + output statistics per load case; the
+        result ledger lands on ``self.last_ledger`` and the wall seconds
+        per phase on ``self.timings``."""
+        nCases = len(self.design["cases"]["data"])
+        self._case_records = {}
+        self.timings = {"statics": 0.0, "dynamics": 0.0, "outputs": 0.0}
+        self.results["properties"] = self.results.get("properties", {})
+        self.results["case_metrics"] = {}
+        self.results["mean_offsets"] = []
+        try:
+            for iCase in range(nCases):
+                case = dict(zip(self.design["cases"]["keys"],
+                                self.design["cases"]["data"][iCase]))
+                case["iCase"] = iCase
+                self._iCase = iCase
+                self.results["case_metrics"][iCase] = {}
+                t0 = time.perf_counter()
+                self.solveStatics(case, display=display)
+                self._sync()
+                t1 = time.perf_counter()
+                self.solveDynamics(case, display=display)
+                self._sync()
+                t2 = time.perf_counter()
+                self.results["case_metrics"][iCase][0] = {}
+                self.saveTurbineOutputs(self.results["case_metrics"][iCase][0],
+                                        0, case)
+                self._sync()
+                t3 = time.perf_counter()
+                self.timings["statics"] += t1 - t0
+                self.timings["dynamics"] += t2 - t1
+                self.timings["outputs"] += t3 - t2
+        finally:
+            self._iCase = None
+        self.last_ledger = _ledger.ledger_from_model(self)
+        return self.results
+
+    # ------------------------------------------------------------------
+    # outputs
+    # ------------------------------------------------------------------
+
+    def saveTurbineOutputs(self, results, ifowt, case):
+        """Per-case response statistics (reference: raft_fowt.py:
+        1821-2109), host NumPy on the pulled response."""
+        fowt = self.fowtList[ifowt]
+        state = self._state[ifowt]
+        Xi = state["Xi"]          # (nWaves+1, 6, nw)
+        Xi0 = state["Xi0"]
+        dw = self.w[1] - self.w[0]
+        rms = lambda x: float(get_rms(x))                       # noqa: E731
+        psd = lambda x, ax=0: _np(get_psd(x, dw, source_axis=ax))  # noqa: E731
+
+        chans = ["surge", "sway", "heave", "roll", "pitch", "yaw"]
+        for idof, ch in enumerate(chans):
+            sig = Xi[:, idof, :]
+            mean = Xi0[idof]
+            if idof >= 3:
+                sig = sig * RAD2DEG
+                mean = mean * RAD2DEG
+            std = rms(sig)
+            results[f"{ch}_avg"] = mean
+            results[f"{ch}_std"] = std
+            results[f"{ch}_max"] = mean + 3 * std
+            results[f"{ch}_min"] = mean - 3 * std
+            results[f"{ch}_PSD"] = psd(sig)
+            results[f"{ch}_RA"] = np.asarray(sig)
+
+        # first-heading RAO magnitude/phase summaries per DOF
+        RAO0 = _np(get_rao(Xi[0], state["seastate"]["zeta"][0]))
+        mag = np.abs(RAO0)
+        for idof, ch in enumerate(chans):
+            ipk = int(np.argmax(mag[idof]))
+            results[f"{ch}_RAO_mag_max"] = float(mag[idof, ipk])
+            results[f"{ch}_RAO_mag_mean"] = float(mag[idof].mean())
+            results[f"{ch}_RAO_phase_peak"] = (
+                float(np.angle(RAO0[idof, ipk]))
+                if mag[idof, ipk] > 1e-12 else 0.0)
+            results[f"{ch}_RAO_w_peak"] = float(self.w[ipk])
+
+        # mooring tensions through the MoorPy-parity FD tension Jacobian
+        moor = fowt.mooring
+        if moor is not None:
+            r6 = self._t(state["r6"])
+            cur = state.get("moor_current")
+            cur_t = None if cur is None else self._t(cur)
+            J = _np(mr.tension_jacobian_fd(moor, r6, current=cur_t))
+            T0 = _np(mr.tensions(moor, r6, current=cur_t))
+            nT = len(T0)
+            T_amps = np.einsum("tj,hjw->htw", J, Xi)
+            results["Tmoor_avg"] = T0
+            TRMS = np.array([rms(T_amps[:, iT, :]) for iT in range(nT)])
+            results["Tmoor_std"] = TRMS
+            results["Tmoor_max"] = T0 + 3 * TRMS
+            results["Tmoor_min"] = T0 - 3 * TRMS
+            results["Tmoor_PSD"] = np.stack([psd(T_amps[:, iT, :])
+                                             for iT in range(nT)])
+
+        # nacelle acceleration + tower base bending (reference :1900-1971)
+        nrot = fowt.nrotors
+        XiHub = np.zeros((Xi.shape[0], nrot, self.nw), dtype=complex)
+        for key in ("AxRNA", "Mbase"):
+            results[f"{key}_avg"] = np.zeros(nrot)
+            results[f"{key}_std"] = np.zeros(nrot)
+            results[f"{key}_max"] = np.zeros(nrot)
+            results[f"{key}_min"] = np.zeros(nrot)
+            results[f"{key}_PSD"] = np.zeros((self.nw, nrot))
+
+        stat = state["statics"]
+        tc = state.get("turbine")
+        for ir, rot in enumerate(fowt.rotors):
+            r_rel = np.asarray(rot.r_rel, float)
+            XiHub[:, ir, :] = Xi[:, 0, :] + r_rel[2] * Xi[:, 4, :]
+            a_std = rms(XiHub[:, ir, :] * self.w**2)
+            results["AxRNA_std"][ir] = a_std
+            results["AxRNA_PSD"][:, ir] = psd(XiHub[:, ir, :] * self.w**2)
+            results["AxRNA_avg"][ir] = abs(np.sin(Xi0[4]) * 9.81)
+            results["AxRNA_max"][ir] = results["AxRNA_avg"][ir] + 3 * a_std
+            results["AxRNA_min"][ir] = results["AxRNA_avg"][ir] - 3 * a_std
+
+            mtow = _f(stat["mtower"][ir]) if stat["mtower"] else 0.0
+            if mtow > 0:
+                rCGt = _np(stat["rCG_tow"][ir])
+                m_turb = mtow + rot.mRNA
+                zCGt = (rCGt[2] * mtow + r_rel[2] * rot.mRNA) / m_turb
+                tower_geom = fowt.members[fowt.nplatmems + ir]
+                tower_pose = state["pose_eq"]["members"][fowt.nplatmems + ir]
+                zBase = _f(tower_pose["rA"][2])
+                hArm = zCGt - zBase
+                aCG = -self.w**2 * (Xi[:, 0, :] + zCGt * Xi[:, 4, :])
+                tower_M = member_inertia(tower_geom, tower_pose,
+                                         rPRP=self._t(state["r6"][:3]))["M_struc"]
+                ICGt = (_f(translate_matrix_6to6(
+                    tower_M, self._t([0, 0, -zCGt]))[4, 4])
+                    + rot.mRNA * (r_rel[2] - zCGt) ** 2 + rot.IrRNA)
+                M_I = -m_turb * aCG * hArm - ICGt * (-self.w**2 * Xi[:, 4, :])
+                M_w = m_turb * fowt.g * hArm * Xi[:, 4, :]
+                if tc is not None:
+                    A00 = _np(tc["A_aero"][0, 0, :, ir])
+                    B00 = _np(tc["B_aero"][0, 0, :, ir])
+                else:
+                    A00 = B00 = np.zeros(self.nw)
+                M_X = -(-self.w**2 * A00 + 1j * self.w * B00) \
+                    * (r_rel[2] - zBase) ** 2 * Xi[:, 4, :]
+                dyn = M_I + M_w + M_X
+                f_aero0_ir = tc["f_aero0"][:, ir] if tc is not None \
+                    else torch.zeros(6, dtype=REAL, device=self.device)
+                results["Mbase_avg"][ir] = (
+                    m_turb * fowt.g * hArm * np.sin(Xi0[4])
+                    + _f(transform_force(f_aero0_ir,
+                                         offset=self._t([0, 0, -hArm]))[4]))
+                results["Mbase_std"][ir] = rms(dyn)
+                results["Mbase_PSD"][:, ir] = psd(dyn)
+                results["Mbase_max"][ir] = results["Mbase_avg"][ir] + 3 * results["Mbase_std"][ir]
+                results["Mbase_min"][ir] = results["Mbase_avg"][ir] - 3 * results["Mbase_std"][ir]
+
+        results["wave_PSD"] = psd(state["seastate"]["zeta"])
+
+        # rotor control channels (reference :1976-2045)
+        for key in ("omega", "torque", "power", "bPitch"):
+            results[f"{key}_avg"] = np.zeros(nrot)
+            results[f"{key}_std"] = np.zeros(nrot)
+            if key != "power":
+                results[f"{key}_PSD"] = np.zeros((self.nw, nrot))
+        results["omega_max"] = np.zeros(nrot)
+        results["omega_min"] = np.zeros(nrot)
+
+        for ir, rot in enumerate(fowt.rotors):
+            current = rot.hubHt < 0
+            speed = float(get_from_dict(case, "current_speed", shape=0, default=1.0)) \
+                if current else float(get_from_dict(case, "wind_speed", shape=0, default=10.0))
+            if rot.aeroServoMod > 1 and speed > 0.0:
+                # the control transfer function of the STATICS-TIME calcAero
+                # (zero pose), as in the reference
+                X0r = self._t([fowt.x_ref, fowt.y_ref, 0, 0, 0, 0])
+                aero = calc_aero(rot, self._t(self.w), case, r6=X0r,
+                                 current=current)
+                C = _np(aero["C"])
+                V_w = _np(aero["V_w"])
+                kp_beta = -np.interp(speed, rot.Uhub_ops, rot.kp_0)
+                ki_beta = -np.interp(speed, rot.Uhub_ops, rot.ki_0)
+                kp_tau = rot.kp_tau * (kp_beta == 0)
+                ki_tau = rot.ki_tau * (ki_beta == 0)
+                nh = Xi.shape[0]
+                phi_w = np.zeros((nh, self.nw), dtype=complex)
+                for ih in range(nh - 1):
+                    phi_w[ih] = C * XiHub[ih, ir, :]
+                phi_w[-1] = C * (XiHub[-1, ir, :] - V_w / (1j * self.w))
+                omega_w = 1j * self.w * phi_w
+                torque_w = (1j * self.w * kp_tau + ki_tau) * phi_w
+                bPitch_w = (1j * self.w * kp_beta + ki_beta) * phi_w
+
+                results["omega_avg"][ir] = float(aero["op"]["Omega_rpm"])
+                results["omega_std"][ir] = rms(omega_w) / 0.1047
+                results["omega_max"][ir] = results["omega_avg"][ir] + 2 * results["omega_std"][ir]
+                results["omega_min"][ir] = results["omega_avg"][ir] - 2 * results["omega_std"][ir]
+                results["omega_PSD"][:, ir] = (1 / 0.1047) ** 2 * psd(omega_w)
+                results["torque_avg"][ir] = _f(aero["loads"]["Q"]) / rot.Ng
+                results["torque_std"][ir] = rms(torque_w)
+                results["torque_PSD"][:, ir] = psd(torque_w)
+                results["power_avg"][ir] = _f(aero["loads"]["P"])
+                results["bPitch_avg"][ir] = float(aero["op"]["pitch_deg"])
+                results["bPitch_std"][ir] = rms(bPitch_w) * RAD2DEG
+                results["bPitch_PSD"][:, ir] = RAD2DEG**2 * psd(bPitch_w)
+                results["wind_PSD"] = psd(V_w, None)
+
+    def calcOutputs(self):
+        """Fill results['properties'] (reference: raft_model.py:1150-1189)."""
+        fowt = self.fowtList[0]
+        state = self._state[0]
+        stat = state["statics"]
+        props = self.results.setdefault("properties", {})
+        props["tower mass"] = np.asarray([_np(m) for m in stat["mtower"]])
+        props["tower CG"] = np.asarray([_np(c) for c in stat["rCG_tow"]])
+        props["substructure mass"] = _f(stat["m_sub"])
+        props["substructure CG"] = _np(stat["rCG_sub"])
+        props["shell mass"] = _f(stat["m_shell"])
+        props["total mass"] = _f(stat["m"])
+        props["total CG"] = _np(stat["rCG"])
+        # ballast masses grouped by unique fill density (reference:
+        # raft_fowt.py:505-516)
+        mball = np.concatenate([np.atleast_1d(_np(m)) for m in stat["mballast"]]) \
+            if stat["mballast"] else np.zeros(0)
+        pball = np.concatenate([np.atleast_1d(_np(p)) for p in stat["pballast"]]) \
+            if stat["pballast"] else np.zeros(0)
+        pb = []
+        for p in pball:
+            if p != 0 and p not in pb:
+                pb.append(p)
+        props["ballast densities"] = np.asarray(pb)
+        props["ballast mass"] = np.asarray([mball[pball == p].sum() for p in pb])
+        props["roll inertia at subCG"] = _f(stat["Ixx_sub"])
+        props["pitch inertia at subCG"] = _f(stat["Iyy_sub"])
+        props["yaw inertia at subCG"] = _f(stat["Izz_sub"])
+        props["buoyancy (pgV)"] = fowt.rho_water * fowt.g * _f(stat["V"])
+        props["center of buoyancy"] = _np(stat["rCB"])
+        props["C hydrostatic"] = _np(stat["C_hydro"])
+        C_moor0 = getattr(self, "C_moor0", _np(state["C_moor"]))
+        props["C system"] = _np(stat["C_struc"] + stat["C_hydro"]) + C_moor0
+        props["F_lines0"] = getattr(self, "F_moor0", _np(state["F_moor0"]))
+        props["C_lines0"] = C_moor0
+        hc = state.get("hydro0")
+        A_morison = _np(hc["A_hydro_morison"]) if hc is not None \
+            else np.zeros((6, 6))
+        props["A matrix"] = A_morison
+        A_BEM, _ = bem_coeffs(fowt.bem, self.nw)
+        props["M support structure"] = _np(stat["M_struc_sub"])
+        props["A support structure"] = A_morison + _np(A_BEM[:, :, -1])
+        props["C support structure"] = _np(stat["C_struc_sub"] + stat["C_hydro"]) \
+            + C_moor0
+        return self.results
+
+
+def run_raft(design_or_path, ballast=False, device=None):
+    """Convenience entry point (reference: raft_model.py:2024-2061):
+    Model -> analyzeUnloaded -> analyzeCases -> calcOutputs.  A design
+    dict, a path to a YAML file, or the name of a vendored design."""
+    if isinstance(design_or_path, str):
+        from raft_tpu_torch.io.designs import load_design
+        design = load_design(design_or_path)
+    else:
+        design = design_or_path
+    model = Model(design, device=device)
+    model.analyzeUnloaded(ballast=1 if ballast else 0)
+    model.analyzeCases()
+    model.calcOutputs()
+    return model

@@ -1,0 +1,144 @@
+"""Build and load the hand-written CUDA kernels (route: nvcc by hand into
+a shared library with a plain C interface, loaded with ctypes).
+
+The library is compiled at first use from the sources in
+``raft_tpu_torch/csrc`` into ``build/raft_tpu_torch/<hash>/`` at the repo
+root (listed in .gitignore), keyed by a hash of the sources and the
+compiler flags, for ``sm_90a`` (Hopper).  ``-Xptxas -v`` output (registers
+and spills per kernel) is kept beside the library in ``ptxas.log``.
+
+Nothing here is imported or run at module import time of the package:
+the build happens inside the first kernel launch.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import re
+import shutil
+import subprocess
+import threading
+import time
+
+from raft_tpu_torch import errors
+
+_PKG = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+CSRC = os.path.join(_PKG, "csrc")
+SOURCES = ("gj_solve.cu", "gj_lane.cuh")
+BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "raft_tpu_torch")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LOCK = threading.Lock()
+_LIB = None
+#: facts of the build that produced the loaded library
+BUILD_INFO: dict = {}
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise errors.KernelFailure("nvcc not found: the CUDA kernels cannot be "
+                               "built", kernel="gj_solve")
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for name in SOURCES:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(name.encode())
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build() -> str:
+    """Compile the kernels (if not built for these sources yet) and return
+    the path of the shared library."""
+    out_dir = os.path.join(BUILD_ROOT, source_hash())
+    lib_path = os.path.join(out_dir, "libraft_gj.so")
+    if os.path.isfile(lib_path):
+        BUILD_INFO.update(path=lib_path, seconds=0.0, cached=True)
+        return lib_path
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = f"{lib_path}.tmp{os.getpid()}"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           os.path.join(CSRC, "gj_solve.cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "ptxas.log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise errors.KernelFailure(
+            "nvcc failed to build the gj_solve kernels:\n"
+            + (proc.stderr or proc.stdout)[-4000:],
+            kernel="gj_solve", returncode=proc.returncode)
+    os.replace(tmp, lib_path)
+    BUILD_INFO.update(path=lib_path, seconds=seconds, cached=False)
+    return lib_path
+
+
+def ptxas_log() -> str:
+    """The ``-Xptxas -v`` report of the loaded build ('' before a build)."""
+    path = BUILD_INFO.get("path")
+    if not path:
+        return ""
+    log = os.path.join(os.path.dirname(path), "ptxas.log")
+    if not os.path.isfile(log):
+        return ""
+    with open(log) as f:
+        return f.read()
+
+
+def ptxas_report() -> dict:
+    """``{kernel symbol: [ptxas lines]}`` parsed from the ``-Xptxas -v``
+    log of the loaded build (registers, stack frame, spill stores/loads
+    per instantiation)."""
+    out, cur = {}, None
+    for line in ptxas_log().splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?(\w+)'?", line)
+        if m:
+            cur = m.group(1)
+            out.setdefault(cur, [])
+            continue
+        if cur is not None and line.strip():
+            out[cur].append(line.strip().removeprefix("ptxas info    : "))
+    return out
+
+
+def load():
+    """The loaded kernel library (built on first call), with ``argtypes``
+    set on every entry point."""
+    global _LIB
+    with _LOCK:
+        if _LIB is not None:
+            return _LIB
+        path = build()
+        try:
+            lib = ctypes.CDLL(path)
+        except OSError as e:
+            raise errors.KernelFailure(f"cannot load {path}: {e}",
+                                       kernel="gj_solve") from e
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.raft_impedance_gj_f64.argtypes = [P, P, P, P, P, P, I, I, I, I, P]
+        lib.raft_impedance_gj_f64.restype = I
+        lib.raft_gj_solve_f64.argtypes = [P, P, P, I, I, I, I, P]
+        lib.raft_gj_solve_f64.restype = I
+        lib.raft_gj_error_string.argtypes = [I]
+        lib.raft_gj_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+        return lib
+
+
+def check(rc: int, kernel: str, **ctx):
+    """Raise KernelFailure for a non-zero cudaError_t from a launch."""
+    if rc != 0:
+        msg = _LIB.raft_gj_error_string(rc).decode() if _LIB else str(rc)
+        raise errors.KernelFailure(f"{kernel} launch failed: {msg}",
+                                   kernel=kernel, cuda_error=int(rc), **ctx)

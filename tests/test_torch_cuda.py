@@ -1,0 +1,81 @@
+"""The CUDA kernels on the card, against their plain PyTorch versions.
+
+These need an NVIDIA card: they carry the ``cuda`` marker and skip (from
+inside the fixture) where there is none.  They import neither JAX nor the
+JAX package, so on a machine with a card and without JAX they run as
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest`` because tests/conftest.py sets up JAX).
+"""
+import numpy as np
+import pytest
+import torch
+
+from raft_tpu_torch.ops.kernels import gj_solve as G
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the card: python -m pytest "
+                    "--noconftest -m cuda tests/test_torch_cuda.py)")
+    return torch.device("cuda")
+
+
+def _rel(a, b):
+    return float(torch.max(torch.abs(a - b)) / torch.max(torch.abs(b)))
+
+
+def _systems(rng, kind, B, n):
+    if kind == "random":
+        return rng.standard_normal((B, n, n)) + 5.0 * np.eye(n)
+    if kind == "pivoting":
+        P = np.stack([np.eye(n)[rng.permutation(n)] for _ in range(B)])
+        return P * rng.uniform(1.0, 3.0, (B, n, 1)) \
+            + 0.05 * rng.standard_normal((B, n, n)) * (P == 0)
+    return (0.1 * rng.standard_normal((B, n, n)) + np.eye(n)) \
+        * 10.0 ** rng.uniform(3, 10, (B, n, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "pivoting", "row_scales"])
+def test_kernels_match_plain_on_the_card(card, kind):
+    rng = np.random.default_rng(21)
+    G.reset_launches()
+    nb, n, nw = 3, 6, 80
+    w = torch.tensor(np.linspace(0.03, 2.5, nw), device=card)
+    M = torch.tensor(rng.standard_normal((nb, n, n, nw))
+                     + 5.0 * np.eye(n)[None, :, :, None], device=card)
+    B = torch.tensor(0.1 * rng.standard_normal((nb, n, n, nw)), device=card)
+    C = torch.tensor(_systems(rng, kind, nb, n) * 10.0, device=card)
+    F = torch.tensor(rng.standard_normal((nb, n, nw))
+                     + 1j * rng.standard_normal((nb, n, nw)), device=card)
+    X = G.impedance_gj_solve(w, M, B, C, F)
+    assert _rel(X, G.impedance_gj_solve_plain(w, M, B, C, F)) < 1e-10
+    A = torch.tensor(_systems(rng, kind, 80, 12), device=card)
+    b = torch.tensor(rng.standard_normal((80, 12, 6)), device=card)
+    x = G.gj_solve(A, b)
+    assert _rel(x, G.gj_solve_plain(A, b)) < 1e-10
+    # k not instantiated (3): solved as column chunks, same answer
+    x3 = G.gj_solve(A, b[..., :3])
+    assert _rel(x3, G.gj_solve_plain(A, b[..., :3])) < 1e-10
+    assert G.LAUNCHES == {"impedance_gj": 1, "gj_solve": 2}
+
+
+@pytest.mark.cuda
+def test_model_on_the_card_raises_nothing_and_launches(card):
+    from raft_tpu_torch import Model
+    from raft_tpu_torch.io.designs import load_design
+    from raft_tpu_torch.ops import linalg
+
+    d = load_design("OC3spar")
+    d["settings"].update(min_freq=0.02, max_freq=0.2)
+    d["cases"]["data"] = d["cases"]["data"][:1]
+    G.reset_launches()
+    m = Model(d)
+    m.analyzeCases()
+    assert m.device.type == "cuda"
+    assert G.LAUNCHES["impedance_gj"] > 0 and G.LAUNCHES["gj_solve"] > 0
+    assert linalg.last_dispatch()["backend"] == "cuda_gj"
+    assert np.all(np.isfinite(m.Xi))

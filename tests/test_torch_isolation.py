@@ -1,0 +1,63 @@
+"""The port stands alone: no JAX, nothing of the JAX package.
+
+``raft_tpu_torch`` (every module of it) and ``chip_smoke.py`` are
+imported in a fresh interpreter, which must then hold no ``jax*`` module
+and no ``raft_tpu`` / ``raft_tpu.*`` module (the pattern does not match
+``raft_tpu_torch``); and their sources must not import either.
+"""
+import json
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = re.compile(r"^(jax|jaxlib|raft_tpu)(\.|$)")
+IMPORT_RE = re.compile(
+    r"^\s*(?:import|from)\s+(jax|jaxlib|raft_tpu)(?:\.|\s|$)", re.M)
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+sys.path.insert(0, {root!r})
+import raft_tpu_torch
+for m in pkgutil.walk_packages(raft_tpu_torch.__path__, "raft_tpu_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+print(json.dumps(sorted(sys.modules)))
+"""
+
+
+def test_import_pulls_in_no_jax_and_no_jax_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _PROBE.format(root=ROOT)],
+                         capture_output=True, text=True, env=env,
+                         cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stderr
+    mods = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "raft_tpu_torch" in mods and "chip_smoke" in mods
+    bad = [m for m in mods if FORBIDDEN.match(m)]
+    assert not bad, bad
+
+
+def _sources():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(os.path.join(ROOT, "raft_tpu_torch")):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_source_has_no_jax_import(path):
+    with open(path) as f:
+        src = f.read()
+    assert not IMPORT_RE.findall(src), path
+
+
+def test_forbidden_pattern_spares_the_port():
+    assert FORBIDDEN.match("raft_tpu") and FORBIDDEN.match("raft_tpu.model")
+    assert FORBIDDEN.match("jax.numpy") and FORBIDDEN.match("jaxlib")
+    assert not FORBIDDEN.match("raft_tpu_torch")
+    assert not FORBIDDEN.match("raft_tpu_torch.model")
