@@ -6,23 +6,39 @@ Run from the repo root:  python3 chip_smoke.py
 Phases (any failure exits non-zero; no phase's failure is turned into a
 0 exit):
  1. device  — requires CUDA; prints the card's name and power limit;
- 2. build   — compiles the hand-written kernels (nvcc, sm_90a) from the
-              sources in raft_tpu_torch/csrc and prints the build time and
-              the -Xptxas -v register/spill lines;
+ 2. build   — compiles the hand-written kernels (nvcc, sm_90a; one nvcc
+              per translation unit, all started together) from the sources
+              in raft_tpu_torch/csrc and prints the build time and the
+              -Xptxas -v register/spill lines;
  3. kernels — holds each kernel against its plain PyTorch version on the
-              card (random well-conditioned systems, systems that need
-              pivoting, the mixed row-scale stressor) at the main path's
-              shapes and at the 5120-lane batched-sweep shape, and times
-              kernel, plain version and the torch.linalg.solve yardstick;
+              card: K1/K2 at float64 and float32, K3/K4 (the mixed ladder)
+              at the f32 and bf16 elimination widths with promoted counts
+              compared; random systems, systems that need pivoting, the
+              mixed row-scale stressor and SVD-conditioned (cond 1e9)
+              lanes mixed into well-conditioned ones; at 80, 5120 and
+              81,920 lanes (K2/K4: 80 and 5120, n = 12, k in {1, 6}); times
+              kernel, plain version and the torch.linalg.solve yardstick at
+              the main paths' shapes;
  4. main    — run_raft on OC3spar (its own 80-bin grid, 3 cases) and
-              VolturnUS-S (80 bins, 1 case) with the launch counters set to
-              0 just before and read just after; both kernels must launch;
- 5. golden  — reruns both designs on the golden grid (0.02-0.2 Hz, first
+              VolturnUS-S (80 bins, 1 case);
+ 5. sweep   — sweep_cases on OC3spar at its 80-bin grid, 1024 seeded cases
+              (Hs 1-12 m, Tp 4-18 s, heading 0-360 deg), nIter 10, tol 0.01,
+              in f64 and under RAFT_TPU_PRECISION=mixed; 8 lanes against
+              the serial solve (rtol 1e-9), mixed against f64 (std 1e-6,
+              iters and converged equal);
+ 6. variants — sweep_variants on VolturnUS-S over volturn_grid's 243
+              variants with the ballast trim (Hs 6, Tp 12, nIter 10,
+              newton_iters 20); 4 variants against the serial solve (rtol
+              1e-9), all finite, |heave of Xeq| < 0.05;
+ 7. golden  — reruns both designs on the golden grid (0.02-0.2 Hz, first
               case) and diffs the ledgers against tests/golden at 1e-6
               (solver residuals at 0.5; a residual below the golden one at
               the machine floor is an improvement, see
-              ledger.blocking_regressions), no added or removed metrics;
- 6. prints the kernels JSON line, the card line, and the final JSON line.
+              ledger.blocking_regressions), no added or removed metrics,
+              iteration counts exact; then again under mixed;
+ 8. prints the kernels JSON line, the card line, and the final JSON line.
+Each path of phases 4-7 runs with the launch counters set to 0 just
+before it and read just after; every kernel of a path must launch in it.
 
 Options: --only-kernels stops after phase 3; --out DIR sets where the full
 record (ptxas.log, chip_smoke.json) is written (default build/chip_smoke).
@@ -41,16 +57,27 @@ import time
 import numpy as np
 import torch
 
-#: the card's published peaks (NVIDIA H100 SXM data sheet): HBM3 at
-#: 3.35 TB/s; FP64 on the tensor cores at 67 TFLOP/s, the highest FP64
-#: rate the card has (the least time the work could take)
+#: the card's published peaks (NVIDIA H100 SXM data sheet, dense): HBM3
+#: at 3.35 TB/s; FP64 on the tensor cores at 67 TFLOP/s, the highest FP64
+#: rate the card has; FP32 outside the tensor cores at 67 TFLOP/s; bf16 on
+#: the tensor cores at 989 TFLOP/s (the least time the work could take)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP64_PER_S = 67e12
+PEAK_LOW_PER_S = {"f32": 67e12, "bf16": 989e12}
 
 X_TOL = 1e-10         # kernel vs plain version, max-abs relative
+X_TOL_F32 = 5e-3      # the float32 instantiations: f32 eps x cond of
+                      # the random draw (7.5e-4 seen at 81,920 lanes)
+RESID_TOL_F32 = 1e-5  # their normwise relative residual, at f32
+ILL_TOL = 1e9 * 2.2e-16 * 10   # promoted cond-1e9 lanes: cond * eps * 10
 RESID_TOL = 1e-13     # normwise relative residual of the kernel's answer
 GOLDEN_TOL = 1e-6
 GOLDEN_RESID_TOL = 0.5
+SWEEP_CASES = 1024
+SWEEP_SERIAL_LANES = 8
+SWEEP_RTOL = 1e-9
+MIXED_STD_RTOL = 1e-6
+VARIANT_SERIAL = 4
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 #: where the full record (ptxas report, per-shape kernel rows, main-path
@@ -101,8 +128,11 @@ def time_ms(fn, reps=30, warmup=3) -> float:
 
 def device_ms(fn, kernel_substr, reps=20):
     """Device time per launch of the CUDA kernel whose name contains
-    ``kernel_substr``, from torch.profiler's CUDA activity (None when the
-    profiler sees no device time)."""
+    ``kernel_substr`` (or any of a tuple of substrings: the demangled and
+    the mangled spelling), from torch.profiler's CUDA activity (None when
+    the profiler sees no device time)."""
+    subs = (kernel_substr,) if isinstance(kernel_substr, str) \
+        else tuple(kernel_substr)
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -116,7 +146,7 @@ def device_ms(fn, kernel_substr, reps=20):
         return None
     tot, n = 0.0, 0
     for ev in prof.key_averages():
-        if kernel_substr in ev.key:
+        if any(sub in ev.key for sub in subs):
             t = getattr(ev, "device_time_total", None)
             if t is None:
                 t = getattr(ev, "cuda_time_total", 0.0)
@@ -142,13 +172,30 @@ def gj_flops(S, K, refine=1):
     return scale + elim * (1 + refine) + refine * resid
 
 
+def ladder_flops(S, K, lanes, promoted, refine=2):
+    """(FP64, low-width) operations of the mixed ladder over ``lanes``
+    systems of size S with K right-hand sides: equilibration, the
+    residuals and corrections at FP64, 1 + refine eliminations at the low
+    width, and a full FP64 solve (refine passes) for each of this run's
+    ``promoted`` lanes."""
+    W = S + K
+    elim = sum((W - kk - 1) * (1 + 2 * (S - 1)) for kk in range(S))
+    resid = 2 * S * S * K + 2 * S * K
+    f64 = lanes * (S * W + S + (refine + 1) * resid) \
+        + promoted * gj_flops(S, K, refine)
+    return f64, lanes * (1 + refine) * elim
+
+
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bound(bytes_, flops):
+def bound(bytes_, flops, low_flops=0, low="f32"):
+    """(ms, "bytes" | "operations"): the larger of the bytes over the
+    memory rate and the operations over the peak rate of their type
+    (FP64, plus the low-width elimination at PEAK_LOW_PER_S[low])."""
     tb = bytes_ / PEAK_BYTES_PER_S * 1e3
-    tf = flops / PEAK_FP64_PER_S * 1e3
+    tf = (flops / PEAK_FP64_PER_S + low_flops / PEAK_LOW_PER_S[low]) * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -180,32 +227,55 @@ def _pivot_stack(g, lanes, n, dev):
     return (P * scale + noise).to(dev)
 
 
+def _svd_ill(A, every, g, cond=1e9):
+    """Rewrite systems 0, every, 2*every, ... of A (lanes, n, n) to
+    condition number ``cond`` through their SVD: the f32 rung cannot
+    refine those below the promotion tolerance, so they must promote."""
+    A = A.clone()
+    n = A.shape[-1]
+    idx = torch.arange(0, A.shape[0], every)
+    U, _, Vh = torch.linalg.svd(A[idx])
+    sv = torch.logspace(0.0, -math.log10(cond), n, dtype=torch.float64)
+    A[idx] = (U * sv) @ Vh
+    return A, idx
+
+
 def impedance_inputs(g, nb, nw, n, kind, dev):
+    """K1/K3 operands: w (nw,), M, B (nb, n, n, nw), C (nb, n, n),
+    F (nb, n, nw), and the case indices made ill ("svd_ill": Z = C with
+    cond 1e9 at every bin of every 16th case)."""
     f64 = dict(dtype=torch.float64, generator=g)
     w = torch.linspace(0.005, 0.4, nw, dtype=torch.float64) * 2 * math.pi
-    shape_b = (nb,) if nb > 1 else ()
-    M = torch.randn(shape_b + (n, n, nw), **f64) \
+    M = torch.randn((nb, n, n, nw), **f64) \
         + 5.0 * torch.eye(n, dtype=torch.float64)[:, :, None]
-    B = 0.1 * torch.randn(shape_b + (n, n, nw), **f64)
-    C = torch.randn(shape_b + (n, n), **f64) + 10.0 * torch.eye(n, dtype=torch.float64)
-    F = torch.complex(torch.randn(shape_b + (n, nw), **f64),
-                      torch.randn(shape_b + (n, nw), **f64))
+    B = 0.1 * torch.randn((nb, n, n, nw), **f64)
+    C = torch.randn((nb, n, n), **f64) + 10.0 * torch.eye(n, dtype=torch.float64)
+    F = torch.complex(torch.randn((nb, n, nw), **f64),
+                      torch.randn((nb, n, nw), **f64))
+    ill = torch.zeros(0, dtype=torch.long)
     if kind == "pivoting":
-        P = _pivot_stack(g, max(nb, 1), n, "cpu").reshape(shape_b + (n, n))
-        C = 10.0 * P
+        C = 10.0 * _pivot_stack(g, nb, n, "cpu")
         M = 0.01 * M
         B = 0.01 * B
     elif kind == "row_scales":
-        s = 10.0 ** (3.0 + 7.0 * torch.rand(shape_b + (n, 1), **f64))
+        s = 10.0 ** (3.0 + 7.0 * torch.rand((nb, n, 1), **f64))
         M = M * s[..., None]
         B = B * s[..., None]
         C = C * s
         F = F * 1e6
-    return [t.to(dev) for t in (w, M, B, C, F)]
+    elif kind == "svd_ill":
+        C, ill = _svd_ill(C, 16, g)
+        M[ill] = 0.0
+        B[ill] = 0.0
+    return [t.to(dev) for t in (w, M, B, C, F)], ill
 
 
 def gj_inputs(g, lanes, n, k, kind, dev):
+    """K2/K4 operands A (lanes, n, n), b (lanes, n, k), the complex Z of
+    the main path's inv_complex ("inv_complex") and the ill lane
+    indices ("svd_ill": every 16th lane at cond 1e9)."""
     f64 = dict(dtype=torch.float64, generator=g)
+    ill = torch.zeros(0, dtype=torch.long)
     if kind == "inv_complex":
         # the main path's use: the real embedding of inv(Z), Z (lanes,6,6)
         m = n // 2
@@ -216,7 +286,7 @@ def gj_inputs(g, lanes, n, k, kind, dev):
                        torch.cat([Z.imag, Z.real], -1)], -2)
         b = torch.cat([torch.eye(m, dtype=torch.float64).expand(lanes, m, m),
                        torch.zeros((lanes, m, m), dtype=torch.float64)], -2)
-        return A.to(dev), b.contiguous().to(dev), Z.to(dev)
+        return A.to(dev), b[..., :k].contiguous().to(dev), Z.to(dev), ill
     if kind == "pivoting":
         A = _pivot_stack(g, lanes, n, "cpu")
     elif kind == "row_scales":
@@ -224,157 +294,531 @@ def gj_inputs(g, lanes, n, k, kind, dev):
             * 10.0 ** (3.0 + 7.0 * torch.rand((lanes, n, 1), **f64))
     else:
         A = torch.randn((lanes, n, n), **f64) + 5.0 * torch.eye(n, dtype=torch.float64)
+        if kind == "svd_ill":
+            A, ill = _svd_ill(A, 16, g)
     b = torch.randn((lanes, n, k), **f64) * 1e3
-    return A.to(dev), b.to(dev), None
+    return A.to(dev), b.to(dev), None, ill
+
+
+#: rows of the kernel phase, per kernel key of the launch counters
+ROWS: dict = {}
+
+#: per kernel key: the profiler's names for it (demangled, mangled)
+KERNEL_NAMES = {
+    "impedance_gj": ("impedance_kernel<double, double", "impedance_kernelIddLi"),
+    "impedance_gj_f32": ("impedance_kernel<float, float", "impedance_kernelIffLi"),
+    "impedance_gj_mixed": ("impedance_kernel<double, float", "impedance_kernelIdfLi"),
+    "impedance_gj_mixed_bf16": ("impedance_kernel<double, gjl::bf16r",
+                                "impedance_kernelIdN3gjl5bf16rE"),
+    "gj_solve": ("gj_kernel<double, double", "gj_kernelIddLi"),
+    "gj_solve_f32": ("gj_kernel<float, float", "gj_kernelIffLi"),
+    "gj_solve_mixed": ("gj_kernel<double, float", "gj_kernelIdfLi"),
+    "gj_solve_mixed_bf16": ("gj_kernel<double, gjl::bf16r",
+                            "gj_kernelIdN3gjl5bf16rE"),
+}
+
+
+def _split_rel(X, Xp, ill, case_axis=0):
+    """(rel of the well lanes, rel of the ill lanes or 0.0)."""
+    if len(ill) == 0:
+        return _rel(X, Xp), 0.0
+    keep = torch.ones(X.shape[case_axis], dtype=torch.bool)
+    keep[ill] = False
+    keep = keep.to(X.device)
+    return _rel(X[keep], Xp[keep]), _rel(X[ill.to(X.device)],
+                                         Xp[ill.to(X.device)])
+
+
+def _time_row(row, call, plain, library, names):
+    row["ms"] = time_ms(call)
+    row["device_ms"] = device_ms(call, names)
+    row["plain_ms"] = time_ms(plain, reps=3, warmup=1)
+    row["library_ms"] = time_ms(library)
+
+
+def _log_row(key, row):
+    extra = ""
+    if "ms" in row:
+        extra = (f" | kernel {row['ms']:.4f} ms (device {row['device_ms']})"
+                 f"  plain {row['plain_ms']:.3f} ms"
+                 f"  torch.linalg.solve {row['library_ms']:.4f} ms"
+                 f"  bound {row['bound_ms']:.2e} ms ({row['bound_by']})")
+    prom = (f" promoted {row['promoted']}/{row['promoted_plain']}"
+            if "promoted" in row else "")
+    log(f"  {key:24s} {row['case']:11s} lanes={row['lanes']:6d}"
+        f" k={row.get('k', 1)} rel={row['rel_vs_plain']:.2e}"
+        + (f" ill_rel={row['rel_ill']:.2e}" if row.get("rel_ill") else "")
+        + prom + extra)
+
+
+def check_impedance(G, g, dev, width):
+    """K1 (width "f64" / "f32") or K3 ("mixed_f32" / "mixed_bf16")."""
+    n = 6
+    fd = {"mixed_f32": torch.float32, "mixed_bf16": torch.bfloat16}.get(width)
+    key = {"f64": "impedance_gj", "f32": "impedance_gj_f32",
+           "mixed_f32": "impedance_gj_mixed",
+           "mixed_bf16": "impedance_gj_mixed_bf16"}[width]
+    kinds = ["random", "pivoting", "row_scales"] + (["svd_ill"] if fd else [])
+    shapes = ((1, 80), (64, 80), (1024, 80)) if width != "f64" \
+        else ((1, 80), (3, 80), (64, 80), (1024, 80))
+    rows = ROWS.setdefault(key, [])
+    for nb, nw in shapes:
+        for kind in kinds:
+            if kind == "svd_ill" and nb == 1:
+                nb_, nw_ = 8, 10       # 80 lanes with one ill case
+            else:
+                nb_, nw_ = nb, nw
+            (w, M, B, C, F), ill = impedance_inputs(g, nb_, nw_, n, kind, dev)
+            if width == "f32":
+                w, M, B, C = (t.float() for t in (w, M, B, C))
+                F = F.to(torch.complex64)
+            kw = dict(refine=2, precision="mixed", factor_dtype=fd,
+                      return_stats=True) if fd else {}
+            out = G.impedance_gj_solve(w, M, B, C, F, **kw)
+            outp = G.impedance_gj_solve_plain(w, M, B, C, F, **kw)
+            torch.cuda.synchronize()
+            (X, st), (Xp, stp) = (out, outp) if fd else ((out, None),
+                                                         (outp, None))
+            rel, rel_ill = _split_rel(X, Xp, ill)
+            lanes = nb_ * nw_
+            row = dict(lanes=lanes, case=kind, rel_vs_plain=rel,
+                       rel_ill=rel_ill,
+                       max_abs_err=float(torch.max(torch.abs(X - Xp))))
+            tol = X_TOL_F32 if width == "f32" else X_TOL
+            ok = rel <= tol and rel_ill <= ILL_TOL \
+                and bool(torch.all(torch.isfinite(X)))
+            if width in ("f64", "f32"):
+                Z = (-(w ** 2) * M + 1j * w * B + C[..., None]).movedim(-1, -3)
+                row["normwise_residual"] = _normwise_residual(
+                    Z, X.movedim(-1, -2)[..., None], F.movedim(-1, -2)[..., None])
+                ok = ok and row["normwise_residual"] <= (
+                    RESID_TOL if width == "f64" else RESID_TOL_F32)
+            if fd:
+                row["promoted"] = int(st["promoted"])
+                row["promoted_plain"] = int(stp["promoted"])
+                row["resid_max"] = float(st["resid_max"])
+                ok = ok and row["promoted"] == row["promoted_plain"] \
+                    and row["promoted"] >= len(ill) * nw_
+            if not ok:
+                fail(f"{key} {kind} lanes={lanes}: rel={rel:.3e} "
+                     f"ill={rel_ill:.3e} {row.get('promoted')}/"
+                     f"{row.get('promoted_plain')}")
+            if kind == "random" and nb in (1, 1024):
+                Z = (-(w ** 2) * M + 1j * w * B + C[..., None]).movedim(-1, -3)
+                Z = Z.to(torch.complex128)
+                Fz = F.movedim(-1, -2)[..., None].to(torch.complex128)
+                kwt = {k: v for k, v in kw.items() if k != "return_stats"}
+                _time_row(row, lambda: G.impedance_gj_solve(w, M, B, C, F, **kwt),
+                          lambda: G.impedance_gj_solve_plain(w, M, B, C, F, **kwt),
+                          lambda: torch.linalg.solve(Z, Fz), KERNEL_NAMES[key])
+                byts = nbytes(w, M, B, C, F, X)
+                if fd:
+                    f64_ops, low_ops = ladder_flops(2 * n, 1, lanes,
+                                                    row["promoted"])
+                    row["bound_ms"], row["bound_by"] = bound(
+                        byts + 8 * lanes, f64_ops + lanes * 8 * n * n,
+                        low_ops, width.split("_")[1])
+                    row["peak_rates"] = dict(
+                        fp64=PEAK_FP64_PER_S,
+                        low=PEAK_LOW_PER_S[width.split("_")[1]])
+                else:
+                    flops = lanes * (gj_flops(2 * n, 1) + 8 * n * n)
+                    if width == "f32":
+                        row["bound_ms"], row["bound_by"] = bound(
+                            byts, 0, flops, "f32")
+                    else:
+                        row["bound_ms"], row["bound_by"] = bound(byts, flops)
+            rows.append(row)
+            _log_row(key, row)
+
+
+def check_gj(G, g, dev, width):
+    """K2 (width "f64" / "f32") or K4 ("mixed_f32" / "mixed_bf16")."""
+    n = 12
+    fd = {"mixed_f32": torch.float32, "mixed_bf16": torch.bfloat16}.get(width)
+    key = {"f64": "gj_solve", "f32": "gj_solve_f32",
+           "mixed_f32": "gj_solve_mixed",
+           "mixed_bf16": "gj_solve_mixed_bf16"}[width]
+    kinds = ["inv_complex", "random", "pivoting", "row_scales"] \
+        + (["svd_ill"] if fd else [])
+    rows = ROWS.setdefault(key, [])
+    for lanes in (80, 5120):
+        for k in (6, 1):
+            for kind in kinds:
+                if kind == "inv_complex" and k != 6:
+                    continue
+                A, b, Z, ill = gj_inputs(g, lanes, n, k, kind, dev)
+                if width == "f32":
+                    A, b = A.float(), b.float()
+                kw = dict(refine=2, precision="mixed", factor_dtype=fd,
+                          return_stats=True) if fd else {}
+                out = G.gj_solve(A, b, **kw)
+                outp = G.gj_solve_plain(A, b, **kw)
+                torch.cuda.synchronize()
+                (x, st), (xp, stp) = (out, outp) if fd else ((out, None),
+                                                             (outp, None))
+                rel, rel_ill = _split_rel(x, xp, ill)
+                row = dict(lanes=lanes, k=k, case=kind, rel_vs_plain=rel,
+                           rel_ill=rel_ill,
+                           max_abs_err=float(torch.max(torch.abs(x - xp))))
+                tol = X_TOL_F32 if width == "f32" else X_TOL
+                ok = rel <= tol and rel_ill <= ILL_TOL \
+                    and bool(torch.all(torch.isfinite(x)))
+                if width in ("f64", "f32"):
+                    row["normwise_residual"] = _normwise_residual(A, x, b)
+                    ok = ok and row["normwise_residual"] <= (
+                        RESID_TOL if width == "f64" else RESID_TOL_F32)
+                if fd:
+                    row["promoted"] = int(st["promoted"])
+                    row["promoted_plain"] = int(stp["promoted"])
+                    row["resid_max"] = float(st["resid_max"])
+                    ok = ok and row["promoted"] == row["promoted_plain"] \
+                        and row["promoted"] >= len(ill)
+                if not ok:
+                    fail(f"{key} {kind} lanes={lanes} k={k}: rel={rel:.3e} "
+                         f"ill={rel_ill:.3e} {row.get('promoted')}/"
+                         f"{row.get('promoted_plain')}")
+                if kind == "inv_complex":
+                    eye = torch.eye(6, dtype=torch.complex128,
+                                    device=dev).expand(lanes, 6, 6)
+                    kwt = {kk: v for kk, v in kw.items() if kk != "return_stats"}
+                    _time_row(row, lambda: G.gj_solve(A, b, **kwt),
+                              lambda: G.gj_solve_plain(A, b, **kwt),
+                              lambda: torch.linalg.solve(Z, eye),
+                              KERNEL_NAMES[key])
+                    byts = nbytes(A, b, x)
+                    if fd:
+                        f64_ops, low_ops = ladder_flops(n, k, lanes,
+                                                        row["promoted"])
+                        row["bound_ms"], row["bound_by"] = bound(
+                            byts + 8 * lanes, f64_ops, low_ops,
+                            width.split("_")[1])
+                        row["peak_rates"] = dict(
+                            fp64=PEAK_FP64_PER_S,
+                            low=PEAK_LOW_PER_S[width.split("_")[1]])
+                    elif width == "f32":
+                        row["bound_ms"], row["bound_by"] = bound(
+                            byts, 0, lanes * gj_flops(n, k), "f32")
+                    else:
+                        row["bound_ms"], row["bound_by"] = bound(
+                            byts, lanes * gj_flops(n, k))
+                rows.append(row)
+                _log_row(key, row)
 
 
 def check_kernels(dev):
     from raft_tpu_torch.ops.kernels import gj_solve as G
 
     g = torch.Generator().manual_seed(1234)
-    rows = {"impedance_gj": [], "gj_solve": []}
-    n = 6
-    for nb, nw in ((1, 80), (3, 80), (64, 80)):
-        lanes = nb * nw
-        for kind in ("random", "pivoting", "row_scales"):
-            w, M, B, C, F = impedance_inputs(g, nb, nw, n, kind, dev)
-            X = G.impedance_gj_solve(w, M, B, C, F)
-            Xp = G.impedance_gj_solve_plain(w, M, B, C, F)
-            torch.cuda.synchronize()
-            Z = (-(w ** 2) * M + 1j * w * B + C[..., None]).movedim(-1, -3)
-            Fz = F.movedim(-1, -2)[..., None]
-            rel = _rel(X, Xp)
-            res = _normwise_residual(Z, X.movedim(-1, -2)[..., None], Fz)
-            err = float(torch.max(torch.abs(X - Xp)))
-            ok = rel <= X_TOL and res <= RESID_TOL and bool(torch.all(torch.isfinite(X)))
-            if not ok:
-                fail(f"impedance_gj {kind} lanes={lanes}: rel={rel:.3e} "
-                     f"resid={res:.3e}")
-            row = dict(lanes=lanes, case=kind, rel_vs_plain=rel,
-                       normwise_residual=res, max_abs_err=err)
-            if kind == "random":
-                row["ms"] = time_ms(lambda: G.impedance_gj_solve(w, M, B, C, F))
-                row["device_ms"] = device_ms(
-                    lambda: G.impedance_gj_solve(w, M, B, C, F),
-                    "impedance_gj_kernel")
-                row["plain_ms"] = time_ms(
-                    lambda: G.impedance_gj_solve_plain(w, M, B, C, F), reps=5)
-                row["library_ms"] = time_ms(lambda: torch.linalg.solve(Z, Fz))
-                flops = lanes * (gj_flops(2 * n, 1) + 2 * 4 * n * n)
-                row["bound_ms"], row["bound_by"] = bound(
-                    nbytes(w, M, B, C, F, X), flops)
-            rows["impedance_gj"].append(row)
-            log(f"  impedance_gj {kind:10s} lanes={lanes:5d} rel={rel:.2e} "
-                f"resid={res:.2e}"
-                + (f" kernel {row['ms']:.4f} ms (device {row['device_ms']})"
-                   f"  plain {row['plain_ms']:.3f} ms"
-                   f"  torch.linalg.solve {row['library_ms']:.4f} ms"
-                   f"  bound {row['bound_ms']:.2e} ms ({row['bound_by']})"
-                   if "ms" in row else ""))
-
-    for lanes in (80, 5120):
-        for kind in ("inv_complex", "random", "pivoting", "row_scales"):
-            A, b, Z = gj_inputs(g, lanes, 12, 6, kind, dev)
-            x = G.gj_solve(A, b)
-            xp = G.gj_solve_plain(A, b)
-            torch.cuda.synchronize()
-            rel = _rel(x, xp)
-            res = _normwise_residual(A, x, b)
-            err = float(torch.max(torch.abs(x - xp)))
-            ok = rel <= X_TOL and res <= RESID_TOL and bool(torch.all(torch.isfinite(x)))
-            if not ok:
-                fail(f"gj_solve {kind} lanes={lanes}: rel={rel:.3e} resid={res:.3e}")
-            row = dict(lanes=lanes, case=kind, rel_vs_plain=rel,
-                       normwise_residual=res, max_abs_err=err)
-            if kind == "inv_complex":
-                eye = torch.eye(6, dtype=torch.complex128, device=dev).expand(lanes, 6, 6)
-                row["ms"] = time_ms(lambda: G.gj_solve(A, b))
-                row["device_ms"] = device_ms(lambda: G.gj_solve(A, b),
-                                             "gj_kernel")
-                row["plain_ms"] = time_ms(lambda: G.gj_solve_plain(A, b), reps=5)
-                row["library_ms"] = time_ms(lambda: torch.linalg.solve(Z, eye))
-                row["bound_ms"], row["bound_by"] = bound(
-                    nbytes(A, b, x), lanes * gj_flops(12, 6))
-            rows["gj_solve"].append(row)
-            log(f"  gj_solve     {kind:11s} lanes={lanes:5d} rel={rel:.2e} "
-                f"resid={res:.2e}"
-                + (f" kernel {row['ms']:.4f} ms (device {row['device_ms']})"
-                   f"  plain {row['plain_ms']:.3f} ms"
-                   f"  torch.linalg.solve {row['library_ms']:.4f} ms"
-                   f"  bound {row['bound_ms']:.2e} ms ({row['bound_by']})"
-                   if "ms" in row else ""))
-    return rows
+    for width in ("f64", "f32", "mixed_f32", "mixed_bf16"):
+        check_impedance(G, g, dev, width)
+        check_gj(G, g, dev, width)
+    return ROWS
 
 
 # ---------------------------------------------------------------------------
-# phases 4-5: the main path and the goldens
+# phases 4-7: the paths, each with its own launch counts
 # ---------------------------------------------------------------------------
+
+#: launches per path, read just after it ran (counters set to 0 just
+#: before it)
+PATH_LAUNCHES: dict = {}
+
+
+def counted(path, expect):
+    """Context: set every launch counter to 0, run the path, read the
+    counts into PATH_LAUNCHES[path]; fail if a kernel in ``expect`` did
+    not launch."""
+    import contextlib
+
+    from raft_tpu_torch.ops.kernels import gj_solve as G
+
+    @contextlib.contextmanager
+    def cm():
+        G.reset_launches()
+        yield
+        torch.cuda.synchronize()
+        got = {k: v for k, v in G.LAUNCHES.items() if v}
+        PATH_LAUNCHES[path] = got
+        log(f"  [{path}] launches {got}")
+        for k in expect:
+            if got.get(k, 0) <= 0:
+                fail(f"kernel {k} was never launched on the {path} path")
+    return cm()
+
 
 def run_main(dev):
     from raft_tpu_torch import run_raft
     from raft_tpu_torch.io.designs import load_design
     from raft_tpu_torch.ops import linalg
-    from raft_tpu_torch.ops.kernels import gj_solve as G
 
     per_design = {}
-    G.reset_launches()
-    for name in ("OC3spar", "VolturnUS-S"):
-        before = dict(G.LAUNCHES)
+    with counted("run_raft", ("impedance_gj", "gj_solve")):
+        for name in ("OC3spar", "VolturnUS-S"):
+            t0 = time.perf_counter()
+            model = run_raft(load_design(name), device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            disp = linalg.last_dispatch()
+            cm = model.results["case_metrics"]
+            finite = bool(np.all(np.isfinite(model.Xi))) and all(
+                np.isfinite(c[0][f"{ch}_std"]) for c in cm.values()
+                for ch in ("surge", "sway", "heave", "roll", "pitch", "yaw"))
+            log(f"  {name}: {len(cm)} case(s) x {model.nw} bins in "
+                f"{wall:.2f} s (statics {model.timings['statics']:.2f} s, "
+                f"dynamics {model.timings['dynamics']:.2f} s, outputs "
+                f"{model.timings['outputs']:.2f} s); last dispatch {disp}")
+            log(f"    surge std per case: "
+                f"{[round(float(c[0]['surge_std']), 6) for c in cm.values()]}, "
+                f"statics iters {[model._case_records[str(i)]['statics_iters'] for i in cm]}, "
+                f"drag iters {[model._case_records[str(i)]['fowt0']['drag_iters'] for i in cm]}")
+            if not finite:
+                fail(f"{name}: non-finite outputs")
+            if disp.get("backend") != "cuda_gj" or disp.get("kernel") != "gj_solve":
+                fail(f"{name}: last dispatch {disp} does not name the CUDA kernel")
+            per_design[name] = dict(wall_s=wall, timings=dict(model.timings),
+                                    ncases=len(cm), nw=model.nw)
+    return per_design
+
+
+def _allclose(a, b, rtol, atol=1e-12) -> bool:
+    return bool(torch.all(torch.abs(a - b) <= atol + rtol * torch.abs(b)))
+
+
+def device_busy(fn):
+    """Run ``fn`` once under torch.profiler (CPU + CUDA activity) and
+    return its wall (sync, profiler on), the summed self device time of
+    every kernel, the busy share (device / wall) and the six kernels with
+    the most device time; None where the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    except (RuntimeError, AttributeError):
+        return None
+    dev_us, top = 0.0, []
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = getattr(ev, "self_cuda_time_total", 0.0)
+        if t > 0:
+            dev_us += t
+            top.append((t / 1e3, ev.count, ev.key[:70]))
+    if dev_us <= 0:
+        return None
+    top.sort(reverse=True)
+    return dict(wall_s=wall, device_s=dev_us / 1e6,
+                busy_share=dev_us / 1e6 / wall,
+                top=[dict(ms=t, count=c, kernel=k) for t, c, k in top[:6]])
+
+
+def run_sweeps(dev):
+    """sweep_cases on OC3spar, 1024 seeded cases, in f64 and mixed."""
+    from raft_tpu_torch import _config
+    from raft_tpu_torch.parallel.sweep import (
+        design_fowt, make_case_solver, sweep_cases)
+
+    rng = np.random.default_rng(2026)
+    nc = SWEEP_CASES
+    Hs = 1.0 + 11.0 * rng.random(nc)
+    Tp = 4.0 + 14.0 * rng.random(nc)
+    beta = np.deg2rad(360.0 * rng.random(nc))
+    t0 = time.perf_counter()
+    fowt = design_fowt("OC3spar", dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    # a small sweep first: the one-time CUDA library and allocator set-up
+    # of the sweep's operators is not the sweep's wall
+    t0 = time.perf_counter()
+    sweep_cases(fowt, Hs[:8], Tp[:8], beta[:8], nIter=10, tol=0.01)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    res = {"ncases": nc, "nw": fowt.nw, "build_s": build_s,
+           "warmup_8_cases_s": warm_s}
+    log(f"  sweep set-up: OC3spar build {build_s:.2f} s, 8-case warm-up "
+        f"{warm_s:.2f} s")
+    outs = {}
+    for mode, expect in (("f64", "impedance_gj"),
+                         ("mixed", "impedance_gj_mixed")):
+        _config.set_precision_mode(mode)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            with counted(f"sweep_{mode}", (expect,)):
+                t0 = time.perf_counter()
+                out = sweep_cases(fowt, Hs, Tp, beta, nIter=10, tol=0.01)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            _config.set_precision_mode(None)
+        iters = out["iters"].cpu().numpy()
+        hist = np.bincount(iters, minlength=11).tolist()
+        conv = int(out["converged"].sum())
+        finite = bool(torch.all(torch.isfinite(out["std"])))
+        res[mode] = dict(wall_s=wall, fp_chunks=out["fp_chunks"],
+                         iters_hist=hist, converged=conv,
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                         launches=PATH_LAUNCHES[f"sweep_{mode}"])
+        log(f"  sweep {mode}: {nc} cases x {fowt.nw} bins in {wall:.3f} s "
+            f"(sync); fp_chunks {out['fp_chunks']}; iters histogram "
+            f"{hist}; converged {conv}/{nc}; peak "
+            f"{res[mode]['peak_gib']:.2f} GiB")
+        if not finite or out["std"].shape != (nc, 6):
+            fail(f"sweep {mode}: non-finite or misshapen std")
+        outs[mode] = out
+    # 8 lanes against the serial per-case solve
+    solver = make_case_solver(fowt, nIter=10, tol=0.01)
+    worst = 0.0
+    for i in range(SWEEP_SERIAL_LANES):
+        ref = solver(float(Hs[i]), float(Tp[i]), float(beta[i]))
+        for key in ("Xi", "std"):
+            a, b = outs["f64"][key][i], ref[key]
+            worst = max(worst, float(torch.max(torch.abs(a - b)
+                                               / (torch.abs(b) + 1e-12))))
+            if not _allclose(a, b, SWEEP_RTOL):
+                fail(f"sweep lane {i} {key} differs from the serial solve")
+    # mixed against f64
+    f, m = outs["f64"], outs["mixed"]
+    std_rel = float(torch.max(torch.abs(m["std"] - f["std"])
+                              / torch.abs(f["std"]).clamp(min=1e-300)))
+    same_iters = bool(torch.equal(m["iters"], f["iters"]))
+    same_conv = bool(torch.equal(m["converged"], f["converged"]))
+    log(f"  sweep checks: serial vs batched worst rel {worst:.2e} over "
+        f"{SWEEP_SERIAL_LANES} lanes; mixed vs f64 std rel {std_rel:.2e}, "
+        f"iters equal {same_iters}, converged equal {same_conv}")
+    if std_rel > MIXED_STD_RTOL or not same_iters or not same_conv:
+        fail(f"sweep mixed vs f64: std rel {std_rel:.2e}, iters equal "
+             f"{same_iters}, converged equal {same_conv}")
+    res.update(serial_worst_rel=worst, mixed_std_rel=std_rel,
+               mixed_iters_equal=same_iters, mixed_converged_equal=same_conv)
+    # where the f64 sweep's time goes: one more run under the profiler
+    prof = device_busy(lambda: sweep_cases(fowt, Hs, Tp, beta, nIter=10,
+                                           tol=0.01))
+    res["f64_profile"] = prof
+    if prof is None:
+        log("  sweep profile: the profiler saw no device time")
+    else:
+        log(f"  sweep profile (f64, profiler on): wall {prof['wall_s']:.3f} s, "
+            f"kernels {prof['device_s']:.3f} s, device busy share "
+            f"{prof['busy_share']:.3f}; top: "
+            + "; ".join(f"{t['kernel']} {t['ms']:.2f} ms x{t['count']}"
+                        for t in prof["top"]))
+    return res
+
+
+def run_variants(dev):
+    """sweep_variants on VolturnUS-S over volturn_grid's 243 variants."""
+    from raft_tpu_torch.io.designs import load_design
+    from raft_tpu_torch.parallel import variants as vr
+    from raft_tpu_torch.parallel.sweep import design_fowt
+
+    design = load_design("VolturnUS-S")
+    thetas, meta = vr.volturn_grid(design)
+    nv = len(meta["grid"])
+    base = design_fowt(design, dev)
+    kw = dict(Hs=6.0, Tp=12.0, ballast=True, nIter=10, newton_iters=20)
+    torch.cuda.reset_peak_memory_stats()
+    with counted("variants", ("impedance_gj",)):
         t0 = time.perf_counter()
-        model = run_raft(load_design(name), device=dev)
+        out = vr.sweep_variants(base, thetas, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {k: G.LAUNCHES[k] - before[k] for k in G.LAUNCHES}
-        disp = linalg.last_dispatch()
-        cm = model.results["case_metrics"]
-        finite = bool(np.all(np.isfinite(model.Xi))) and all(
-            np.isfinite(c[0][f"{ch}_std"]) for c in cm.values()
-            for ch in ("surge", "sway", "heave", "roll", "pitch", "yaw"))
-        log(f"  {name}: {len(cm)} case(s) x {model.nw} bins in {wall:.2f} s "
-            f"(statics {model.timings['statics']:.2f} s, dynamics "
-            f"{model.timings['dynamics']:.2f} s, outputs "
-            f"{model.timings['outputs']:.2f} s); launches {launches}; "
-            f"last dispatch {disp}")
-        log(f"    surge std per case: "
-            f"{[round(float(c[0]['surge_std']), 6) for c in cm.values()]}, "
-            f"statics iters {[model._case_records[str(i)]['statics_iters'] for i in cm]}, "
-            f"drag iters {[model._case_records[str(i)]['fowt0']['drag_iters'] for i in cm]}")
-        if not finite:
-            fail(f"{name}: non-finite outputs")
-        if disp.get("backend") != "cuda_gj" or disp.get("kernel") != "gj_solve":
-            fail(f"{name}: last dispatch {disp} does not name the CUDA kernel")
-        per_design[name] = dict(wall_s=wall, timings=dict(model.timings),
-                                launches=launches, ncases=len(cm), nw=model.nw)
-    total = dict(G.LAUNCHES)
-    for k, v in total.items():
-        if v <= 0:
-            fail(f"kernel {k} was never launched on the main path")
-    return per_design, total
+    finite = all(bool(torch.all(torch.isfinite(out[k]))) for k in
+                 ("mass", "displacement", "GMT", "offset", "pitch_deg",
+                  "Xeq", "std"))
+    heave = float(torch.max(torch.abs(out["Xeq"][:, 2])))
+    res = dict(nvariants=nv, nw=base.nw, wall_s=wall,
+               timings=out["timings"], fp_chunks=out["fp_chunks"],
+               iters_hist=np.bincount(out["iters"].cpu().numpy(),
+                                      minlength=12).tolist(),
+               converged=int(out["converged"].sum()), heave_max=heave,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=PATH_LAUNCHES["variants"])
+    log(f"  variants: {nv} x {base.nw} bins in {wall:.2f} s (setup "
+        f"{out['timings']['setup']:.2f} s, fixed point "
+        f"{out['timings']['fixed_point']:.3f} s); fp_chunks "
+        f"{out['fp_chunks']}; converged {res['converged']}/{nv}; max "
+        f"|heave| {heave:.2e} m; peak {res['peak_gib']:.2f} GiB")
+    if not finite:
+        fail("variants: non-finite outputs")
+    if heave >= 0.05:
+        fail(f"variants: max |heave of Xeq| {heave:.3e} >= 0.05 after the trim")
+    solver = vr.make_variant_solver(base, **kw)
+    worst = 0.0
+    idx = np.linspace(0, nv - 1, VARIANT_SERIAL).astype(int)
+    for i in idx:
+        ref = solver({k: v[i] for k, v in thetas.items()})
+        for key in ("mass", "offset", "pitch_deg", "Xeq", "std", "Xi"):
+            a, b = out[key][i], ref[key]
+            worst = max(worst, float(torch.max(torch.abs(a - b)
+                                               / (torch.abs(b) + 1e-12))))
+            if not _allclose(a, b, SWEEP_RTOL):
+                fail(f"variant {i} {key} differs from the serial solve")
+    log(f"  variants check: {VARIANT_SERIAL} variants vs serial, worst rel "
+        f"{worst:.2e}")
+    res["serial_worst_rel"] = worst
+    return res
 
 
-def run_goldens(dev):
-    from raft_tpu_torch import Model, ledger
+def run_goldens(dev, mode="f64"):
+    from raft_tpu_torch import Model, _config, ledger
     from raft_tpu_torch.io.designs import load_design
 
     out = {}
-    for name, fname in (("OC3spar", "oc3spar_coarse.ledger.json"),
-                        ("VolturnUS-S", "volturnus_coarse.ledger.json")):
-        d = load_design(name)
-        d["settings"].update(min_freq=0.02, max_freq=0.2)
-        d["cases"]["data"] = d["cases"]["data"][:1]
-        m = Model(d, device=dev)
-        m.analyzeCases()
-        gold = ledger.load_ledger(os.path.join(ROOT, "tests", "golden", fname))
-        rep = ledger.diff(gold, m.last_ledger, tol_rel=GOLDEN_TOL,
-                          per_metric={"*_residual*": GOLDEN_RESID_TOL})
-        worst = max((r["rel"] for r in rep["regressions"]), default=0.0)
-        log(ledger.format_diff(rep))
-        blocking = ledger.blocking_regressions(rep)
-        if blocking or rep["added"] or rep["removed"]:
-            fail(f"golden {name} regressed: {blocking}")
-        out[name] = dict(ok=not blocking, n_compared=rep["n_compared"],
-                         worst_rel=worst)
+    expect = ("impedance_gj_mixed", "gj_solve_mixed") if mode == "mixed" \
+        else ("impedance_gj", "gj_solve")
+    _config.set_precision_mode(mode)
+    try:
+        with counted(f"golden_{mode}", expect):
+            for name, fname in (("OC3spar", "oc3spar_coarse.ledger.json"),
+                                ("VolturnUS-S", "volturnus_coarse.ledger.json")):
+                d = load_design(name)
+                d["settings"].update(min_freq=0.02, max_freq=0.2)
+                d["cases"]["data"] = d["cases"]["data"][:1]
+                m = Model(d, device=dev)
+                m.analyzeCases()
+                gold = ledger.load_ledger(os.path.join(ROOT, "tests", "golden",
+                                                       fname))
+                rep = ledger.diff(gold, m.last_ledger, tol_rel=GOLDEN_TOL,
+                                  per_metric={"*_residual*": GOLDEN_RESID_TOL})
+                worst = max((r["rel"] for r in rep["regressions"]), default=0.0)
+                log(f"  [{mode}] " + ledger.format_diff(rep))
+                blocking = ledger.blocking_regressions(rep)
+                gm = {e["key"]: e["metrics"] for e in gold["entries"]}
+                lm = {e["key"]: e["metrics"] for e in m.last_ledger["entries"]}
+                iters_ok = all(
+                    lm[key][it] == gm[key][it] for key in gm
+                    for it in ("statics_iters", "drag_iters", "drag_converged")
+                    if it in gm[key])
+                if blocking or rep["added"] or rep["removed"] or not iters_ok:
+                    fail(f"golden {name} ({mode}) regressed: {blocking}, "
+                         f"iteration counts equal {iters_ok}")
+                out[name] = dict(ok=not blocking and iters_ok,
+                                 n_compared=rep["n_compared"], worst_rel=worst)
+    finally:
+        _config.set_precision_mode(None)
     return out
+
+
+# kernel line: (JSON name, launch key, TPU kernel it replaces, CUDA source,
+# the main-path shape its times are taken at)
+KERNELS = (
+    ("K1 impedance_gj", "impedance_gj", "raft_tpu/ops/pallas/gj_solve.py:402",
+     "raft_tpu_torch/csrc/gj_k1_f64.cu", 81920),
+    ("K2 gj_solve", "gj_solve", "raft_tpu/ops/pallas/gj_solve.py:216",
+     "raft_tpu_torch/csrc/gj_k2_f64.cu", 80),
+    ("K3 impedance_gj_mixed", "impedance_gj_mixed",
+     "raft_tpu/ops/pallas/gj_solve.py:424",
+     "raft_tpu_torch/csrc/gj_k3_mixed_f32.cu", 81920),
+    ("K4 gj_solve_mixed", "gj_solve_mixed",
+     "raft_tpu/ops/pallas/gj_solve.py:233",
+     "raft_tpu_torch/csrc/gj_k4_mixed_f32.cu", 80),
+)
 
 
 def main() -> int:
@@ -389,6 +833,7 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    t_start = time.perf_counter()
 
     from raft_tpu_torch.ops.kernels import _build
 
@@ -396,7 +841,8 @@ def main() -> int:
     _build.load()
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {_build.BUILD_INFO})")
     for sym, lines in _build.ptxas_report().items():
-        if "impedance_gj_kernelILi6E" in sym or "gj_kernelILi12ELi6E" in sym:
+        if ("impedance_kernel" in sym and "Li6E" in sym) \
+                or "Li12ELi6E" in sym:
             log(f"  ptxas {sym}: {' | '.join(lines)}")
     os.makedirs(OUT, exist_ok=True)
     with open(os.path.join(OUT, "ptxas.log"), "w") as f:
@@ -405,47 +851,61 @@ def main() -> int:
     floor = launch_floor_ms()
     log(f"launch floor: {floor:.4f} ms per trivial PyTorch CUDA launch")
     log("kernels: parity against the plain versions and times")
+    t0 = time.perf_counter()
     rows = check_kernels(dev)
+    log(f"kernels: {time.perf_counter() - t0:.1f} s")
     if "--only-kernels" in sys.argv[1:]:
         log(f"chip_smoke: kernels only, {len(FAILURES)} failure(s)")
         return 1 if FAILURES else 0
 
-    log("main path: run_raft on the card")
-    t0 = time.perf_counter()
-    per_design, launches = run_main(dev)
-    log(f"main path: {time.perf_counter() - t0:.1f} s, launches {launches}")
+    phases = {}
+    for name, fn in (("main", lambda: run_main(dev)),
+                     ("sweep", lambda: run_sweeps(dev)),
+                     ("variants", lambda: run_variants(dev)),
+                     ("golden", lambda: run_goldens(dev, "f64")),
+                     ("golden_mixed", lambda: run_goldens(dev, "mixed"))):
+        log(f"{name}: on the card")
+        t0 = time.perf_counter()
+        phases[name] = fn()
+        log(f"{name}: {time.perf_counter() - t0:.1f} s")
 
-    log("golden ledgers on the card")
-    goldens = run_goldens(dev)
-
-    def summary(name, replaces):
+    def summary(label, key, replaces, source, lanes):
         # ms is the wall time of one wrapper call on the stream (CUDA
         # events around back-to-back calls, host launch cost included);
         # device_ms is the kernel alone, from the profiler
-        main = next(r for r in rows[name] if "ms" in r)
-        return {"name": name, "route": "cuda",
-                "source": "raft_tpu_torch/csrc/gj_solve.cu",
-                "replaces": replaces, "launches": launches[name],
-                "max_abs_err": max(r["max_abs_err"] for r in rows[name]
-                                   if r["lanes"] == main["lanes"]),
+        timed = [r for r in rows[key] if "ms" in r]
+        main = next(r for r in timed if r["lanes"] == lanes)
+        by_path = {p: c[key] for p, c in PATH_LAUNCHES.items() if key in c}
+        return {"name": label, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": sum(by_path.values()),
+                "max_abs_err": max(r["max_abs_err"] for r in rows[key]
+                                   if r["lanes"] == lanes),
+                # relative to the plain version's peak: the well-conditioned
+                # lanes, and the promoted cond-1e9 lanes (solutions ~1e11,
+                # which set max_abs_err for K3/K4)
+                "max_rel_err": max(r["rel_vs_plain"] for r in rows[key]
+                                   if r["lanes"] == lanes),
+                "max_rel_err_ill": max(r["rel_ill"] for r in rows[key]
+                                       if r["lanes"] == lanes),
                 "ms": main["ms"], "plain_ms": main["plain_ms"],
                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-                "library_ms": main["library_ms"], "lanes": main["lanes"],
-                "device_ms": main["device_ms"], "launch_floor_ms": floor,
-                "parity": rows[name]}
+                "library_ms": main["library_ms"], "lanes": lanes,
+                "device_ms": main["device_ms"], "launches_by_path": by_path,
+                "launch_floor_ms": floor}
 
-    kernels = [summary("impedance_gj", "raft_tpu/ops/pallas/gj_solve.py:402"),
-               summary("gj_solve", "raft_tpu/ops/pallas/gj_solve.py:216")]
+    kernels = [summary(*k) for k in KERNELS]
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "kernels": kernels, "main": per_design,
-                   "goldens": goldens}, f, indent=1)
+        json.dump({"card": card, "kernels": kernels, "rows": rows,
+                   "paths": PATH_LAUNCHES, "phases": phases,
+                   "wall_s": time.perf_counter() - t_start}, f, indent=1)
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
+        "device check")
     if FAILURES:
         log(f"chip_smoke: {len(FAILURES)} failure(s)")
         for m in FAILURES:
             log(f"  - {m}")
         return 1
-    print(json.dumps({"kernels": [{k: v for k, v in kr.items()
-                                   if k != "parity"} for kr in kernels]}))
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

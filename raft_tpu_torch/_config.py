@@ -6,6 +6,8 @@ every tensor the package creates names its dtype through these helpers.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -49,3 +51,67 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(f"device {device!r} requested but no CUDA "
                            "device is available")
     return dev
+
+
+# ---------------------------------------------------------------------------
+# solve precision ladder (ops/linalg.py, ops/kernels/gj_solve.py)
+# ---------------------------------------------------------------------------
+#
+# The same environment names and parsing as the JAX package, so one
+# setting means the same thing in both: RAFT_TPU_PRECISION = "f64"
+# (default) | "mixed" | "f32"; RAFT_TPU_PRECISION_WIDTH = "f32" (default)
+# | "bf16", the width the mixed ladder eliminates in;
+# RAFT_TPU_PRECISION_TOL, the per-lane promotion tolerance (default
+# 1e-9).  Read at every solve dispatch; a programmatic override beats the
+# environment, unknown values fall back to the default.
+
+_PRECISION_MODES = ("f64", "mixed", "f32")
+_PRECISION_WIDTHS = ("f32", "bf16")
+_PRECISION_TOL_DEFAULT = 1e-9
+_precision_override: str | None = None
+_precision_width_override: str | None = None
+
+
+def precision_mode() -> str:
+    """Active solve-precision mode ("f64" | "mixed" | "f32")."""
+    if _precision_override is not None:
+        return _precision_override
+    mode = os.environ.get("RAFT_TPU_PRECISION", "f64").strip().lower()
+    return mode if mode in _PRECISION_MODES else "f64"
+
+
+def set_precision_mode(mode: str | None):
+    """Override the solve-precision mode in-process (None clears)."""
+    global _precision_override
+    if mode is not None and str(mode) not in _PRECISION_MODES:
+        raise ValueError(
+            f"precision mode {mode!r} not in {_PRECISION_MODES}")
+    _precision_override = None if mode is None else str(mode)
+
+
+def precision_width() -> str:
+    """Active mixed-ladder elimination width ("f32" | "bf16")."""
+    if _precision_width_override is not None:
+        return _precision_width_override
+    w = os.environ.get("RAFT_TPU_PRECISION_WIDTH", "f32").strip().lower()
+    return w if w in _PRECISION_WIDTHS else "f32"
+
+
+def set_precision_width(width: str | None):
+    """Override the mixed-ladder elimination width (None clears)."""
+    global _precision_width_override
+    if width is not None and str(width) not in _PRECISION_WIDTHS:
+        raise ValueError(
+            f"precision width {width!r} not in {_PRECISION_WIDTHS}")
+    _precision_width_override = None if width is None else str(width)
+
+
+def precision_tol() -> float:
+    """Per-lane promotion tolerance of the mixed ladder
+    (``RAFT_TPU_PRECISION_TOL``, default 1e-9); non-numeric values fall
+    back to the default."""
+    raw = os.environ.get("RAFT_TPU_PRECISION_TOL", "")
+    try:
+        return float(raw) if raw.strip() else _PRECISION_TOL_DEFAULT
+    except ValueError:
+        return _PRECISION_TOL_DEFAULT

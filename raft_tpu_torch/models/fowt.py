@@ -132,10 +132,13 @@ class FOWTModel:
 
 
 def build_fowt(design: dict, w, depth=600.0, x_ref=0.0, y_ref=0.0,
-               heading_adjust=0.0, device=None) -> FOWTModel:
+               heading_adjust=0.0, device=None,
+               geometry_only=False) -> FOWTModel:
     """Parse a design dict into a FOWTModel (reference: raft_fowt.py:
     22-257), strip-theory designs only.  With ``device`` the built arrays
-    are carried onto it."""
+    are carried onto it.  ``geometry_only`` skips the potential-flow and
+    second-order setup, for callers that only need the member geometry
+    (the variant-sweep grid)."""
     design = dict(design)
     site = design["site"]
     rho_water = float(get_from_dict(site, "rho_water", default=1025.0))
@@ -220,7 +223,10 @@ def build_fowt(design: dict, w, depth=600.0, x_ref=0.0, y_ref=0.0,
 
     potFirstOrder = int(get_from_dict(platform, "potFirstOrder", dtype=int, default=0))
     potSecOrder = int(get_from_dict(platform, "potSecOrder", dtype=int, default=0))
-    if (potFirstOrder == 1 or potModMaster in (2, 3) or potSecOrder
+    if geometry_only:
+        potSecOrder = 0
+    if not geometry_only and (
+            potFirstOrder == 1 or potModMaster in (2, 3) or potSecOrder
             or any(m.potMod for m in members)):
         raise errors.ModelConfigError(
             "potential-flow members and second-order loads are not part of "
@@ -250,17 +256,18 @@ def build_fowt(design: dict, w, depth=600.0, x_ref=0.0, y_ref=0.0,
 
 def member_node_cols(m: MemberGeometry):
     """Per-node derived areas/volumes for one member from its strip arrays
-    (reference: raft_fowt.py:1200-1202, raft_member.py:925-949); host
-    numpy at build time."""
-    ds, drs, dls = m.ds, m.drs, m.dls
+    (reference: raft_fowt.py:1200-1202, raft_member.py:925-949), as
+    tensors: from the numpy arrays at build time, and from the batched
+    geometry leaves of a design variant (``parallel/variants.py``)."""
+    ds, drs, dls = as_real(m.ds), as_real(m.drs), as_real(m.dls)
     if m.circular:
-        a_i_q = np.pi * ds * dls
+        a_i_q = math.pi * ds * dls
         a_i_p1 = ds * dls
         a_i_p2 = ds * dls
-        a_end_drag = np.abs(np.pi * ds * drs)
-        v_side = 0.25 * np.pi * ds**2 * dls
-        v_end = np.pi / 12.0 * np.abs((ds + drs) ** 3 - (ds - drs) ** 3)
-        a_i = np.pi * ds * drs
+        a_end_drag = torch.abs(math.pi * ds * drs)
+        v_side = 0.25 * math.pi * ds**2 * dls
+        v_end = math.pi / 12.0 * torch.abs((ds + drs) ** 3 - (ds - drs) ** 3)
+        a_i = math.pi * ds * drs
     else:
         # a_i_q uses ds[:,0] twice, replicating the reference
         # (raft_fowt.py:1200: 2*(ds[il,0]+ds[il,0])*dls)
@@ -269,16 +276,16 @@ def member_node_cols(m: MemberGeometry):
         a_i_p2 = ds[:, 1] * dls
         a_end = ((ds[:, 0] + drs[:, 0]) * (ds[:, 1] + drs[:, 1])
                  - (ds[:, 0] - drs[:, 0]) * (ds[:, 1] - drs[:, 1]))
-        a_end_drag = np.abs(a_end)
+        a_end_drag = torch.abs(a_end)
         v_side = ds[:, 0] * ds[:, 1] * dls
-        dmean_p = np.mean(ds + drs, axis=1)
-        dmean_m = np.mean(ds - drs, axis=1)
-        v_end = np.pi / 12.0 * (dmean_p**3 - dmean_m**3)
+        dmean_p = torch.mean(ds + drs, dim=1)
+        dmean_m = torch.mean(ds - drs, dim=1)
+        v_end = math.pi / 12.0 * (dmean_p**3 - dmean_m**3)
         a_i = a_end
     R = 0.5 * ds if m.circular else 0.0 * ds[:, 0]
-    return dict(frac=m.ls / m.l, dls=dls, a_i_q=a_i_q, a_i_p1=a_i_p1,
-                a_i_p2=a_i_p2, a_i_end_drag=a_end_drag, v_side=v_side,
-                v_end=v_end, a_i=a_i, R=R)
+    return dict(frac=as_real(m.ls) / m.l, dls=dls, a_i_q=a_i_q,
+                a_i_p1=a_i_p1, a_i_p2=a_i_p2, a_i_end_drag=a_end_drag,
+                v_side=v_side, v_end=v_end, a_i=a_i, R=R)
 
 
 def _build_nodeset(members: List[MemberGeometry]) -> NodeSet:
@@ -294,7 +301,7 @@ def _build_nodeset(members: List[MemberGeometry]) -> NodeSet:
         cols["MCF"].append(np.full(ns, bool(m.MCF), dtype=bool))
         for key in ("frac", "dls", "a_i_q", "a_i_p1", "a_i_p2",
                     "a_i_end_drag", "v_side", "v_end", "a_i", "R"):
-            cols[key].append(np.asarray(derived[key]))
+            cols[key].append(derived[key].numpy())
         cols["Cd_q"].append(m.Cd_q_n)
         cols["Cd_p1"].append(m.Cd_p1_n)
         cols["Cd_p2"].append(m.Cd_p2_n)
@@ -345,9 +352,10 @@ def fowt_pose(fowt: FOWTModel, r6):
 # statics
 # --------------------------------------------------------------------------
 
-def fowt_statics(fowt: FOWTModel, pose):
+def fowt_statics(fowt: FOWTModel, pose, l_fill=None, rho_fill=None):
     """Mass/hydrostatic matrices and weight/buoyancy vectors about the PRP
-    (reference: raft_fowt.py:291-566)."""
+    (reference: raft_fowt.py:291-566).  ``l_fill``/``rho_fill``: optional
+    per-member override lists (the ballast trim of a design variant)."""
     g = fowt.g
     r6 = pose["r6"]
     dev = r6.device
@@ -381,7 +389,10 @@ def fowt_statics(fowt: FOWTModel, pose):
         # nacelles contribute buoyancy only — their inertia lives in
         # mRNA/IxRNA/IrRNA (reference: raft_fowt.py:447-464)
         if mname not in ("nacelle", "blade"):
-            inert = member_inertia(m, mpose, rPRP=rPRP)
+            inert = member_inertia(
+                m, mpose, rPRP=rPRP,
+                l_fill=None if l_fill is None else l_fill[i],
+                rho_fill=None if rho_fill is None else rho_fill[i])
             mass, center = inert["mass"], inert["center"]
             W_struc = W_struc + translate_force_3to6(gvec * mass, center)
             M_struc = M_struc + inert["M_struc"]
@@ -424,12 +435,11 @@ def fowt_statics(fowt: FOWTModel, pose):
     rCG = m_center_sum / m_all
     rCG_sub = m_sub_sum / torch.where(m_sub == 0.0, 1.0, m_sub)
 
-    C_struc = torch.zeros((6, 6), **f64)
-    C_struc[3, 3] = -m_all * g * rCG[2]
-    C_struc[4, 4] = -m_all * g * rCG[2]
-    C_struc_sub = torch.zeros((6, 6), **f64)
-    C_struc_sub[3, 3] = -m_sub * g * rCG_sub[2]
-    C_struc_sub[4, 4] = -m_sub * g * rCG_sub[2]
+    # built without in-place writes, so the statics run under
+    # torch.func.vmap over design variants
+    e34 = torch.tensor([0.0, 0.0, 0.0, 1.0, 1.0, 0.0], **f64)
+    C_struc = torch.diag(e34 * (-m_all * g * rCG[2]))
+    C_struc_sub = torch.diag(e34 * (-m_sub * g * rCG_sub[2]))
 
     rCB = Sum_V_rCB / torch.where(VTOT == 0.0, 1.0, VTOT)
     zMeta = torch.where(VTOT == 0.0, 0.0,
@@ -550,7 +560,7 @@ def fowt_bem_excitation(fowt: FOWTModel, seastate):
     """Potential-flow wave excitation per heading, (nH,6,nw) complex:
     zero for strip-theory designs (reference: raft_fowt.py:1034-1093
     computes F_BEM only for potential-flow members / potModMaster 2-3)."""
-    nH = int(np.atleast_1d(seastate["beta"]).shape[0])
+    nH = torch.atleast_1d(torch.as_tensor(seastate["beta"])).shape[0]
     if fowt.bem is not None:
         raise errors.ModelConfigError(
             "potential-flow excitation is not part of the PyTorch port yet")
@@ -559,27 +569,26 @@ def fowt_bem_excitation(fowt: FOWTModel, seastate):
 
 def fowt_hydro_excitation(fowt: FOWTModel, pose, seastate, hydro_consts):
     """Wave kinematics at all nodes + strip-theory inertial excitation
-    (reference: raft_fowt.py:972-1149, strip part).  Returns dict with
-    u, ud (nH,N,3,nw), pDyn (nH,N,nw), F_hydro_iner (nH,6,nw)."""
+    (reference: raft_fowt.py:972-1149, strip part).  ``seastate`` holds
+    beta (nH,) and zeta (nH, nw), numpy or tensors; the heading axis is a
+    batch axis (a batch of cases' sea states is a batch of headings).
+    Returns dict with u, ud (nH,N,3,nw), pDyn (nH,N,nw), F_hydro_iner
+    (nH,6,nw)."""
     r = pose["r"]
     dev = r.device
     w = as_real(fowt.w, dev)
     k = as_real(fowt.k, dev)
-    beta = np.atleast_1d(np.asarray(seastate["beta"], float))
-    zeta = np.atleast_2d(np.asarray(seastate["zeta"]))
+    beta = as_real(seastate["beta"], dev).reshape(-1)
+    zeta = torch.as_tensor(seastate["zeta"], device=dev).to(COMPLEX)
+    zeta = zeta.reshape(beta.shape[0], -1)
 
-    submerged = r[:, 2] < 0.0
-    m3 = submerged[:, None, None].to(REAL)
-    us, uds, ps = [], [], []
-    for ih in range(beta.shape[0]):
-        u, ud, pDyn = wave_kinematics(zeta[ih], float(beta[ih]), w, k,
-                                      fowt.depth, r, rho=fowt.rho_water,
-                                      g=fowt.g)
-        # the reference additionally excludes z == 0 exactly (strict z<0)
-        us.append(u * m3)
-        uds.append(ud * m3)
-        ps.append(pDyn * submerged[:, None].to(REAL))
-    u, ud, pDyn = torch.stack(us), torch.stack(uds), torch.stack(ps)
+    u, ud, pDyn = wave_kinematics(zeta, beta, w, k, fowt.depth, r,
+                                  rho=fowt.rho_water, g=fowt.g)
+    # the reference additionally excludes z == 0 exactly (strict z<0)
+    submerged = (r[..., 2] < 0.0).to(REAL)
+    u = u * submerged[..., None, None]
+    ud = ud * submerged[..., None, None]
+    pDyn = pDyn * submerged[..., None]
 
     # inertial excitation: F = Imat @ ud + pDyn * a_i * q   per node
     Imat = hydro_consts["Imat"].to(COMPLEX)

@@ -4,8 +4,10 @@ a shared library with a plain C interface, loaded with ctypes).
 The library is compiled at first use from the sources in
 ``raft_tpu_torch/csrc`` into ``build/raft_tpu_torch/<hash>/`` at the repo
 root (listed in .gitignore), keyed by a hash of the sources and the
-compiler flags, for ``sm_90a`` (Hopper).  ``-Xptxas -v`` output (registers
-and spills per kernel) is kept beside the library in ``ptxas.log``.
+compiler flags, for ``sm_90a`` (Hopper).  Each translation unit (one per
+kernel and width) is compiled by its own ``nvcc``, all started together,
+then linked into one library.  ``-Xptxas -v`` output (registers and spills
+per kernel) is kept beside the library in ``ptxas.log``.
 
 Nothing here is imported or run at module import time of the package:
 the build happens inside the first kernel launch.
@@ -26,10 +28,14 @@ from raft_tpu_torch import errors
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("gj_solve.cu", "gj_lane.cuh")
+#: translation units, one per kernel and width (see csrc/gj_kernels.cuh)
+UNITS = ("gj_k1_f64.cu", "gj_k1_f32.cu", "gj_k2_f64.cu", "gj_k2_f32.cu",
+         "gj_k3_mixed_f32.cu", "gj_k3_mixed_bf16.cu", "gj_k4_mixed_f32.cu",
+         "gj_k4_mixed_bf16.cu")
+SOURCES = UNITS + ("gj_kernels.cuh", "gj_lane.cuh")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "raft_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -65,21 +71,49 @@ def build() -> str:
         BUILD_INFO.update(path=lib_path, seconds=0.0, cached=True)
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib_path}.tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           os.path.join(CSRC, "gj_solve.cu")]
+    nvcc = _nvcc()
+    tag = f".tmp{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = []
+    for unit in UNITS:
+        obj = os.path.join(out_dir, unit.replace(".cu", f"{tag}.o"))
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC, unit)]
+        procs.append((unit, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for unit, _, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(f"== {unit}\n{out}")
+        if proc.returncode != 0:
+            failed.append((unit, proc.returncode, out))
+    objs = [obj for _, obj, _ in procs]
+    link = None
+    if not failed:
+        tmp = lib_path + tag
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
+                               tmp, *objs],
+                              capture_output=True, text=True)
+        logs.append(f"== link\n{link.stdout}{link.stderr}")
     seconds = time.perf_counter() - t0
     with open(os.path.join(out_dir, "ptxas.log"), "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+        f.write("\n".join(logs))
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        unit, rc, out = failed[0]
         raise errors.KernelFailure(
-            "nvcc failed to build the gj_solve kernels:\n"
-            + (proc.stderr or proc.stdout)[-4000:],
-            kernel="gj_solve", returncode=proc.returncode)
-    os.replace(tmp, lib_path)
-    BUILD_INFO.update(path=lib_path, seconds=seconds, cached=False)
+            f"nvcc failed to build {unit}:\n" + out[-4000:],
+            kernel="gj_solve", returncode=rc, failed=len(failed))
+    if link.returncode != 0:
+        raise errors.KernelFailure(
+            "nvcc failed to link the gj kernels:\n"
+            + (link.stderr or link.stdout)[-4000:],
+            kernel="gj_solve", returncode=link.returncode)
+    os.replace(lib_path + tag, lib_path)
+    BUILD_INFO.update(path=lib_path, seconds=seconds, cached=False,
+                      units=len(UNITS))
     return lib_path
 
 
@@ -107,7 +141,7 @@ def ptxas_report() -> dict:
             cur = m.group(1)
             out.setdefault(cur, [])
             continue
-        if cur is not None and line.strip():
+        if cur is not None and line.strip() and not line.startswith("=="):
             out[cur].append(line.strip().removeprefix("ptxas info    : "))
     return out
 
@@ -125,11 +159,21 @@ def load():
         except OSError as e:
             raise errors.KernelFailure(f"cannot load {path}: {e}",
                                        kernel="gj_solve") from e
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib.raft_impedance_gj_f64.argtypes = [P, P, P, P, P, P, I, I, I, I, P]
-        lib.raft_impedance_gj_f64.restype = I
-        lib.raft_gj_solve_f64.argtypes = [P, P, P, I, I, I, I, P]
-        lib.raft_gj_solve_f64.restype = I
+        P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        for width in ("f64", "f32"):
+            fn = getattr(lib, f"raft_impedance_gj_{width}")
+            fn.argtypes = [P, P, P, P, P, P, I, I, I, I, P]
+            fn.restype = I
+            fn = getattr(lib, f"raft_gj_solve_{width}")
+            fn.argtypes = [P, P, P, I, I, I, I, P]
+            fn.restype = I
+        for width in ("f32", "bf16"):
+            fn = getattr(lib, f"raft_impedance_gj_mixed_{width}")
+            fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, D, P]
+            fn.restype = I
+            fn = getattr(lib, f"raft_gj_solve_mixed_{width}")
+            fn.argtypes = [P, P, P, P, P, I, I, I, I, D, P]
+            fn.restype = I
         lib.raft_gj_error_string.argtypes = [I]
         lib.raft_gj_error_string.restype = ctypes.c_char_p
         _LIB = lib

@@ -1,21 +1,27 @@
-"""The two Gauss-Jordan solve kernels of the main path, their wrappers and
-their plain PyTorch versions.
+"""The Gauss-Jordan solve kernels (K1-K4), their wrappers and their plain
+PyTorch versions.
 
-``impedance_gj_solve`` (K1) replaces the Pallas kernel
-``raft_tpu/ops/pallas/gj_solve.py:impedance_gj_solve``: it solves
-[-w^2 M + i w B + C] X = F per (case, frequency) lane through the real
-2n x 2n block embedding, assembled inside the kernel so Z never exists
-in memory.  ``gj_solve`` (K2) replaces ``gj_solve`` there: the batched
-real solve A x = b behind ``ops.linalg.solve_complex`` / ``inv_complex``.
-Both equilibrate rows by 1/max|row| (floored at 1e-300), eliminate with
-partial pivoting and refine once.
+``impedance_gj_solve`` (K1, and K3 under ``precision="mixed"``) replaces
+the Pallas kernel ``raft_tpu/ops/pallas/gj_solve.py:impedance_gj_solve``:
+it solves [-w^2 M + i w B + C] X = F per (case, frequency) lane through
+the real 2n x 2n block embedding, assembled inside the kernel so Z never
+exists in memory.  ``gj_solve`` (K2, and K4 under ``precision="mixed"``)
+replaces ``gj_solve`` there: the batched real solve A x = b behind
+``ops.linalg.solve_complex`` / ``inv_complex``.  Both equilibrate rows by
+1/max|row|, eliminate with partial pivoting and refine.
 
-Dispatch: a CUDA tensor launches the hand-written kernel of
-``csrc/gj_solve.cu`` (built at first use, see ``_build.py``) or raises
+The mixed ladder (K3/K4) eliminates at ``factor_dtype`` (float32 by
+default, bfloat16 opt-in) and keeps the residual and correction at
+float64 with ``refine`` passes; each lane's final relative residual is
+returned, and lanes with ``~(rn <= promote_tol)`` are re-solved at
+float64.  float32 inputs run K1/K2's float32 instantiation.
+
+Dispatch: a CUDA tensor launches the hand-written kernel of ``csrc/``
+(built at first use, see ``_build.py``) or raises
 :class:`~raft_tpu_torch.errors.KernelFailure`; a CPU tensor runs the
 plain version below.  There is no other route.  What bounds the kernels
-on the card and what their design does about it is written in the CUDA
-source.
+on the card and what their design does about it is written in
+``csrc/gj_kernels.cuh``.
 
 The plain versions repeat the TPU kernels' algorithm in their op order,
 lane-last like ``_gj_batchlast`` / ``_gj_elim`` (including the
@@ -30,17 +36,19 @@ import math
 import torch
 
 from raft_tpu_torch import errors
-from raft_tpu_torch._config import as_real
+from raft_tpu_torch.ops.precision import (
+    equilibration_eps, promotion_mask, width_name)
 
-#: kernel launches per wrapper; incremented only where a kernel launches
-LAUNCHES = {"impedance_gj": 0, "gj_solve": 0}
+#: kernel launches per kernel and width; incremented only where a kernel
+#: launches (the K3/K4 keys count the f32 elimination width, the
+#: ``_bf16`` keys the bf16 one)
+LAUNCHES = {"impedance_gj": 0, "impedance_gj_f32": 0,
+            "impedance_gj_mixed": 0, "impedance_gj_mixed_bf16": 0,
+            "gj_solve": 0, "gj_solve_f32": 0,
+            "gj_solve_mixed": 0, "gj_solve_mixed_bf16": 0}
 
-
-
-def equilibration_eps(dtype) -> float:
-    """Underflow floor for the row-equilibration scale 1/max|row| (the
-    JAX package's ops/precision.py:equilibration_eps)."""
-    return 1e-300 if dtype == torch.float64 else 1e-30
+#: default promotion tolerance of the mixed ladder
+DEFAULT_PROMOTE_TOL = 1e-9
 
 
 def reset_launches():
@@ -54,7 +62,7 @@ def reset_launches():
 
 def _gj_elim(A, rhs):
     """Unrolled Gauss-Jordan with partial pivoting on lane-last blocks:
-    A (n, n, B), rhs (n, k, B) -> x (n, k, B)."""
+    A (n, n, B), rhs (n, k, B) -> x (n, k, B), in A's dtype."""
     n = A.shape[0]
     M = torch.cat([A, rhs], dim=1)                       # (n, n+k, B)
     rows = torch.arange(n, device=A.device)[:, None]     # (n, 1)
@@ -82,29 +90,98 @@ def _matmul_bl(A, x):
     return torch.sum(A[:, :, None, :] * x[None, :, :, :], dim=1)
 
 
-def _gj_batchlast(A, rhs, refine):
-    """Equilibrate + eliminate + refine on lane-last blocks."""
+def _gj_batchlast(A, rhs, refine, factor_dtype=None, resid=False):
+    """Equilibrate + eliminate + refine on lane-last blocks.
+
+    ``factor_dtype`` narrower than A's dtype is the mixed ladder: the
+    elimination runs at that width on the full-width-equilibrated block
+    while the residual ``rhs - A x`` and the correction stay at A's
+    width.  ``resid=True`` also returns each lane's final relative
+    residual max|rhs - A x| / (max|rhs| + eps), shape (B,).  Returns
+    (x, rn or None)."""
+    eps = equilibration_eps(A.dtype)
     scale = 1.0 / torch.clamp(torch.amax(torch.abs(A), dim=1, keepdim=True),
-                              min=equilibration_eps(A.dtype))
+                              min=eps)
     A = A * scale
     rhs = rhs * scale
-    x = _gj_elim(A, rhs)
+    # at the input width the casts are no-ops: the single-width solve
+    fd = A.dtype if factor_dtype is None else factor_dtype
+    Af = A.to(fd)
+    x = _gj_elim(Af, rhs.to(fd)).to(A.dtype)
     for _ in range(refine):
         r = rhs - _matmul_bl(A, x)
-        x = x + _gj_elim(A, r)
-    return x
+        x = x + _gj_elim(Af, r.to(fd)).to(A.dtype)
+    if not resid:
+        return x, None
+    r = rhs - _matmul_bl(A, x)
+    den = torch.amax(torch.abs(rhs), dim=(0, 1)) + eps
+    return x, torch.amax(torch.abs(r), dim=(0, 1)) / den
 
 
-def gj_solve_plain(A, b, refine: int = 1):
-    """Plain version of K2: solve real A (..., n, n) x = b (..., n, k)."""
+def _ladder_plain(A, rhs, refine, precision, factor_dtype, promote_tol):
+    """The plain ladder on lane-last blocks: (x, stats).  ``precision``
+    None or "native" is the single-width solve; "mixed" eliminates at
+    ``factor_dtype`` and re-solves the lanes with ``~(rn <= tol)`` at the
+    full width (the TPU kernel's second pass, on the promoted lanes
+    only)."""
+    lanes = A.shape[-1]
+    if precision in (None, "native"):
+        x, _ = _gj_batchlast(A, rhs, refine)
+        return x, _stats(lanes, A.dtype, A.device)
+    fd = _factor(precision, factor_dtype)
+    tol = DEFAULT_PROMOTE_TOL if promote_tol is None else float(promote_tol)
+    x, rn = _gj_batchlast(A, rhs, refine, factor_dtype=fd, resid=True)
+    mask, promoted = promotion_mask(rn, tol)
+    if bool(torch.any(mask)):
+        idx = torch.nonzero(mask).flatten()
+        xh, _ = _gj_batchlast(A[..., idx], rhs[..., idx], refine)
+        x = x.clone()
+        x[..., idx] = xh
+    return x, _stats(lanes, A.dtype, A.device, promoted, rn)
+
+
+def _stats(lanes, dtype, dev, promoted=None, rn=None):
+    """The ladder's stats: {"promoted", "lanes", "resid_max"} (tensors on
+    ``dev``), plus the per-lane residuals "rn" under the mixed ladder."""
+    if rn is None:
+        return {"promoted": torch.zeros((), dtype=torch.int32, device=dev),
+                "lanes": lanes,
+                "resid_max": torch.zeros((), dtype=dtype, device=dev)}
+    resid_max = torch.amax(rn) if lanes else torch.zeros(
+        (), dtype=dtype, device=dev)
+    return {"promoted": promoted, "lanes": lanes, "resid_max": resid_max,
+            "rn": rn}
+
+
+def _factor(precision, factor_dtype):
+    if precision != "mixed":
+        raise errors.ModelConfigError(
+            f"unknown gj_solve precision {precision!r}")
+    return torch.float32 if factor_dtype is None else factor_dtype
+
+
+def gj_solve_plain(A, b, refine: int = 1, precision: str = None,
+                   factor_dtype=None, promote_tol=None,
+                   return_stats: bool = False):
+    """Plain version of K2 (K4 under ``precision="mixed"``): solve real
+    A (..., n, n) x = b (..., n, k)."""
     n = A.shape[-1]
     k = b.shape[-1]
     batch = A.shape[:-2]
     Bn = math.prod(batch)
     Af = A.reshape(Bn, n, n).movedim(0, -1)              # (n, n, B)
     bf = b.reshape(Bn, n, k).movedim(0, -1)              # (n, k, B)
-    x = _gj_batchlast(Af, bf, refine)
-    return x.movedim(-1, 0).reshape(*batch, n, k)
+    x, stats = _ladder_plain(Af, bf, refine, precision, factor_dtype,
+                             promote_tol)
+    out = x.movedim(-1, 0).reshape(*batch, n, k)
+    return (out, stats) if return_stats else out
+
+
+def _imp_batch(M, B, C, F):
+    """The case batch of an impedance solve: the broadcast of the leading
+    axes of M, B (..., n, n, nw), C (..., n, n) and F (..., n, nw)."""
+    return tuple(torch.broadcast_shapes(M.shape[:-3], B.shape[:-3],
+                                        C.shape[:-2], F.shape[:-2]))
 
 
 def _flat_impedance(w, M, B, C, F):
@@ -112,7 +189,7 @@ def _flat_impedance(w, M, B, C, F):
     case-major / frequency-minor, as the TPU wrapper orders it."""
     n = M.shape[-3]
     nw = M.shape[-1]
-    batch = M.shape[:-3]
+    batch = _imp_batch(M, B, C, F)
     Bt = math.prod(batch) * nw
 
     def flat_ml(x):
@@ -129,14 +206,17 @@ def _flat_impedance(w, M, B, C, F):
     return wf, Mf, Bf, Cf, Ff.real.to(M.dtype), Ff.imag.to(M.dtype)
 
 
-def impedance_gj_solve_plain(w, M, B, C, F, refine: int = 1):
-    """Plain version of K1: solve [-w^2 M + i w B + C] X = F.
-    w (nw,); M, B (..., n, n, nw); C (..., n, n); F (..., n, nw) complex
-    -> X (..., n, nw) complex."""
+def impedance_gj_solve_plain(w, M, B, C, F, refine: int = 1,
+                             precision: str = None, factor_dtype=None,
+                             promote_tol=None, return_stats: bool = False):
+    """Plain version of K1 (K3 under ``precision="mixed"``): solve
+    [-w^2 M + i w B + C] X = F.  w (nw,); M, B (..., n, n, nw);
+    C (..., n, n); F (..., n, nw) complex -> X (..., n, nw) complex."""
     n = M.shape[-3]
     nw = M.shape[-1]
-    batch = M.shape[:-3]
-    w = as_real(w, M.device)
+    batch = _imp_batch(M, B, C, F)
+    w = w.to(device=M.device, dtype=M.dtype) if isinstance(w, torch.Tensor) \
+        else torch.as_tensor(w, dtype=M.dtype, device=M.device)
     wf, Mf, Bf, Cf, Fre, Fim = _flat_impedance(w, M, B, C, F)
     wl = wf[0]
     reZ = Cf - (wl * wl)[None, None, :] * Mf
@@ -144,10 +224,12 @@ def impedance_gj_solve_plain(w, M, B, C, F, refine: int = 1):
     A = torch.cat([torch.cat([reZ, -imZ], dim=1),
                    torch.cat([imZ, reZ], dim=1)], dim=0)   # (2n, 2n, B)
     rhs = torch.cat([Fre, Fim], dim=0)                     # (2n, 1, B)
-    x = _gj_batchlast(A, rhs, refine)
+    x, stats = _ladder_plain(A, rhs, refine, precision, factor_dtype,
+                             promote_tol)
     X = torch.complex(x[:n, 0, :], x[n:, 0, :])            # (n, B)
     X = X.movedim(-1, 0).reshape(batch + (nw, n))
-    return X.movedim(-1, -2)
+    X = X.movedim(-1, -2)
+    return (X, stats) if return_stats else X
 
 
 # ---------------------------------------------------------------------------
@@ -156,6 +238,7 @@ def impedance_gj_solve_plain(w, M, B, C, F, refine: int = 1):
 
 _IMP_N = range(1, 9)
 _GJ_N = (2, 4, 6, 8, 10, 12, 14, 16)
+_REAL_OF = {torch.float64: torch.complex128, torch.float32: torch.complex64}
 
 
 def _require(cond, msg, **ctx):
@@ -163,108 +246,179 @@ def _require(cond, msg, **ctx):
         raise errors.KernelFailure(msg, **ctx)
 
 
-def impedance_gj_solve(w, M, B, C, F, refine: int = 1):
-    """K1: solve [-w^2 M + i w B + C] X = F without materialising Z.
-    Launches the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors."""
+def impedance_gj_solve(w, M, B, C, F, refine: int = 1, precision: str = None,
+                       factor_dtype=None, promote_tol=None,
+                       return_stats: bool = False):
+    """K1 (K3 under ``precision="mixed"``): solve [-w^2 M + i w B + C] X = F
+    without materialising Z.  Launches the CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors.  ``return_stats=True`` also
+    returns ``{"promoted", "lanes", "resid_max", "rn"}`` (tensors on the
+    input's device; ``rn`` only under mixed)."""
     if M.device.type == "cpu":
-        return impedance_gj_solve_plain(w, M, B, C, F, refine)
+        return impedance_gj_solve_plain(w, M, B, C, F, refine, precision,
+                                        factor_dtype, promote_tol,
+                                        return_stats)
     _require(M.device.type == "cuda", f"no kernel for device {M.device}",
              kernel="impedance_gj")
-    return _impedance_cuda(w, M, B, C, F, refine)
+    return _impedance_cuda(w, M, B, C, F, refine, precision, factor_dtype,
+                           promote_tol, return_stats)
 
 
-def gj_solve(A, b, refine: int = 1):
-    """K2: batched real solve A (..., n, n) x = b (..., n, k).  Launches
-    the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+def gj_solve(A, b, refine: int = 1, precision: str = None, factor_dtype=None,
+             promote_tol=None, return_stats: bool = False):
+    """K2 (K4 under ``precision="mixed"``): batched real solve
+    A (..., n, n) x = b (..., n, k).  Launches the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors."""
     if A.device.type == "cpu":
-        return gj_solve_plain(A, b, refine)
+        return gj_solve_plain(A, b, refine, precision, factor_dtype,
+                              promote_tol, return_stats)
     _require(A.device.type == "cuda", f"no kernel for device {A.device}",
              kernel="gj_solve")
-    return _gj_cuda(A, b, refine)
+    return _gj_cuda(A, b, refine, precision, factor_dtype, promote_tol,
+                    return_stats)
 
 
-def _impedance_cuda(w, M, B, C, F, refine):
+def _variant(kernel, dtype, precision, factor_dtype):
+    """(entry-point suffix, launch key, factor dtype or None) of a call."""
+    if precision in (None, "native"):
+        _require(dtype in _REAL_OF, f"{kernel} takes float64 or float32, "
+                 f"got {dtype}", kernel=kernel)
+        if dtype == torch.float64:
+            return "f64", kernel, None
+        return "f32", f"{kernel}_f32", None
+    fd = _factor(precision, factor_dtype)
+    _require(dtype == torch.float64, "the mixed ladder kernels take "
+             f"float64 inputs, got {dtype}", kernel=f"{kernel}_mixed")
+    _require(fd in (torch.float32, torch.bfloat16), "the mixed ladder "
+             f"eliminates in float32 or bfloat16, not {fd}",
+             kernel=f"{kernel}_mixed")
+    name = width_name(fd)
+    key = f"{kernel}_mixed" if name == "f32" else f"{kernel}_mixed_{name}"
+    return f"mixed_{name}", key, fd
+
+
+def _impedance_cuda(w, M, B, C, F, refine, precision, factor_dtype,
+                    promote_tol, return_stats):
     from raft_tpu_torch.ops.kernels import _build
 
     dev = M.device
+    dt = M.dtype
     n = M.shape[-3]
     nw = M.shape[-1]
-    batch = tuple(M.shape[:-3])
+    batch = _imp_batch(M, B, C, F)
     nb = math.prod(batch)
+    suffix, key, fd = _variant("impedance_gj", dt, precision, factor_dtype)
     _require(n in _IMP_N, f"impedance_gj kernel has no n={n} instantiation",
-             kernel="impedance_gj", n=n)
+             kernel=key, n=n)
     _require(M.shape[-2] == n and B.shape[-3:] == M.shape[-3:]
              and C.shape[-2:] == (n, n) and F.shape[-2:] == (n, nw),
-             "impedance_gj shape mismatch", kernel="impedance_gj",
+             "impedance_gj shape mismatch", kernel=key,
              M=tuple(M.shape), B=tuple(B.shape), C=tuple(C.shape),
              F=tuple(F.shape))
-    for name, t, dt in (("M", M, torch.float64), ("B", B, torch.float64),
-                        ("C", C, torch.float64), ("F", F, torch.complex128)):
+    for name, t, want in (("B", B, dt), ("C", C, dt),
+                          ("F", F, _REAL_OF[dt])):
         _require(t.device == dev, f"{name} is on {t.device}, M on {dev}",
-                 kernel="impedance_gj")
-        _require(t.dtype == dt, f"{name} must be {dt}, got {t.dtype}",
-                 kernel="impedance_gj")
-    w = as_real(w, dev).contiguous()
-    _require(w.shape == (nw,), "w must be (nw,)", kernel="impedance_gj")
+                 kernel=key)
+        _require(t.dtype == want, f"{name} must be {want}, got {t.dtype}",
+                 kernel=key)
+    w = w.to(device=dev, dtype=dt).contiguous() \
+        if isinstance(w, torch.Tensor) \
+        else torch.as_tensor(w, dtype=dt, device=dev)
+    _require(w.shape == (nw,), "w must be (nw,)", kernel=key)
     Mc = torch.broadcast_to(M, batch + (n, n, nw)).contiguous()
     Bc = torch.broadcast_to(B, batch + (n, n, nw)).contiguous()
     Cc = torch.broadcast_to(C, batch + (n, n)).contiguous()
     Fc = torch.view_as_real(torch.broadcast_to(F, batch + (n, nw)).contiguous())
-    X = torch.empty(batch + (n, nw), dtype=torch.complex128, device=dev)
-    if nb * nw == 0:
+    X = torch.empty(batch + (n, nw), dtype=_REAL_OF[dt], device=dev)
+    lanes = nb * nw
+    rn = promoted = None
+    if fd is not None:
+        rn = torch.zeros(lanes, dtype=dt, device=dev)
+        promoted = torch.zeros(1, dtype=torch.int32, device=dev)
+    if lanes:
+        lib = _build.load()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ptrs = (w.data_ptr(), Mc.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
+                Fc.data_ptr(), torch.view_as_real(X).data_ptr())
+        if fd is None:
+            rc = getattr(lib, f"raft_impedance_gj_{suffix}")(
+                *ptrs, nb, nw, n, int(refine), stream)
+        else:
+            tol = DEFAULT_PROMOTE_TOL if promote_tol is None \
+                else float(promote_tol)
+            rc = getattr(lib, f"raft_impedance_gj_{suffix}")(
+                *ptrs, rn.data_ptr(), promoted.data_ptr(), nb, nw, n,
+                int(refine), tol, stream)
+        _build.check(rc, key, n=n, lanes=lanes)
+        LAUNCHES[key] += 1
+    if not return_stats:
         return X
-    lib = _build.load()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.raft_impedance_gj_f64(
-        w.data_ptr(), Mc.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
-        Fc.data_ptr(), torch.view_as_real(X).data_ptr(), nb, nw, n,
-        int(refine), stream)
-    _build.check(rc, "impedance_gj", n=n, lanes=nb * nw)
-    LAUNCHES["impedance_gj"] += 1
-    return X
+    if fd is None:
+        return X, _stats(lanes, dt, dev)
+    return X, _stats(lanes, dt, dev, promoted[0], rn)
 
 
-def _gj_cuda(A, b, refine):
+def _gj_cuda(A, b, refine, precision, factor_dtype, promote_tol,
+             return_stats):
     from raft_tpu_torch.ops.kernels import _build
 
     dev = A.device
+    dt = A.dtype
     n = A.shape[-1]
     k = b.shape[-1]
     batch = tuple(A.shape[:-2])
     lanes = math.prod(batch)
+    suffix, key, fd = _variant("gj_solve", dt, precision, factor_dtype)
     _require(n in _GJ_N, f"gj_solve kernel has no n={n} instantiation "
-             "(even n <= 16)", kernel="gj_solve", n=n)
+             "(even n <= 16)", kernel=key, n=n)
     _require(A.shape[-2] == n and tuple(b.shape) == batch + (n, k),
-             "gj_solve shape mismatch", kernel="gj_solve",
+             "gj_solve shape mismatch", kernel=key,
              A=tuple(A.shape), b=tuple(b.shape))
-    for name, t in (("A", A), ("b", b)):
-        _require(t.device == dev, f"{name} is on {t.device}, A on {dev}",
-                 kernel="gj_solve")
-        _require(t.dtype == torch.float64,
-                 f"{name} must be float64, got {t.dtype}", kernel="gj_solve")
+    _require(b.device == dev, f"b is on {b.device}, A on {dev}", kernel=key)
+    _require(b.dtype == dt, f"b must be {dt}, got {b.dtype}", kernel=key)
     Ac = A.contiguous()
     # instantiated right-hand-side counts: 1 and n/2; other k run as
-    # column chunks of n/2 (the elimination of each column is independent
-    # of the others, so chunking changes no result)
+    # column chunks of n/2, zero-padded (the elimination of each column is
+    # independent of the others, so chunking changes no single-width
+    # result).  A mixed lane's residual and promotion are taken over all
+    # its columns at once, so the ladder takes at most n/2 columns.
     kc = 1 if k == 1 else max(n // 2, 1)
     nchunk = -(-k // kc)
-    lib = _build.load()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    outs = []
+    _require(fd is None or nchunk == 1, "the mixed ladder kernel takes at "
+             f"most n/2 = {kc} right-hand sides, got {k}", kernel=key, k=k)
+    outs, rns = [], []
+    promoted = None
+    if fd is not None:
+        promoted = torch.zeros(1, dtype=torch.int32, device=dev)
+    tol = DEFAULT_PROMOTE_TOL if promote_tol is None else float(promote_tol)
     for c in range(nchunk):
         bc = b[..., c * kc:(c + 1) * kc]
         if bc.shape[-1] < kc:
             bc = torch.cat([bc, bc.new_zeros(batch + (n, kc - bc.shape[-1]))],
                            dim=-1)
         bc = bc.contiguous()
-        x = torch.empty(batch + (n, kc), dtype=torch.float64, device=dev)
+        x = torch.empty(batch + (n, kc), dtype=dt, device=dev)
+        rn = torch.zeros(lanes, dtype=dt, device=dev) if fd is not None \
+            else None
         if lanes:
-            rc = lib.raft_gj_solve_f64(Ac.data_ptr(), bc.data_ptr(),
-                                       x.data_ptr(), lanes, n, kc,
-                                       int(refine), stream)
-            _build.check(rc, "gj_solve", n=n, k=kc, lanes=lanes)
-            LAUNCHES["gj_solve"] += 1
+            lib = _build.load()
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            fn = getattr(lib, f"raft_gj_solve_{suffix}")
+            if fd is None:
+                rc = fn(Ac.data_ptr(), bc.data_ptr(), x.data_ptr(), lanes, n,
+                        kc, int(refine), stream)
+            else:
+                rc = fn(Ac.data_ptr(), bc.data_ptr(), x.data_ptr(),
+                        rn.data_ptr(), promoted.data_ptr(), lanes, n, kc,
+                        int(refine), tol, stream)
+            _build.check(rc, key, n=n, k=kc, lanes=lanes)
+            LAUNCHES[key] += 1
         outs.append(x)
+        rns.append(rn)
     x = outs[0] if nchunk == 1 else torch.cat(outs, dim=-1)
-    return x[..., :k]
+    x = x[..., :k]
+    if not return_stats:
+        return x
+    if fd is None:
+        return x, _stats(lanes, dt, dev)
+    return x, _stats(lanes, dt, dev, promoted[0], rns[0])

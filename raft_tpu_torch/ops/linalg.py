@@ -13,15 +13,29 @@ Dispatch rule (written out here and in PERF.md):
 - every real-embedded system with 2n <= 16 goes to the Gauss-Jordan
   kernels of ``ops/kernels/gj_solve.py``, whatever the batch size: on a
   CUDA tensor the hand-written CUDA kernel (K1 fused impedance solve, K2
-  batched solve), on a CPU tensor their plain PyTorch versions.  The JAX
-  package's batch >= 4096 threshold came from the TPU's LU custom call
-  and has nothing behind it on the H100; dropping it puts both kernels on
-  the single-case path (nw = 80 lanes for OC3spar);
+  batched solve; K3/K4 under the mixed ladder), on a CPU tensor their
+  plain PyTorch versions.  The JAX package's batch >= 4096 threshold came
+  from the TPU's LU custom call and has nothing behind it on the H100;
 - 2n > 16 goes to ``torch.linalg.solve`` (LU), as the JAX package runs
   those sizes outside any Pallas kernel;
 - there is no knob that sends a CUDA tensor to the plain version or to
   ``torch.linalg.solve``, and no fallback when a build or a launch fails:
   the wrapper raises ``KernelFailure``.
+
+Precision (``RAFT_TPU_PRECISION``, read at every dispatch, as
+``raft_tpu/ops/linalg.py:_precision_plan``):
+
+- ``f64`` (default): the solve at the input width;
+- ``mixed``: the ladder kernels with ``refine=2``, eliminating at
+  ``RAFT_TPU_PRECISION_WIDTH`` and promoting lanes past
+  ``RAFT_TPU_PRECISION_TOL``; a request whose width does not narrow the
+  input degenerates to the native solve and is recorded as such;
+- ``f32``: the solve cast down to float32 (K1/K2's float32
+  instantiation), the result cast back up.
+
+Mixed or f32 with 2n > 16 would need the batch-first ladder around LU,
+which serves arrays (ROADMAP A12): it raises ``ModelConfigError`` rather
+than quietly solving at f64.
 
 Every decision is recorded for ``last_dispatch()``.
 """
@@ -31,14 +45,18 @@ import math
 
 import torch
 
+from raft_tpu_torch import _config, errors
 from raft_tpu_torch._config import COMPLEX, as_real
-from raft_tpu_torch.ops.kernels.gj_solve import (  # noqa: F401
-    equilibration_eps, gj_solve, gj_solve_plain, impedance_gj_solve)
+from raft_tpu_torch.ops import precision as _prec
+from raft_tpu_torch.ops.kernels.gj_solve import (
+    gj_solve, gj_solve_plain, impedance_gj_solve)
 
 #: largest real-embedded system size the Gauss-Jordan kernels take
 _GJ_MAX_N = 16
 
 _LAST_DISPATCH: dict = {}
+
+_COMPLEX_OF = {torch.float64: torch.complex128, torch.float32: torch.complex64}
 
 
 def gauss_jordan_solve(A, b, refine: int = 1):
@@ -50,25 +68,97 @@ def gauss_jordan_solve(A, b, refine: int = 1):
 
 def last_dispatch() -> dict:
     """Most recent solve dispatch: ``{"backend", "kernel", "n",
-    "batch_elems", "fused", "device"}``; empty before any solve."""
+    "batch_elems", "fused", "device", "precision", "solve_width",
+    "factor_width", "promote_tol"}``, plus ``precision_degenerate`` for a
+    mixed request that could not narrow, and under the mixed ladder the
+    promotion stats ``promoted``, ``lanes``, ``resid_max`` (``promoted``
+    and ``resid_max`` are tensors on the solve's device, read without a
+    sync); empty before any solve."""
     return dict(_LAST_DISPATCH)
 
 
-def _record_dispatch(backend, kernel, n, batch_elems, fused, device):
+def _precision_plan(dtype) -> dict:
+    """Resolve the ambient ``RAFT_TPU_PRECISION`` request against the
+    (real-embedded) solve dtype: the dispatch facts plus ``factor`` (the
+    elimination dtype of the mixed ladder, or None), ``cast`` (float32
+    under ``f32``, or None) and ``tol``."""
+    mode = _config.precision_mode()
+    plan = {"mode": mode, "solve_width": _prec.width_name(dtype),
+            "factor": None, "factor_width": None, "cast": None,
+            "tol": None}
+    if mode == "mixed":
+        fd = _prec.factor_dtype(_config.precision_width())
+        if _prec.narrows(fd, dtype):
+            plan.update(factor=fd, factor_width=_prec.width_name(fd),
+                        tol=_config.precision_tol())
+        else:
+            plan["degenerate"] = True
+    elif mode == "f32" and dtype != torch.float32:
+        plan.update(cast=torch.float32, solve_width="f32")
+    return plan
+
+
+def _record_dispatch(backend, kernel, n, batch_elems, fused, device,
+                     plan=None, stats=None):
+    # cleared, not merged: a later single-width dispatch must not keep an
+    # earlier mixed dispatch's facts
     _LAST_DISPATCH.clear()
     _LAST_DISPATCH.update(backend=backend, kernel=kernel, n=int(n),
                           batch_elems=int(batch_elems), fused=bool(fused),
                           device=str(device))
+    if plan is not None:
+        _LAST_DISPATCH.update(
+            precision=plan["mode"], solve_width=plan["solve_width"],
+            factor_width=plan["factor_width"], promote_tol=plan["tol"])
+        if plan.get("degenerate"):
+            _LAST_DISPATCH["precision_degenerate"] = True
+    if stats is not None:
+        _LAST_DISPATCH.update(promoted=stats["promoted"],
+                              lanes=int(stats["lanes"]),
+                              resid_max=stats["resid_max"])
+
+
+def _kernel_name(base, plan):
+    if plan["factor"] is not None:
+        return f"{base}_mixed" if plan["factor_width"] == "f32" \
+            else f"{base}_mixed_{plan['factor_width']}"
+    return f"{base}_f32" if plan["cast"] is not None else base
+
+
+def _require_gj(n2, plan):
+    """Mixed and f32 run only through the Gauss-Jordan kernels."""
+    if n2 > _GJ_MAX_N and (plan["factor"] is not None
+                           or plan["cast"] is not None):
+        raise errors.ModelConfigError(
+            f"RAFT_TPU_PRECISION={plan['mode']} needs the batch-first "
+            f"mixed ladder around LU for a {n2}x{n2} real-embedded system "
+            "(2n > 16): not part of the PyTorch port yet (ROADMAP A12)",
+            n=n2, precision=plan["mode"])
 
 
 def _solve_real_embedded(M, rhs, n2, batch_elems):
-    if n2 <= _GJ_MAX_N:
-        backend = "cuda_gj" if M.device.type == "cuda" else "plain_gj"
-        _record_dispatch(backend, "gj_solve", n2, batch_elems, False,
-                         M.device)
-        return gj_solve(M, rhs)
-    _record_dispatch("lu", None, n2, batch_elems, False, M.device)
-    return torch.linalg.solve(M, rhs)
+    """Solve the real-embedded M x = rhs under the active precision mode;
+    returns x at the input width."""
+    in_dtype = M.dtype
+    plan = _precision_plan(in_dtype)
+    _require_gj(n2, plan)
+    if n2 > _GJ_MAX_N:
+        _record_dispatch("lu", None, n2, batch_elems, False, M.device, plan)
+        return torch.linalg.solve(M, rhs)
+    backend = "cuda_gj" if M.device.type == "cuda" else "plain_gj"
+    kernel = _kernel_name("gj_solve", plan)
+    if plan["factor"] is not None:
+        x, stats = gj_solve(M, rhs, refine=2, precision="mixed",
+                            factor_dtype=plan["factor"],
+                            promote_tol=plan["tol"], return_stats=True)
+        _record_dispatch(backend, kernel, n2, batch_elems, False, M.device,
+                         plan, stats)
+        return x
+    if plan["cast"] is not None:
+        M = M.to(plan["cast"])
+        rhs = rhs.to(plan["cast"])
+    _record_dispatch(backend, kernel, n2, batch_elems, False, M.device, plan)
+    return gj_solve(M, rhs).to(in_dtype)
 
 
 def solve_complex(A, b):
@@ -102,17 +192,36 @@ def impedance_solve(w, M, B, C, F):
     axis: w (nw,), M/B (..., n, n, nw), C (..., n, n), F (..., n, nw)
     complex -> X (..., n, nw) complex.
 
-    2n <= 16 goes to the fused impedance kernel (K1), which assembles the
-    embedding itself; larger systems assemble Z and solve by LU."""
+    2n <= 16 goes to the fused impedance kernel (K1; K3 under the mixed
+    ladder), which assembles the embedding itself; larger systems
+    assemble Z and solve by LU."""
     n = M.shape[-3]
     nw = M.shape[-1]
-    batch_elems = math.prod(M.shape[:-3]) * nw
+    batch_elems = math.prod(torch.broadcast_shapes(
+        M.shape[:-3], B.shape[:-3], C.shape[:-2], F.shape[:-2])) * nw
     w = as_real(w, M.device)
-    if 2 * n <= _GJ_MAX_N:
-        backend = "cuda_fused" if M.device.type == "cuda" else "plain_fused"
-        _record_dispatch(backend, "impedance_gj", 2 * n, batch_elems, True,
-                         M.device)
-        return impedance_gj_solve(w, M, B, C, F)
-    Z = (-w ** 2 * M + 1j * w * B + C[..., None]).to(COMPLEX)
-    Xin = solve_complex(Z.movedim(-1, -3), F.movedim(-1, -2))
-    return Xin.movedim(-2, -1)
+    in_dtype = M.dtype
+    plan = _precision_plan(in_dtype)
+    _require_gj(2 * n, plan)
+    if 2 * n > _GJ_MAX_N:
+        Z = (-w ** 2 * M + 1j * w * B + C[..., None]).to(COMPLEX)
+        Xin = solve_complex(Z.movedim(-1, -3), F.movedim(-1, -2))
+        return Xin.movedim(-2, -1)
+    backend = "cuda_fused" if M.device.type == "cuda" else "plain_fused"
+    kernel = _kernel_name("impedance_gj", plan)
+    if plan["factor"] is not None:
+        X, stats = impedance_gj_solve(
+            w, M, B, C, F, refine=2, precision="mixed",
+            factor_dtype=plan["factor"], promote_tol=plan["tol"],
+            return_stats=True)
+        _record_dispatch(backend, kernel, 2 * n, batch_elems, True,
+                         M.device, plan, stats)
+        return X
+    _record_dispatch(backend, kernel, 2 * n, batch_elems, True, M.device,
+                     plan)
+    if plan["cast"] is not None:
+        c = plan["cast"]
+        X = impedance_gj_solve(w.to(c), M.to(c), B.to(c), C.to(c),
+                               F.to(_COMPLEX_OF[c]))
+        return X.to(_COMPLEX_OF[in_dtype])
+    return impedance_gj_solve(w, M, B, C, F)

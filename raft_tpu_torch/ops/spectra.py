@@ -34,16 +34,24 @@ def jonswap_gamma(Hs, Tp):
 
 def jonswap(ws, Hs, Tp, gamma=None):
     """One-sided JONSWAP/PM wave PSD [m^2/(rad/s)] at frequencies ws
-    [rad/s].  gamma None (or 0) selects the IEC auto-gamma."""
+    [rad/s].  gamma None (or 0) selects the IEC auto-gamma.
+
+    Scalar Hs, Tp give (nw,); Hs, Tp (and a given gamma) of shape (nc,)
+    give one spectrum per sea state, (nc, nw)."""
     ws = as_real(ws)
     dev = ws.device
     Hs = as_real(Hs, dev)
     Tp = as_real(Tp, dev)
+    batched = Hs.ndim > 0 or Tp.ndim > 0
+    if batched:
+        Hs, Tp = Hs[..., None], Tp[..., None]
     if gamma is None or (not isinstance(gamma, torch.Tensor)
                          and np.ndim(gamma) == 0 and not gamma):
         g = jonswap_gamma(Hs, Tp)
     else:
         g = as_real(gamma, dev)
+        if batched and g.ndim > 0:
+            g = g[..., None]
     f = 0.5 / math.pi * ws
     fpOvrf4 = (Tp * f) ** (-4.0)
     C = 1.0 - 0.287 * torch.log(g)

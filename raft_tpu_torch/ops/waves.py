@@ -68,7 +68,11 @@ def _depth_ratios(k, z, h):
 def wave_kinematics(zeta0, beta, w, k, h, r, rho=1025.0, g=_G_DEFAULT):
     """First-order wave kinematics at point(s) r from an elevation
     spectrum: zeta0 (nw,) complex, beta heading [rad], w/k (nw,), depth h,
-    r (..., 3).  Returns (u (...,3,nw), ud (...,3,nw), pDyn (...,nw))."""
+    r (..., 3).  Returns (u (...,3,nw), ud (...,3,nw), pDyn (...,nw)).
+
+    A batch of sea states comes with an explicit leading case axis:
+    zeta0 (nc, nw) and beta (nc,) tensors give u, ud (nc, ..., 3, nw) and
+    pDyn (nc, ..., nw)."""
     r = as_real(r)
     dev = r.device
     w = as_real(w, dev)
@@ -77,20 +81,30 @@ def wave_kinematics(zeta0, beta, w, k, h, r, rho=1025.0, g=_G_DEFAULT):
     batch = r.shape[:-1]
     x, y, z = r[..., 0], r[..., 1], r[..., 2]
     if isinstance(beta, torch.Tensor):
+        beta = beta.to(device=dev, dtype=torch.float64)
         cosb, sinb = torch.cos(beta), torch.sin(beta)
     else:
         cosb, sinb = math.cos(beta), math.sin(beta)
+    cases = isinstance(beta, torch.Tensor) and beta.ndim == 1
+    if cases:
+        # case axis first, broadcast over the point axes and frequency
+        pts = (1,) * len(batch)
+        cosb = cosb.reshape(cosb.shape + pts)
+        sinb = sinb.reshape(sinb.shape + pts)
+        zeta0 = zeta0.reshape(zeta0.shape[:1] + pts + zeta0.shape[1:])
     phase = torch.exp(-1j * k * (cosb * x + sinb * y)[..., None])
     zeta = zeta0 * phase
     s_r, c_r, cc_r = _depth_ratios(k, z[..., None], h)
     wet = (z <= 0.0)[..., None]
+    cu = cosb[..., None] if cases else cosb
+    su = sinb[..., None] if cases else sinb
     u = torch.stack(
         [
-            w * zeta * c_r * cosb,
-            w * zeta * c_r * sinb,
+            w * zeta * c_r * cu,
+            w * zeta * c_r * su,
             1j * w * zeta * s_r,
         ],
-        dim=len(batch),
+        dim=-2,
     )
     u = torch.where(wet[..., None, :], u, 0.0)
     ud = 1j * w * u

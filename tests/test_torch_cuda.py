@@ -60,7 +60,47 @@ def test_kernels_match_plain_on_the_card(card, kind):
     # k not instantiated (3): solved as column chunks, same answer
     x3 = G.gj_solve(A, b[..., :3])
     assert _rel(x3, G.gj_solve_plain(A, b[..., :3])) < 1e-10
-    assert G.LAUNCHES == {"impedance_gj": 1, "gj_solve": 2}
+    assert {k: v for k, v in G.LAUNCHES.items() if v} == {
+        "impedance_gj": 1, "gj_solve": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fd", [torch.float32, torch.bfloat16])
+def test_mixed_kernels_match_plain_on_the_card(card, fd):
+    """K3/K4 against their plain versions: X and the promoted count, with
+    cond-1e9 lanes mixed into well-conditioned ones."""
+    rng = np.random.default_rng(22)
+    G.reset_launches()
+    A = rng.standard_normal((80, 12, 12)) + 5.0 * np.eye(12)
+    for i in range(7):
+        U, _, Vt = np.linalg.svd(A[i])
+        A[i] = (U * np.geomspace(1.0, 1e-9, 12)) @ Vt
+    A = torch.tensor(A, device=card)
+    b = torch.tensor(rng.standard_normal((80, 12, 6)), device=card)
+    kw = dict(refine=2, precision="mixed", factor_dtype=fd,
+              promote_tol=1e-9, return_stats=True)
+    x, st = G.gj_solve(A, b, **kw)
+    xp, stp = G.gj_solve_plain(A, b, **kw)
+    assert int(st["promoted"]) == int(stp["promoted"]) >= 7
+    # promoted cond-1e9 lanes agree to cond * eps; the rest at 1e-10
+    assert _rel(x[:7], xp[:7]) < 1e9 * 2.2e-16 * 10
+    assert _rel(x[7:], xp[7:]) < 1e-10
+    nb, n, nw = 3, 6, 80
+    w = torch.tensor(np.linspace(0.03, 2.5, nw), device=card)
+    M = torch.tensor(rng.standard_normal((nb, n, n, nw))
+                     + 5.0 * np.eye(n)[None, :, :, None], device=card)
+    B = torch.tensor(0.1 * rng.standard_normal((nb, n, n, nw)), device=card)
+    C = torch.tensor(rng.standard_normal((nb, n, n)) + 10 * np.eye(n),
+                     device=card)
+    F = torch.tensor(rng.standard_normal((nb, n, nw))
+                     + 1j * rng.standard_normal((nb, n, nw)), device=card)
+    X, st = G.impedance_gj_solve(w, M, B, C, F, **kw)
+    Xp, stp = G.impedance_gj_solve_plain(w, M, B, C, F, **kw)
+    assert int(st["promoted"]) == int(stp["promoted"])
+    assert _rel(X, Xp) < 1e-10
+    key = "mixed" if fd == torch.float32 else "mixed_bf16"
+    assert G.LAUNCHES[f"gj_solve_{key}"] == 1
+    assert G.LAUNCHES[f"impedance_gj_{key}"] == 1
 
 
 @pytest.mark.cuda

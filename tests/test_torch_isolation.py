@@ -29,16 +29,33 @@ print(json.dumps(sorted(sys.modules)))
 """
 
 
-def test_import_pulls_in_no_jax_and_no_jax_package():
+@pytest.fixture(scope="module")
+def probed_modules():
+    """The modules a fresh interpreter holds after importing every module
+    of the port and chip_smoke.py."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _PROBE.format(root=ROOT)],
                          capture_output=True, text=True, env=env,
                          cwd=ROOT, timeout=300)
     assert out.returncode == 0, out.stderr
-    mods = json.loads(out.stdout.strip().splitlines()[-1])
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_import_pulls_in_no_jax_and_no_jax_package(probed_modules):
+    mods = probed_modules
     assert "raft_tpu_torch" in mods and "chip_smoke" in mods
     bad = [m for m in mods if FORBIDDEN.match(m)]
     assert not bad, bad
+
+
+def test_probe_covers_the_sweep_modules(probed_modules):
+    """The batched sweeps and the precision ladder are among the probed
+    (and so JAX-free) modules."""
+    for name in ("raft_tpu_torch.parallel.sweep",
+                 "raft_tpu_torch.parallel.variants",
+                 "raft_tpu_torch.ops.precision",
+                 "raft_tpu_torch.ops.kernels._build"):
+        assert name in probed_modules, name
 
 
 def _sources():

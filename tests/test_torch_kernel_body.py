@@ -30,22 +30,63 @@ TOL = 1e-10
 
 _HOST_SRC = r"""
 #include "gj_lane.cuh"
-extern "C" void host_impedance(const double* w, const double* M,
-    const double* B, const double* C, const double* F, double* X,
-    int nb, int nw, int n, int refine) {
+// width: 0 = float64 (K1/K2), 1 = mixed with float32 elimination,
+// 2 = mixed with bf16 elimination (K3/K4); returns the promoted count
+template <int N>
+static int imp_n(const double* w, const double* M, const double* B,
+    const double* C, const double* F, double* X, double* rn, int nb, int nw,
+    int refine, int width, double tol) {
+  int promoted = 0;
   for (int lane = 0; lane < nb * nw; ++lane) {
-    if (n == 6) gjl::impedance_lane<6>(w, M, B, C, F, X, nw, lane, refine);
-    else if (n == 3) gjl::impedance_lane<3>(w, M, B, C, F, X, nw, lane, refine);
+    if (width == 0)
+      gjl::impedance_lane<double, double, N>(w, M, B, C, F, X, nullptr, nw,
+                                             lane, refine, tol);
+    else if (width == 1)
+      promoted += gjl::impedance_lane<double, float, N>(w, M, B, C, F, X, rn,
+                                                        nw, lane, refine, tol);
+    else
+      promoted += gjl::impedance_lane<double, gjl::bf16r, N>(
+          w, M, B, C, F, X, rn, nw, lane, refine, tol);
   }
+  return promoted;
 }
-extern "C" void host_gj(const double* A, const double* b, double* x,
-    int lanes, int n, int k, int refine) {
+extern "C" int host_impedance(const double* w, const double* M,
+    const double* B, const double* C, const double* F, double* X, double* rn,
+    int nb, int nw, int n, int refine, int width, double tol) {
+  if (n == 6) return imp_n<6>(w, M, B, C, F, X, rn, nb, nw, refine, width, tol);
+  if (n == 3) return imp_n<3>(w, M, B, C, F, X, rn, nb, nw, refine, width, tol);
+  return -1;
+}
+template <int N, int K>
+static int gj_nk(const double* A, const double* b, double* x, double* rn,
+    int lanes, int refine, int width, double tol) {
+  int promoted = 0;
   for (int lane = 0; lane < lanes; ++lane) {
-    if (n == 12 && k == 6) gjl::gj_lane<12, 6>(A, b, x, lane, refine);
-    else if (n == 12 && k == 1) gjl::gj_lane<12, 1>(A, b, x, lane, refine);
-    else if (n == 4 && k == 2) gjl::gj_lane<4, 2>(A, b, x, lane, refine);
+    if (width == 0)
+      gjl::gj_lane<double, double, N, K>(A, b, x, nullptr, lane, refine, tol);
+    else if (width == 1)
+      promoted += gjl::gj_lane<double, float, N, K>(A, b, x, rn, lane, refine,
+                                                    tol);
+    else
+      promoted += gjl::gj_lane<double, gjl::bf16r, N, K>(A, b, x, rn, lane,
+                                                         refine, tol);
   }
+  return promoted;
 }
+extern "C" int host_gj(const double* A, const double* b, double* x,
+    double* rn, int lanes, int n, int k, int refine, int width, double tol) {
+  if (n == 12 && k == 6) return gj_nk<12, 6>(A, b, x, rn, lanes, refine, width, tol);
+  if (n == 12 && k == 1) return gj_nk<12, 1>(A, b, x, rn, lanes, refine, width, tol);
+  if (n == 4 && k == 2) return gj_nk<4, 2>(A, b, x, rn, lanes, refine, width, tol);
+  if (n == 8 && k == 1) return gj_nk<8, 1>(A, b, x, rn, lanes, refine, width, tol);
+  return -1;
+}
+extern "C" void host_gj_f32(const float* A, const float* b, float* x,
+    int lanes, int refine) {
+  for (int lane = 0; lane < lanes; ++lane)
+    gjl::gj_lane<float, float, 12, 6>(A, b, x, nullptr, lane, refine, 0.0);
+}
+extern "C" float host_round_bf16(float v) { return gjl::round_bf16(v); }
 """
 
 
@@ -63,8 +104,14 @@ def lib(tmp_path_factory):
                     "-o", str(so), str(src)], check=True)
     L = ctypes.CDLL(str(so))
     P, I = ctypes.c_void_p, ctypes.c_int
-    L.host_impedance.argtypes = [P, P, P, P, P, P, I, I, I, I]
-    L.host_gj.argtypes = [P, P, P, I, I, I, I]
+    D, Fl = ctypes.c_double, ctypes.c_float
+    L.host_impedance.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, D]
+    L.host_impedance.restype = I
+    L.host_gj.argtypes = [P, P, P, P, I, I, I, I, I, D]
+    L.host_gj.restype = I
+    L.host_gj_f32.argtypes = [P, P, P, I, I]
+    L.host_round_bf16.argtypes = [Fl]
+    L.host_round_bf16.restype = Fl
     return L
 
 
@@ -76,14 +123,19 @@ def _rel(a, b):
     return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
 
 
-def _gj_body(lib, A, b):
+def _gj_body(lib, A, b, refine=1, width=0, tol=1e-9):
+    """The kernel body's solve of every lane: x, or (x, rn, promoted)
+    for the mixed widths (1: float32 elimination, 2: bf16)."""
     lanes, n, _ = A.shape
     k = b.shape[-1]
     A = np.ascontiguousarray(A)
     b = np.ascontiguousarray(b)
     x = np.zeros((lanes, n, k))
-    lib.host_gj(_ptr(A), _ptr(b), _ptr(x), lanes, n, k, 1)
-    return x
+    rn = np.zeros(lanes)
+    promoted = lib.host_gj(_ptr(A), _ptr(b), _ptr(x), _ptr(rn), lanes, n, k,
+                           refine, width, tol)
+    assert promoted >= 0
+    return x if width == 0 else (x, rn, promoted)
 
 
 def _pivot_stack(rng, lanes, n):
@@ -125,8 +177,126 @@ def test_impedance_lane_matches_plain(lib, n, nb, nw):
     lib.host_impedance(_ptr(w), _ptr(np.ascontiguousarray(M)),
                        _ptr(np.ascontiguousarray(B)),
                        _ptr(np.ascontiguousarray(C)), _ptr(Fc), _ptr(X),
-                       nb, nw, n, 1)
+                       None, nb, nw, n, 1, 0, 0.0)
     X_plain = impedance_gj_solve_plain(
         torch.tensor(w), torch.tensor(M), torch.tensor(B), torch.tensor(C),
         torch.tensor(F)).numpy()
     assert _rel(X, X_plain) < TOL
+
+
+# ---------------------------------------------------------------------------
+# the mixed ladder (K3/K4) and the float32 instantiation
+# ---------------------------------------------------------------------------
+
+#: elimination width of the host library -> torch dtype of the plain one
+_WIDTHS = {1: torch.float32, 2: torch.bfloat16}
+
+
+def _ill(rng, A, lanes, cond=1e9):
+    """SVD-condition the first ``lanes`` systems to ``cond``: the f32 rung
+    cannot refine these below the default tolerance, so they promote."""
+    n = A.shape[-1]
+    for i in range(lanes):
+        U, _, Vt = np.linalg.svd(A[i])
+        A[i] = (U * np.geomspace(1.0, 1.0 / cond, n)) @ Vt
+    return A
+
+
+def test_round_bf16_matches_torch(lib):
+    """The bf16 rung's rounding is torch's (round to nearest even)."""
+    rng = np.random.default_rng(3)
+    v = np.concatenate([rng.standard_normal(500) * 10.0 ** rng.uniform(
+        -30, 30, 500), [0.0, -0.0, 1.0, 3.0e38, -3.4e38, np.inf, -np.inf]])
+    v = v.astype(np.float32)
+    body = np.array([lib.host_round_bf16(float(x)) for x in v], np.float32)
+    ref = torch.tensor(v).to(torch.bfloat16).to(torch.float32).numpy()
+    np.testing.assert_array_equal(body, ref)
+    assert np.isnan(lib.host_round_bf16(float("nan")))
+
+
+@pytest.mark.parametrize("width", [1, 2])
+@pytest.mark.parametrize("case", ["random", "pivoting", "row_scales",
+                                  "svd_ill"])
+@pytest.mark.parametrize("nk", [(12, 6), (12, 1), (8, 1)])
+def test_gj_lane_mixed_matches_plain(lib, width, case, nk):
+    """K4's lane arithmetic: X at f64 level and the promoted count exact
+    against the plain ladder, on each stressor."""
+    n, k = nk
+    rng = np.random.default_rng(17)
+    lanes = 40
+    if case == "pivoting":
+        A = _pivot_stack(rng, lanes, n)
+    elif case == "row_scales":
+        A = (0.1 * rng.standard_normal((lanes, n, n)) + np.eye(n)) \
+            * 10.0 ** rng.uniform(3, 10, (lanes, n, 1))
+    else:
+        A = rng.standard_normal((lanes, n, n)) + 5.0 * np.eye(n)
+        if case == "svd_ill":
+            A = _ill(rng, A, 9)
+    b = rng.standard_normal((lanes, n, k)) * 1e3
+    x_body, rn_body, promoted = _gj_body(lib, A, b, refine=2, width=width)
+    x_plain, st = gj_solve_plain(torch.tensor(A), torch.tensor(b), refine=2,
+                                 precision="mixed",
+                                 factor_dtype=_WIDTHS[width],
+                                 promote_tol=1e-9, return_stats=True)
+    assert promoted == int(st["promoted"])
+    x_plain = x_plain.numpy()
+    tol = 1e-10 if width == 1 else 1e-7
+    if case == "svd_ill":
+        assert promoted >= 9
+        # the promoted cond-1e9 lanes are solved at f64 by both, with
+        # real vs arithmetic row swaps: they agree to cond * eps, not 1e-10
+        assert _rel(x_body[:9], x_plain[:9]) < 1e9 * 2.2e-16 * 10
+        x_body, x_plain = x_body[9:], x_plain[9:]
+    assert _rel(x_body, x_plain) < tol
+    # the promotion decision rests on rn: both sides agree on which side
+    # of the tolerance every lane falls
+    np.testing.assert_array_equal(~(rn_body <= 1e-9),
+                                  ~(st["rn"].numpy() <= 1e-9))
+
+
+@pytest.mark.parametrize("width", [1, 2])
+def test_impedance_lane_mixed_matches_plain(lib, width):
+    """K3's lane arithmetic against the plain ladder, with some lanes
+    made near-singular so they promote."""
+    rng = np.random.default_rng(23)
+    n, nb, nw = 6, 3, 17
+    w = np.linspace(0.1, 2.5, nw)
+    M = rng.standard_normal((nb, n, n, nw)) + 5.0 * np.eye(n)[None, :, :, None]
+    B = 0.3 * rng.standard_normal((nb, n, n, nw))
+    C = rng.standard_normal((nb, n, n)) + 10.0 * np.eye(n)
+    # case 1: Z = C with cond(C) = 1e9 at every bin -> all its lanes
+    # promote
+    M[1] = 0.0
+    B[1] = 0.0
+    C[1] = _ill(rng, C[1:2].copy(), 1)[0]
+    F = rng.standard_normal((nb, n, nw)) + 1j * rng.standard_normal((nb, n, nw))
+    X = np.zeros((nb, n, nw), dtype=complex)
+    rn = np.zeros(nb * nw)
+    promoted = lib.host_impedance(
+        _ptr(w), _ptr(np.ascontiguousarray(M)), _ptr(np.ascontiguousarray(B)),
+        _ptr(np.ascontiguousarray(C)), _ptr(np.ascontiguousarray(F)), _ptr(X),
+        _ptr(rn), nb, nw, n, 2, width, 1e-9)
+    X_plain, st = impedance_gj_solve_plain(
+        torch.tensor(w), torch.tensor(M), torch.tensor(B), torch.tensor(C),
+        torch.tensor(F), refine=2, precision="mixed",
+        factor_dtype=_WIDTHS[width], promote_tol=1e-9, return_stats=True)
+    assert promoted == int(st["promoted"]) and promoted >= nw
+    X_plain = X_plain.numpy()
+    # the promoted cond-1e9 case agrees to cond * eps (real vs arithmetic
+    # row swaps), the others at the ladder's accuracy
+    assert _rel(X[1], X_plain[1]) < 1e9 * 2.2e-16 * 10
+    assert _rel(X[[0, 2]], X_plain[[0, 2]]) < (1e-10 if width == 1 else 1e-7)
+
+
+def test_gj_lane_f32_matches_plain(lib):
+    """K2's float32 instantiation against the plain float32 solve."""
+    rng = np.random.default_rng(29)
+    lanes, n, k = 33, 12, 6
+    A = (rng.standard_normal((lanes, n, n)) + 5.0 * np.eye(n)).astype(np.float32)
+    b = rng.standard_normal((lanes, n, k)).astype(np.float32)
+    x = np.zeros((lanes, n, k), np.float32)
+    lib.host_gj_f32(_ptr(A), _ptr(b), _ptr(x), lanes, 1)
+    x_plain = gj_solve_plain(torch.tensor(A), torch.tensor(b)).numpy()
+    assert x_plain.dtype == np.float32
+    assert _rel(x, x_plain) < 1e-4

@@ -142,7 +142,8 @@ def test_cpu_tensors_take_the_plain_path():
                         dtype=torch.complex128)
     TL.inv_complex(Zbig)
     assert TL.last_dispatch()["backend"] == "lu"
-    assert G.LAUNCHES == {"impedance_gj": 0, "gj_solve": 0}
+    assert set(G.LAUNCHES) >= {"impedance_gj", "gj_solve"}
+    assert all(v == 0 for v in G.LAUNCHES.values())
 
 
 def test_no_card_raises(monkeypatch):

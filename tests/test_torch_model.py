@@ -60,6 +60,36 @@ def test_golden_ledger(name, fname):
         g["case0/fowt0"]["drag_converged"]
 
 
+def test_golden_ledger_mixed():
+    """OC3spar's golden under RAFT_TPU_PRECISION=mixed: the ladder (K3 in
+    the drag fixed point, K4 in inv_complex; their plain versions here)
+    reproduces the f64 golden at 1e-6 with the iteration counts exact."""
+    from raft_tpu_torch import _config
+    from raft_tpu_torch.ops import linalg
+
+    _config.set_precision_mode("mixed")
+    try:
+        model = Model(_golden_design("OC3spar"), device="cpu")
+        model.analyzeCases()
+        disp = linalg.last_dispatch()
+    finally:
+        _config.set_precision_mode(None)
+    assert disp["precision"] == "mixed" and disp["kernel"] == "gj_solve_mixed"
+    assert disp["factor_width"] == "f32"
+    gold = ledger.load_ledger(os.path.join(GOLDEN,
+                                           "oc3spar_coarse.ledger.json"))
+    live = model.last_ledger
+    rep = ledger.diff(gold, live, tol_rel=1e-6,
+                      per_metric={"*_residual*": 0.5})
+    assert not ledger.blocking_regressions(rep), ledger.format_diff(rep)
+    assert not rep["added"] and not rep["removed"]
+    g, m = _metrics(gold), _metrics(live)
+    for key in ("statics_iters",):
+        assert m["case0/system"][key] == g["case0/system"][key]
+    for key in ("drag_iters", "drag_converged"):
+        assert m["case0/fowt0"][key] == g["case0/fowt0"][key]
+
+
 def _rel(a, b):
     a, b = np.asarray(a, float), np.asarray(b, float)
     return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300))
