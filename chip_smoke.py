@@ -18,7 +18,11 @@ Phases (any failure exits non-zero; no phase's failure is turned into a
               lanes mixed into well-conditioned ones; at 80, 5120 and
               81,920 lanes (K2/K4: 80 and 5120, n = 12, k in {1, 6}); times
               kernel, plain version and the torch.linalg.solve yardstick at
-              the main paths' shapes;
+              the main paths' shapes; K5 (the QTF pair grid) on the spar of
+              tests/test_qtf_kernel.py at nw2 = 5 (one and no waterline
+              member, with and without motion, heading 0.35) and on the
+              OC4semi example's fields at nw2 = 30 and 80 (N = 177, nm =
+              7), relative error <= 1e-12 of max|Q|, timed at both;
  4. main    — run_raft on OC3spar (its own 80-bin grid, 3 cases) and
               VolturnUS-S (80 bins, 1 case);
  5. sweep   — sweep_cases on OC3spar at its 80-bin grid, 1024 seeded cases
@@ -36,11 +40,18 @@ Phases (any failure exits non-zero; no phase's failure is turned into a
               the machine floor is an improvement, see
               ledger.blocking_regressions), no added or removed metrics,
               iteration counts exact; then again under mixed;
- 8. prints the kernels JSON line, the card line, and the final JSON line.
-Each path of phases 4-7 runs with the launch counters set to 0 just
+ 8. qtf     — run_raft on the examples/example_qtf.py configuration
+              (OC4semi, potSecOrder 1, 80 first-order and 30 second-order
+              bins) diffed against tests/golden/oc4semi_qtf.ledger.json as
+              in phase 7, with exactly 1 K5 launch; then Vertical_cylinder
+              with two JONSWAP headings (0 and 30 deg) on the coarse grid,
+              exactly 2 K5 launches; K1 and K2 launch in both;
+ 9. prints the kernels JSON line, the card line, and the final JSON line.
+Each path of phases 4-8 runs with the launch counters set to 0 just
 before it and read just after; every kernel of a path must launch in it.
 
-Options: --only-kernels stops after phase 3; --out DIR sets where the full
+Options: --only-kernels stops after phase 3 (the short call after a
+kernel edit); --out DIR sets where the full
 record (ptxas.log, chip_smoke.json) is written (default build/chip_smoke).
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -78,6 +89,7 @@ SWEEP_SERIAL_LANES = 8
 SWEEP_RTOL = 1e-9
 MIXED_STD_RTOL = 1e-6
 VARIANT_SERIAL = 4
+QTF_TOL = 1e-12       # K5 vs plain, relative to max|Q| (node-sum order)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 #: where the full record (ptxas report, per-shape kernel rows, main-path
@@ -516,8 +528,138 @@ def check_kernels(dev):
     return ROWS
 
 
+# ---- K5: the QTF pair grid ----
+
+#: FP64 operations of qtf_pair.cuh, counted from its body (a complex
+#: multiply is 6, a complex add 2, a real-by-complex multiply 2; tanh,
+#: cosh, sinh, sin, cos and sqrt one each, so the bound is a lower bound):
+#: per (pair, submerged node) 2076, plus 42 for the second-order
+#: potential off the diagonal; per pair 280 (set-up, Pinkster IV, the
+#: sum) plus 259 per waterline member
+QTF_NODE_OPS = 2076
+QTF_POT_OPS = 42
+QTF_PAIR_OPS = 280
+QTF_MEMBER_OPS = 259
+
+
+def qtf_ops(fields) -> int:
+    """FP64 operations K5 does on these fields (what this data needs:
+    every pair, the submerged nodes only)."""
+    nw2 = int(fields["w2"].shape[0])
+    sub = int(torch.count_nonzero(fields["nodescal"][:, 3]))
+    nm = 0 if fields.get("wl") is None else int(fields["wl"]["geo"].shape[0])
+    return (nw2 * nw2 * sub * QTF_NODE_OPS
+            + nw2 * (nw2 - 1) * sub * QTF_POT_OPS
+            + nw2 * nw2 * (QTF_PAIR_OPS + QTF_MEMBER_OPS * nm))
+
+
+def _spar_design(rB_z):
+    """tests/test_qtf_kernel.py's spar (one waterline member above water,
+    none below)."""
+    return {
+        "site": {"water_depth": 200.0, "rho_water": 1025.0, "g": 9.81},
+        "platform": {
+            "potModMaster": 1, "potSecOrder": 1,
+            "min_freq2nd": 0.04, "max_freq2nd": 0.12, "df_freq2nd": 0.02,
+            "members": [{
+                "name": "spar", "type": 2, "rA": [0, 0, -20],
+                "rB": [0, 0, rB_z], "shape": "circ", "gamma": 0.0,
+                "potMod": False, "stations": [0, 0.5, 1],
+                "d": [10.0, 8.0, 8.0], "t": 0.05, "Cd": 0.6, "Ca": 0.97,
+                "CdEnd": 0.6, "CaEnd": 0.6, "rho_shell": 7850.0,
+                "dlsMax": 5.0}]}}
+
+
+def _oc4semi_qtf(max_freq2nd):
+    """examples/example_qtf.py's design: OC4semi with potSecOrder 1 on a
+    0.005 Hz second-order grid up to ``max_freq2nd``."""
+    from raft_tpu_torch.io.designs import load_design
+
+    d = load_design("OC4semi")
+    d["platform"].update(potSecOrder=1, min_freq2nd=0.005,
+                         max_freq2nd=max_freq2nd)
+    return d
+
+
+def qtf_cases(dev):
+    """(label, fowt, fields, beta) of K5's rows: the spar at nw2 = 5 in
+    four variants, and the OC4semi example at nw2 = 30 (its 0.005-0.15 Hz
+    grid) and 80 (0.005-0.40 Hz, the design's own resolution), with
+    seeded random RAOs."""
+    from raft_tpu_torch.models import fowt as TF
+    from raft_tpu_torch.models import qtf as TQ
+
+    out = []
+    rng = np.random.default_rng(55)
+    spar_w = np.arange(0.02, 0.25, 0.02) * 2 * np.pi
+    oc4_w = np.arange(0.005, 0.4025, 0.005) * 2 * np.pi
+    zero = np.zeros(6)
+    for label, design, w, beta, motion, pose in (
+            ("spar_nm1", _spar_design(10.0), spar_w, 0.0, True, zero),
+            ("spar_nm0", _spar_design(-5.0), spar_w, 0.0, True, zero),
+            ("spar_fixed", _spar_design(10.0), spar_w, 0.0, False, zero),
+            ("spar_b035", _spar_design(10.0), spar_w, 0.35, True, zero),
+            ("oc4semi_30", _oc4semi_qtf(0.15), oc4_w, 0.0, True, zero),
+            ("oc4semi_80", _oc4semi_qtf(0.40), oc4_w, 0.0, True,
+             np.array([2.0, 0.1, -0.2, 0.01, 0.03, 0.02]))):
+        f = TF.build_fowt(design, w, depth=float(design["site"]["water_depth"]),
+                          device=dev)
+        p = TF.fowt_pose(f, pose)
+        kw = {}
+        if motion:
+            Xi0 = rng.standard_normal((6, len(w))) \
+                + 1j * rng.standard_normal((6, len(w)))
+            Xi0[3:] *= 0.01
+            kw = dict(Xi0=Xi0, M_struc=TF.fowt_statics(f, p)["M_struc"])
+        out.append((label, f, TQ.qtf_fields(f, p, beta, **kw), beta))
+    return out
+
+
+def check_qtf(dev):
+    """K5 against its plain version on every row, each row timed (no
+    PyTorch call computes this function: library "none")."""
+    from raft_tpu_torch.ops.kernels import qtf_pair as K
+
+    rows = ROWS.setdefault("qtf_pair", [])
+    for label, f, fields, beta in qtf_cases(dev):
+        args = (fields, beta, f.depth, f.rho_water, f.g)
+        Q = K.qtf_pair_grid(*args)
+        Qp = K.qtf_pair_grid_plain(*args)
+        torch.cuda.synchronize()
+        nw2 = int(fields["w2"].shape[0])
+        nm = 0 if fields["wl"] is None else int(fields["wl"]["geo"].shape[0])
+        rel = _rel(Q, Qp)
+        row = dict(case=label, lanes=nw2 * nw2, nw2=nw2,
+                   N=int(fields["q"].shape[0]), nm=nm,
+                   submerged=int(torch.count_nonzero(fields["nodescal"][:, 3])),
+                   rel_vs_plain=rel, rel_ill=0.0,
+                   max_abs_err=float(torch.max(torch.abs(Q - Qp))),
+                   max_abs_Q=float(torch.max(torch.abs(Qp))))
+        if not (rel <= QTF_TOL and bool(torch.all(torch.isfinite(Q)))):
+            fail(f"qtf_pair {label}: rel={rel:.3e} vs plain")
+        ops, _ = K.kernel_operands(fields)
+        row["ms"] = time_ms(lambda: K.qtf_pair_grid(*args))
+        row["device_ms"] = device_ms(lambda: K.qtf_pair_grid(*args),
+                                     "qtf_pair_kernel")
+        row["plain_ms"] = time_ms(lambda: K.qtf_pair_grid_plain(*args),
+                                  reps=3, warmup=1)
+        row["library_ms"] = None
+        row["ops"] = qtf_ops(fields)
+        row["bytes"] = nbytes(*ops.values(), Q)
+        row["bound_ms"], row["bound_by"] = bound(row["bytes"],
+                                                 row["ops"])
+        rows.append(row)
+        log(f"  qtf_pair {label:11s} nw2={nw2:3d} N={row['N']:3d} nm={nm}"
+            f" submerged={row['submerged']} rel={rel:.2e} | kernel "
+            f"{row['ms']:.4f} ms (device {row['device_ms']})  plain "
+            f"{row['plain_ms']:.3f} ms  bound {row['bound_ms']:.2e} ms "
+            f"({row['bound_by']}: {row['ops']:.3e} FP64 ops, "
+            f"{row['bytes']} bytes)")
+    return rows
+
+
 # ---------------------------------------------------------------------------
-# phases 4-7: the paths, each with its own launch counts
+# phases 4-8: the paths, each with its own launch counts
 # ---------------------------------------------------------------------------
 
 #: launches per path, read just after it ran (counters set to 0 just
@@ -532,13 +674,15 @@ def counted(path, expect):
     import contextlib
 
     from raft_tpu_torch.ops.kernels import gj_solve as G
+    from raft_tpu_torch.ops.kernels import qtf_pair as K
 
     @contextlib.contextmanager
     def cm():
         G.reset_launches()
+        K.reset_launches()
         yield
         torch.cuda.synchronize()
-        got = {k: v for k, v in G.LAUNCHES.items() if v}
+        got = {k: v for k, v in {**G.LAUNCHES, **K.LAUNCHES}.items() if v}
         PATH_LAUNCHES[path] = got
         log(f"  [{path}] launches {got}")
         for k in expect:
@@ -765,8 +909,33 @@ def run_variants(dev):
     return res
 
 
+def _golden_check(name, live, fname, mode="f64"):
+    """Diff a ledger against tests/golden/<fname> as phase 7 does; fail on
+    a blocking regression, an added or removed metric or an iteration
+    count that differs.  Returns the record."""
+    from raft_tpu_torch import ledger
+
+    gold = ledger.load_ledger(os.path.join(ROOT, "tests", "golden", fname))
+    rep = ledger.diff(gold, live, tol_rel=GOLDEN_TOL,
+                      per_metric={"*_residual*": GOLDEN_RESID_TOL})
+    worst = max((r["rel"] for r in rep["regressions"]), default=0.0)
+    log(f"  [{mode}] " + ledger.format_diff(rep))
+    blocking = ledger.blocking_regressions(rep)
+    gm = {e["key"]: e["metrics"] for e in gold["entries"]}
+    lm = {e["key"]: e["metrics"] for e in live["entries"]}
+    iters_ok = all(
+        lm[key][it] == gm[key][it] for key in gm
+        for it in ("statics_iters", "drag_iters", "drag_converged")
+        if it in gm[key])
+    if blocking or rep["added"] or rep["removed"] or not iters_ok:
+        fail(f"golden {name} ({mode}) regressed: {blocking}, "
+             f"iteration counts equal {iters_ok}")
+    return dict(ok=not blocking and iters_ok, n_compared=rep["n_compared"],
+                worst_rel=worst)
+
+
 def run_goldens(dev, mode="f64"):
-    from raft_tpu_torch import Model, _config, ledger
+    from raft_tpu_torch import Model, _config
     from raft_tpu_torch.io.designs import load_design
 
     out = {}
@@ -782,26 +951,67 @@ def run_goldens(dev, mode="f64"):
                 d["cases"]["data"] = d["cases"]["data"][:1]
                 m = Model(d, device=dev)
                 m.analyzeCases()
-                gold = ledger.load_ledger(os.path.join(ROOT, "tests", "golden",
-                                                       fname))
-                rep = ledger.diff(gold, m.last_ledger, tol_rel=GOLDEN_TOL,
-                                  per_metric={"*_residual*": GOLDEN_RESID_TOL})
-                worst = max((r["rel"] for r in rep["regressions"]), default=0.0)
-                log(f"  [{mode}] " + ledger.format_diff(rep))
-                blocking = ledger.blocking_regressions(rep)
-                gm = {e["key"]: e["metrics"] for e in gold["entries"]}
-                lm = {e["key"]: e["metrics"] for e in m.last_ledger["entries"]}
-                iters_ok = all(
-                    lm[key][it] == gm[key][it] for key in gm
-                    for it in ("statics_iters", "drag_iters", "drag_converged")
-                    if it in gm[key])
-                if blocking or rep["added"] or rep["removed"] or not iters_ok:
-                    fail(f"golden {name} ({mode}) regressed: {blocking}, "
-                         f"iteration counts equal {iters_ok}")
-                out[name] = dict(ok=not blocking and iters_ok,
-                                 n_compared=rep["n_compared"], worst_rel=worst)
+                out[name] = _golden_check(name, m.last_ledger, fname, mode)
     finally:
         _config.set_precision_mode(None)
+    return out
+
+
+def run_qtf(dev):
+    """The second-order path: run_raft on examples/example_qtf.py's
+    configuration against its golden (1 K5 launch), then Vertical_cylinder
+    with two headings (2 K5 launches)."""
+    from raft_tpu_torch import Model, run_raft
+    from raft_tpu_torch.io.designs import load_design
+
+    out = {}
+    expect = ("impedance_gj", "gj_solve", "qtf_pair")
+    with counted("qtf", expect):
+        t0 = time.perf_counter()
+        model = run_raft(_oc4semi_qtf(0.15), device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    c0 = model.results["case_metrics"][0][0]
+    out["oc4semi"] = dict(
+        wall_s=wall, timings=dict(model.timings), nw=model.nw,
+        nw2=len(model.fowtList[0].w1_2nd), surge_std=c0["surge_std"],
+        surge_avg=c0["surge_avg"], launches=PATH_LAUNCHES["qtf"],
+        golden=_golden_check("OC4semi qtf", model.last_ledger,
+                             "oc4semi_qtf.ledger.json"))
+    log(f"  OC4semi potSecOrder 1: {model.nw} x {out['oc4semi']['nw2']} bins"
+        f" in {wall:.2f} s; split " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in model.timings.items())
+        + f"; surge std {c0['surge_std']:.6f} m, mean {c0['surge_avg']:.6f} m")
+    if PATH_LAUNCHES["qtf"].get("qtf_pair") != 1:
+        fail(f"qtf: K5 launched {PATH_LAUNCHES['qtf'].get('qtf_pair')} "
+             "times on the OC4semi example, not 1")
+
+    d = load_design("Vertical_cylinder")
+    d["settings"].update(min_freq=0.02, max_freq=0.2)
+    d["platform"].update(potSecOrder=1, min_freq2nd=0.02, max_freq2nd=0.16)
+    keys = d["cases"]["keys"]
+    row = dict(zip(keys, d["cases"]["data"][0]))
+    row.update(wave_spectrum=["JONSWAP"] * 2, wave_period=[10.0, 8.0],
+               wave_height=[6.0, 4.0], wave_heading=[0.0, 30.0])
+    d["cases"]["data"] = [[row[k] for k in keys]]
+    with counted("qtf_2heading", expect):
+        t0 = time.perf_counter()
+        m = Model(d, device=dev)
+        m.analyzeCases()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finite = bool(np.all(np.isfinite(m.Xi))) and all(
+        np.isfinite(m.results["case_metrics"][0][0][f"{ch}_std"])
+        for ch in ("surge", "sway", "heave", "roll", "pitch", "yaw"))
+    out["two_headings"] = dict(wall_s=wall, timings=dict(m.timings),
+                               launches=PATH_LAUNCHES["qtf_2heading"],
+                               finite=finite)
+    log(f"  Vertical_cylinder, 2 headings: {wall:.2f} s, finite {finite}")
+    if not finite:
+        fail("qtf 2 headings: non-finite outputs")
+    if PATH_LAUNCHES["qtf_2heading"].get("qtf_pair") != 2:
+        fail(f"qtf 2 headings: K5 launched "
+             f"{PATH_LAUNCHES['qtf_2heading'].get('qtf_pair')} times, not 2")
     return out
 
 
@@ -818,6 +1028,9 @@ KERNELS = (
     ("K4 gj_solve_mixed", "gj_solve_mixed",
      "raft_tpu/ops/pallas/gj_solve.py:233",
      "raft_tpu_torch/csrc/gj_k4_mixed_f32.cu", 80),
+    # lanes = pairs: the OC4semi example's 30 x 30 grid
+    ("K5 qtf_pair_grid", "qtf_pair", "raft_tpu/ops/pallas/qtf_pair.py:381",
+     "raft_tpu_torch/csrc/qtf_k5_f64.cu", 900),
 )
 
 
@@ -842,7 +1055,7 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {_build.BUILD_INFO})")
     for sym, lines in _build.ptxas_report().items():
         if ("impedance_kernel" in sym and "Li6E" in sym) \
-                or "Li12ELi6E" in sym:
+                or "Li12ELi6E" in sym or "qtf_pair_kernel" in sym:
             log(f"  ptxas {sym}: {' | '.join(lines)}")
     os.makedirs(OUT, exist_ok=True)
     with open(os.path.join(OUT, "ptxas.log"), "w") as f:
@@ -853,6 +1066,7 @@ def main() -> int:
     log("kernels: parity against the plain versions and times")
     t0 = time.perf_counter()
     rows = check_kernels(dev)
+    check_qtf(dev)
     log(f"kernels: {time.perf_counter() - t0:.1f} s")
     if "--only-kernels" in sys.argv[1:]:
         log(f"chip_smoke: kernels only, {len(FAILURES)} failure(s)")
@@ -863,7 +1077,8 @@ def main() -> int:
                      ("sweep", lambda: run_sweeps(dev)),
                      ("variants", lambda: run_variants(dev)),
                      ("golden", lambda: run_goldens(dev, "f64")),
-                     ("golden_mixed", lambda: run_goldens(dev, "mixed"))):
+                     ("golden_mixed", lambda: run_goldens(dev, "mixed")),
+                     ("qtf", lambda: run_qtf(dev))):
         log(f"{name}: on the card")
         t0 = time.perf_counter()
         phases[name] = fn()

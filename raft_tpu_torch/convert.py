@@ -28,6 +28,8 @@ HOST_FIELDS = {
     "RotorModel": {"r_rel", "azimuths", "Uhub_ops", "Omega_rpm_ops",
                    "pitch_deg_ops", "kp_0", "ki_0", "q_rel0", "Ca_interp",
                    "r_thick_interp", "aoa_grid"},
+    # a QTF read from a .12d file: host numpy, interpolated per case
+    "QTFData": {"heads_rad", "w", "qtf"},
 }
 
 
@@ -35,9 +37,10 @@ def _port_classes():
     from raft_tpu_torch.models.fowt import FOWTModel, NodeSet
     from raft_tpu_torch.models.member import MemberGeometry
     from raft_tpu_torch.models.mooring import MooringSystem
+    from raft_tpu_torch.models.qtf import QTFData
     from raft_tpu_torch.models.rotor import RotorModel
     return {c.__name__: c for c in (FOWTModel, NodeSet, MemberGeometry,
-                                    MooringSystem, RotorModel)}
+                                    MooringSystem, QTFData, RotorModel)}
 
 
 def _array(x, device):

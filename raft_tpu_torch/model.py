@@ -12,18 +12,27 @@ raft/raft_model.py) on PyTorch:
   point around the fused impedance solve (kernel K1 on the card) in a
   Python loop with the same iteration rule, then the factor-once system
   solve ``inv_complex`` (kernel K2) applied to every heading.
+- Second-order loads (reference :901-904, :966-989, :1066-1083):
+  ``potSecOrder: 2`` adds the difference-frequency force of a ``.12d``
+  QTF; ``potSecOrder: 1`` computes the slender-body QTF (kernel K5 on the
+  card) from the drag-converged RAOs of each heading, re-converges the
+  fixed point warm-started from them (heading 0) or re-solves through the
+  factored impedance (the other headings), and re-solves the statics with
+  the mean drift included.  ``outFolderQTF`` drops ``.4`` / ``.12d``
+  snapshots and reloads a content-keyed QTF.
 - `solveEigen` (reference :391-476), host NumPy.
 - `analyzeCases` / `saveTurbineOutputs` / `calcOutputs` / `run_raft`.
 
 Everything runs on ``Model.device`` (the card unless ``device="cpu"``).
-Not part of this slice: farms/arrays, potential flow and second-order
-loads, ballast trim, and the JAX package's observability, probes,
+Not part of the port yet: farms/arrays, potential flow, ballast trim,
+the Kim & Yue correction, and the JAX package's observability, probes,
 journal/resume, quarantine and recovery ladder — failures raise typed
 errors, as the JAX package does with ``RAFT_TPU_RECOVERY=0``.
 """
 from __future__ import annotations
 
 import copy
+import os
 import time
 
 import numpy as np
@@ -39,6 +48,7 @@ from raft_tpu_torch.models.fowt import (
     fowt_hydro_linearization_pre, fowt_drag_excitation, fowt_current_loads,
     fowt_turbine_constants, fowt_bem_excitation,
 )
+from raft_tpu_torch.models import qtf as qt
 from raft_tpu_torch.models.member import member_inertia
 from raft_tpu_torch.models.rotor import calc_aero
 from raft_tpu_torch.ops.linalg import impedance_solve, inv_complex
@@ -103,13 +113,19 @@ class Model:
         self.nDOF = 6
         self.mooring_currentMod = int(get_from_dict(
             design.get("mooring") or {}, "currentMod", dtype=int, default=0))
+        # QTF output folder: internal-QTF runs drop .12d/.4 snapshots here
+        # and reload them as a checkpoint cache (reference:
+        # raft_fowt.py:255-257, 1420-1433, 1642-1648)
+        self.outFolderQTF = (design.get("platform") or {}).get("outFolderQTF")
         self._iCase = None
         #: result ledger (raft_tpu.ledger/v1) of the most recent
         #: analyzeCases invocation
         self.last_ledger = None
         self._case_records = {}
         #: wall seconds per phase of the most recent analyzeCases
-        #: (statics, dynamics, outputs), each ending in a device sync
+        #: (statics, dynamics, outputs; with second-order loads also
+        #: first_order_fp, qtf, second_order_fp inside dynamics and the
+        #: drift_statics re-solve), each ending in a device sync
         self.timings = {}
         self.design = design
         self.results = {}
@@ -125,6 +141,14 @@ class Model:
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _lap(self, key, t0) -> float:
+        """Add the wall since ``t0`` (after a device sync) to
+        ``timings[key]``; returns the new time stamp."""
+        self._sync()
+        t = time.perf_counter()
+        self.timings[key] = self.timings.get(key, 0.0) + t - t0
+        return t
 
     def _case_label(self) -> str:
         return "unloaded" if self._iCase is None else str(self._iCase)
@@ -180,6 +204,10 @@ class Model:
                 state["moor_current"] = cur_speed * np.array(
                     [np.cos(np.deg2rad(cur_head)),
                      np.sin(np.deg2rad(cur_head)), 0.0])
+            # the mean wave drift of this case's dynamics, for the statics
+            # re-solve (reference raft_model.py:548-554)
+            if "F_meandrift" in state:
+                F_env = F_env + state["F_meandrift"]
         else:
             state["turbine"] = None
             state["hydro0"] = fowt_hydro_constants(fowt, pose0)
@@ -341,14 +369,53 @@ class Model:
             self._case_records.setdefault(self._case_label(), {})[
                 "cond_max"] = _f(torch.max(cond))
 
-        nWaves = st["seastate"]["nWaves"]
+        seastate = st["seastate"]
+        nWaves = seastate["nWaves"]
         st["F_drag"] = fowt_drag_excitation(fowt, st["pose_eq"], st["Bmat"],
                                             st["excitation"]["u"][:nWaves])
-        F_all = (st["F_BEM"][:nWaves] + st["excitation"]["F_hydro_iner"][:nWaves]
-                 + st["F_drag"]).to(COMPLEX)
-        Xi_d, rel_d = _dyn_solve_core(Zinv, Z_sys, F_all)
+        if fowt.potSecOrder == 2:
+            qd = fowt.qtf_data
+            for ih in range(1, nWaves):
+                st["Fhydro_2nd_mean"][ih], st["Fhydro_2nd"][ih] = \
+                    qt.hydro_force_2nd(qd.qtf, qd.heads_rad, qd.w,
+                                       seastate["beta"][ih],
+                                       seastate["S"][ih], self.w,
+                                       device=self.device)
+
+        def assemble_F():
+            return (st["F_BEM"][:nWaves]
+                    + st["excitation"]["F_hydro_iner"][:nWaves]
+                    + st["F_drag"] + st["Fhydro_2nd"]).to(COMPLEX)
+
+        Xi_d, rel_d = _dyn_solve_core(Zinv, Z_sys, assemble_F())
+        rel2 = None
+        if nWaves > 1 and fowt.potSecOrder == 1:
+            # internal QTF of each secondary heading from its first-order
+            # RAOs (one K5 launch each), then ONE re-solve of the headings
+            # through the factored Zinv (reference: raft_model.py:1066-1083)
+            t0 = time.perf_counter()
+            for ih in range(1, nWaves):
+                beta = float(seastate["beta"][ih])
+                RAO_h = get_rao(Xi_d[ih], seastate["zeta"][ih])
+                qtf_h = qt.calc_qtf_slender_body(
+                    fowt, st["pose_eq"], beta, Xi0=RAO_h,
+                    M_struc=st["statics"]["M_struc"])[:, :, None, :]
+                st["Fhydro_2nd_mean"][ih], st["Fhydro_2nd"][ih] = \
+                    qt.hydro_force_2nd(qtf_h, [beta], fowt.w1_2nd, beta,
+                                       seastate["S"][ih], self.w)
+            t0 = self._lap("qtf", t0)
+            Xi2_d, rel2 = _dyn_solve_core(Zinv, Z_sys, assemble_F())
+            # heading 0 keeps its converged solution; the secondary
+            # headings take the re-solved response
+            Xi_d = torch.cat([Xi_d[:1], Xi2_d[1:]])
+            self._lap("second_order_fp", t0)
         rec = self._case_records.setdefault(self._case_label(), {})
-        rec["dyn_solve_residual"] = [float(r) for r in _np(rel_d)]
+        rel_h = [float(r) for r in _np(rel_d)]
+        rel2_h = None if rel2 is None else [float(r) for r in _np(rel2)]
+        # per heading: the first solve, then (when present) its re-solve
+        rec["dyn_solve_residual"] = [
+            r for ih in range(nWaves)
+            for r in ([rel_h[ih]] + ([rel2_h[ih]] if rel2_h and ih else []))]
 
         Xi_sys = np.zeros((nWaves + 1, 6, self.nw), dtype=complex)
         Xi_sys[:nWaves] = _np(Xi_d)
@@ -359,6 +426,9 @@ class Model:
                 f"solveDynamics produced {int(bad.sum())} non-finite "
                 "response value(s); check drag-linearization convergence",
                 case=self._iCase, n_bad=int(bad.sum()), nWaves=int(nWaves))
+        if fowt.potSecOrder > 0:
+            # mean drift feeds the statics re-solve (reference :548-554)
+            st["F_meandrift"] = torch.sum(st["Fhydro_2nd_mean"], dim=0)
         self.Xi = Xi_sys
         self.results["response"] = {}
         return Xi_sys
@@ -406,32 +476,67 @@ class Model:
         # (reference C_lin, raft_model.py:913)
 
         u0 = exc["u"][0]
-        F_lin = F_BEM[0] + exc["F_hydro_iner"][0]                # (6, nw)
+        nWaves = seastate["nWaves"]
+        # ----- second-order forces (reference: raft_model.py:901-904) -----
+        F2 = torch.zeros((nWaves, 6, nw), dtype=REAL, device=dev)
+        F2_mean = torch.zeros((nWaves, 6), dtype=REAL, device=dev)
+        if fowt.potSecOrder == 2:
+            qd = fowt.qtf_data
+            F2_mean[0], F2[0] = qt.hydro_force_2nd(
+                qd.qtf, qd.heads_rad, qd.w, seastate["beta"][0],
+                seastate["S"][0], self.w, device=dev)
+        F_lin = F_BEM[0] + exc["F_hydro_iner"][0] + F2[0]         # (6, nw)
         drag_pre = fowt_drag_precompute(fowt, pose_eq, u0)
 
-        XiLast = torch.zeros((6, nw), dtype=COMPLEX, device=dev) + self.XiStart
-        Xi = XiLast
-        Z = torch.zeros((6, 6, nw), dtype=COMPLEX, device=dev)
-        Bmat = torch.zeros((fowt.nodes.n, 3, 3), dtype=REAL, device=dev)
-        ii = 0
-        converged = False
-        while ii < nIter and not converged:
-            B_drag, Bmat = fowt_hydro_linearization_pre(fowt, pose_eq,
-                                                        drag_pre, XiLast)
-            F_drag = fowt_drag_excitation(fowt, pose_eq, Bmat, u0)
-            B_tot = B_lin + B_drag[:, :, None]
-            Z = (-w[None, None, :] ** 2 * M_lin
-                 + 1j * w[None, None, :] * B_tot
-                 + C_lin[:, :, None]).to(COMPLEX)
-            # one batched complex solve over all frequencies — the fused
-            # impedance kernel K1 on the card
-            Xi = impedance_solve(w, M_lin, B_tot, C_lin, F_lin + F_drag)
-            tolCheck = torch.abs(Xi - XiLast) / (torch.abs(Xi) + tol)
-            conv = bool(torch.all(tolCheck < tol))
-            if not conv:
-                XiLast = keep * XiLast + relax * Xi
-            ii += 1
-            converged = conv
+        def run_fixed_point(F_lin, Xi_init=None):
+            """The drag-linearization fixed point around one batched solve
+            over all frequencies (K1 on the card).  ``Xi_init`` warm-starts
+            it (the potSecOrder 1 re-solve: the reference resets only the
+            counter, raft_model.py:966-989).  Returns (XiLast, Xi, Z,
+            Bmat, iterations, converged)."""
+            XiLast = torch.zeros((6, nw), dtype=COMPLEX, device=dev) \
+                + self.XiStart if Xi_init is None else Xi_init
+            Xi = XiLast
+            Z = torch.zeros((6, 6, nw), dtype=COMPLEX, device=dev)
+            Bmat = torch.zeros((fowt.nodes.n, 3, 3), dtype=REAL, device=dev)
+            ii = 0
+            converged = False
+            while ii < nIter and not converged:
+                B_drag, Bmat = fowt_hydro_linearization_pre(
+                    fowt, pose_eq, drag_pre, XiLast)
+                F_drag = fowt_drag_excitation(fowt, pose_eq, Bmat, u0)
+                B_tot = B_lin + B_drag[:, :, None]
+                Z = (-w[None, None, :] ** 2 * M_lin
+                     + 1j * w[None, None, :] * B_tot
+                     + C_lin[:, :, None]).to(COMPLEX)
+                Xi = impedance_solve(w, M_lin, B_tot, C_lin, F_lin + F_drag)
+                tolCheck = torch.abs(Xi - XiLast) / (torch.abs(Xi) + tol)
+                conv = bool(torch.all(tolCheck < tol))
+                if not conv:
+                    XiLast = keep * XiLast + relax * Xi
+                ii += 1
+                converged = conv
+            return XiLast, Xi, Z, Bmat, ii, converged
+
+        t0 = time.perf_counter()
+        XiLast, Xi, Z, Bmat, ii, converged = run_fixed_point(F_lin)
+        if fowt.potSecOrder == 1:
+            # internal QTF from the drag-converged first-order RAOs, then
+            # re-converge with the 2nd-order forces included (reference:
+            # raft_model.py:966-989)
+            t0 = self._lap("first_order_fp", t0)
+            beta0 = float(seastate["beta"][0])
+            RAO = get_rao(Xi, seastate["zeta"][0])
+            qtf4 = self._internal_qtf(fowt, state, pose_eq, beta0, RAO)
+            F2_mean[0], F2[0] = qt.hydro_force_2nd(
+                qtf4, [beta0], fowt.w1_2nd, beta0, seastate["S"][0], self.w,
+                device=dev)
+            F_lin = F_lin + F2[0]
+            t0 = self._lap("qtf", t0)
+            XiLast, Xi, Z, Bmat, ii, converged = run_fixed_point(
+                F_lin, Xi_init=Xi)
+            self._lap("second_order_fp", t0)
+            state["qtf"] = qtf4
 
         Xi_np, XiLast_np = _np(Xi), _np(XiLast)
         residual = float(np.max(np.abs(Xi_np - XiLast_np)
@@ -441,6 +546,50 @@ class Model:
                         "drag_converged": converged}
         state["Z"] = Z
         state["Bmat"] = Bmat
+        state["Fhydro_2nd"] = F2
+        state["Fhydro_2nd_mean"] = F2_mean
+
+    def _internal_qtf(self, fowt, state, pose_eq, beta0, RAO):
+        """The heading-0 QTF (nw2, nw2, 1, 6) from the RAOs ``RAO``: K5
+        through ``calc_qtf_slender_body``, or with ``outFolderQTF`` the
+        content-keyed .12d written by an earlier run (either package's),
+        beside a .4 snapshot of the RAOs (reference: raft_fowt.py:
+        1420-1433, 1642-1648)."""
+        M_struc = state["statics"]["M_struc"]
+        cache_path = key = None
+        if self.outFolderQTF is not None:
+            os.makedirs(self.outFolderQTF, exist_ok=True)
+            tag = f"Head{int(round(np.rad2deg(beta0)))}"
+            if self._iCase is not None:
+                tag += f"_Case{self._iCase + 1}"
+            tag += "_WT0"
+            RAO_np = _np(RAO)
+            qt.write_rao_4(os.path.join(self.outFolderQTF,
+                                        f"raos-slender_body_{tag}.4"),
+                           self.w, beta0, RAO_np)
+            key = qt.cache_key(fowt, state["r6"], beta0, RAO_np, M_struc)
+            cache_path = os.path.join(self.outFolderQTF,
+                                      f"qtf-slender_body-total_{tag}.12d")
+            key_path = cache_path + ".key"
+            if os.path.isfile(cache_path) and os.path.isfile(key_path):
+                with open(key_path) as f:
+                    hit = f.read().strip() == key
+                if hit:
+                    qd = qt.read_qtf_12d(cache_path, rho=fowt.rho_water,
+                                         g=fowt.g)
+                    w2 = _np(fowt.w1_2nd)
+                    if len(qd.w) == len(w2) and np.allclose(qd.w, w2,
+                                                            rtol=1e-6):
+                        return torch.as_tensor(qd.qtf, dtype=COMPLEX,
+                                               device=self.device)
+        qtf4 = qt.calc_qtf_slender_body(fowt, pose_eq, beta0, Xi0=RAO,
+                                        M_struc=M_struc)[:, :, None, :]
+        if cache_path is not None:
+            qt.write_qtf_12d(cache_path, _np(qtf4), _np(fowt.w1_2nd),
+                             [beta0], rho=fowt.rho_water, g=fowt.g)
+            with open(cache_path + ".key", "w") as f:
+                f.write(key)
+        return qtf4
 
     # ------------------------------------------------------------------
     # case loop
@@ -482,13 +631,21 @@ class Model:
                 self.solveDynamics(case, display=display)
                 self._sync()
                 t2 = time.perf_counter()
+                self.timings["statics"] += t1 - t0
+                self.timings["dynamics"] += t2 - t1
+                if self.fowtList[0].potSecOrder > 0:
+                    # re-solve the operating point with the mean wave drift
+                    # included, then clear it so it cannot leak into the
+                    # next case (reference: raft_model.py:296-303)
+                    self.results["mean_offsets"].pop()   # superseded
+                    self.solveStatics(case, display=display)
+                    self._state[0].pop("F_meandrift", None)
+                    t2 = self._lap("drift_statics", t2)
                 self.results["case_metrics"][iCase][0] = {}
                 self.saveTurbineOutputs(self.results["case_metrics"][iCase][0],
                                         0, case)
                 self._sync()
                 t3 = time.perf_counter()
-                self.timings["statics"] += t1 - t0
-                self.timings["dynamics"] += t2 - t1
                 self.timings["outputs"] += t3 - t2
         finally:
             self._iCase = None

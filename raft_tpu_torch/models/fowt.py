@@ -20,13 +20,17 @@ model's device): the `fowt_*` functions mirror the reference methods:
   calcCurrentLoads       -> fowt_current_loads      (raft_fowt.py:1297-1382)
   calcTurbineConstants   -> fowt_turbine_constants  (raft_fowt.py:773-845)
 
-Potential-flow members, MacCamy-Fuchs members, second-order loads and
-submerged rotors are not part of this slice: they raise
+Second-order loads: ``potSecOrder: 1`` sets up the second-order grid
+(``w1_2nd`` / ``k1_2nd``) for the internal slender-body QTF
+(``models/qtf.py``), ``potSecOrder: 2`` reads ``hydroPath + ".12d"``
+into ``qtf_data``.  Potential-flow members, MacCamy-Fuchs members and
+submerged rotors are not part of the port yet: they raise
 ``ModelConfigError``.
 """
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -41,6 +45,7 @@ from raft_tpu_torch.models.member import (
 )
 from raft_tpu_torch.models.rotor import RotorModel, build_rotor, calc_aero, rotor_pose
 from raft_tpu_torch.models import mooring as mr
+from raft_tpu_torch.models.qtf import read_qtf_12d
 from raft_tpu_torch.ops.transforms import (
     translate_force_3to6, translate_matrix_3to6, translate_matrix_6to6,
     rotate_matrix_6, transform_force, skew,
@@ -112,6 +117,9 @@ class FOWTModel:
     potSecOrder: int = 0
     potFirstOrder: int = 0
     bem: Optional[object] = None
+    w1_2nd: Optional[np.ndarray] = None   # 2nd-order QTF grid (potSecOrder 1)
+    k1_2nd: Optional[np.ndarray] = None
+    qtf_data: Optional[object] = None     # models.qtf.QTFData (potSecOrder 2)
 
     @property
     def potMod_any(self) -> bool:
@@ -226,16 +234,34 @@ def build_fowt(design: dict, w, depth=600.0, x_ref=0.0, y_ref=0.0,
     if geometry_only:
         potSecOrder = 0
     if not geometry_only and (
-            potFirstOrder == 1 or potModMaster in (2, 3) or potSecOrder
+            potFirstOrder == 1 or potModMaster in (2, 3)
             or any(m.potMod for m in members)):
         raise errors.ModelConfigError(
-            "potential-flow members and second-order loads are not part of "
-            "the PyTorch port yet (strip theory, potModMaster: 1, only)",
-            potModMaster=potModMaster, potFirstOrder=potFirstOrder,
-            potSecOrder=potSecOrder)
+            "potential-flow members are not part of the PyTorch port yet "
+            "(strip theory, potModMaster: 1, only)",
+            potModMaster=potModMaster, potFirstOrder=potFirstOrder)
     if any(m.MCF for m in members):
         raise errors.ModelConfigError(
             "MacCamy-Fuchs members are not part of the PyTorch port yet")
+    # second-order hydro setup (reference: raft_fowt.py:231-252)
+    w1_2nd = k1_2nd = qtf_data = None
+    if potSecOrder == 1:
+        if "min_freq2nd" not in platform or "max_freq2nd" not in platform:
+            raise ValueError("potSecOrder==1 requires min_freq2nd and "
+                             "max_freq2nd in the platform input")
+        f_min2 = float(platform["min_freq2nd"])
+        f_max2 = float(platform["max_freq2nd"])
+        f_df2 = float(platform.get("df_freq2nd", f_min2))
+        w1_2nd = np.arange(f_min2, f_max2 + 0.5 * f_min2, f_df2) * 2 * np.pi
+        k1_2nd = wave_number(w1_2nd, depth).numpy()
+    elif potSecOrder == 2:
+        if "hydroPath" not in platform:
+            raise ValueError("potSecOrder==2 requires hydroPath in the "
+                             "platform input")
+        qpath = platform["hydroPath"] + ".12d"
+        if not os.path.isfile(qpath):
+            raise FileNotFoundError(f"QTF file {qpath} not found")
+        qtf_data = read_qtf_12d(qpath, rho=rho_water, g=g)
 
     fowt = FOWTModel(
         members=members, member_types=member_types, member_names=member_names,
@@ -247,6 +273,7 @@ def build_fowt(design: dict, w, depth=600.0, x_ref=0.0, y_ref=0.0,
         nplatmems=nplatmems, ntowers=ntowers,
         platmem_groups=platmem_groups, potModMaster=potModMaster,
         potSecOrder=potSecOrder, potFirstOrder=potFirstOrder, bem=None,
+        w1_2nd=w1_2nd, k1_2nd=k1_2nd, qtf_data=qtf_data,
     )
     if device is not None:
         from raft_tpu_torch.convert import state_from_numpy

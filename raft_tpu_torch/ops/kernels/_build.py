@@ -28,11 +28,12 @@ from raft_tpu_torch import errors
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
-#: translation units, one per kernel and width (see csrc/gj_kernels.cuh)
+#: translation units, one per kernel and width (see csrc/gj_kernels.cuh
+#: and csrc/qtf_pair.cuh)
 UNITS = ("gj_k1_f64.cu", "gj_k1_f32.cu", "gj_k2_f64.cu", "gj_k2_f32.cu",
          "gj_k3_mixed_f32.cu", "gj_k3_mixed_bf16.cu", "gj_k4_mixed_f32.cu",
-         "gj_k4_mixed_bf16.cu")
-SOURCES = UNITS + ("gj_kernels.cuh", "gj_lane.cuh")
+         "gj_k4_mixed_bf16.cu", "qtf_k5_f64.cu")
+SOURCES = UNITS + ("gj_kernels.cuh", "gj_lane.cuh", "qtf_pair.cuh")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "raft_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -174,6 +175,8 @@ def load():
             fn = getattr(lib, f"raft_gj_solve_mixed_{width}")
             fn.argtypes = [P, P, P, P, P, I, I, I, I, D, P]
             fn.restype = I
+        lib.raft_qtf_pair_f64.argtypes = [P] * 23 + [I, I, I, D, D, D, D, P]
+        lib.raft_qtf_pair_f64.restype = I
         lib.raft_gj_error_string.argtypes = [I]
         lib.raft_gj_error_string.restype = ctypes.c_char_p
         _LIB = lib

@@ -90,6 +90,12 @@ def make_case_solver(fowt: FOWTModel, nIter: int = 10, tol: float = 0.01,
     """Per-case response solver (no aero; wave loading) on the model's
     device: ``solve(Hs, Tp, beta)`` for one case, ``solve.batched(Hs, Tp,
     beta, Xi0=None)`` for a batch.  Hs, Tp [m, s], beta [rad]."""
+    if fowt.potSecOrder > 0:
+        import warnings
+        warnings.warn(
+            "sweep case solver does not include second-order (potSecOrder) "
+            "wave forces yet — sweep responses will exclude slow-drift "
+            "excitation that Model.solveDynamics includes", stacklevel=2)
     dev = fowt.device
     if r6 is None:
         r6 = np.array([fowt.x_ref, fowt.y_ref, 0, 0, 0, 0], float)

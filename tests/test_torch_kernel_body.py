@@ -1,12 +1,14 @@
 """The CUDA kernels' per-lane arithmetic, compiled for the host.
 
-``raft_tpu_torch/csrc/gj_lane.cuh`` holds everything the two Gauss-Jordan
-kernels compute per lane as ``__host__ __device__`` functions.  Here it is
-compiled with g++ (``__host__``/``__device__`` defined empty) into a small
-C library in ``tmp_path``, loaded with ctypes, and held against the
-port's plain PyTorch versions — the only check of the kernels' arithmetic
-(real row swaps and all) that can run without a card.  The kernels
-themselves are checked against the same plain versions on the card by
+``raft_tpu_torch/csrc/gj_lane.cuh`` holds everything the Gauss-Jordan
+kernels compute per lane, and ``csrc/qtf_pair.cuh`` everything the QTF
+pair-grid kernel (K5) computes per (pair, node) and per pair, as
+``__host__ __device__`` functions.  Here they are compiled with g++
+(``__host__``/``__device__`` defined empty) into small C libraries in
+``tmp_path``, loaded with ctypes, and held against the port's plain
+PyTorch versions — the only check of the kernels' arithmetic (real row
+swaps and all) that can run without a card.  The kernels themselves are
+checked against the same plain versions on the card by
 ``chip_smoke.py``.
 """
 import ctypes
@@ -300,3 +302,146 @@ def test_gj_lane_f32_matches_plain(lib):
     x_plain = gj_solve_plain(torch.tensor(A), torch.tensor(b)).numpy()
     assert x_plain.dtype == np.float32
     assert _rel(x, x_plain) < 1e-4
+
+
+
+# ---------------------------------------------------------------------------
+# K5: the QTF pair grid (csrc/qtf_pair.cuh)
+# ---------------------------------------------------------------------------
+
+#: the node sum runs in another order than the plain version's
+QTF_TOL = 1e-12
+
+_QTF_HOST_SRC = r"""
+#include "qtf_pair.cuh"
+// every pair in turn: the kernel's per-pair set-up, its node body summed
+// over the nodes in order, and its per-pair terms
+extern "C" void host_qtf(const double* w, const double* k, const double* Xi,
+    const double* F1st, const double* u, const double* dr, const double* nv,
+    const double* nax, const double* gu, const double* gp, const double* q,
+    const double* off, const double* pos, const double* Minert,
+    const double* CaMat, const double* ptMat, const double* qMat,
+    const double* nsc, const double* wlc, const double* wleta,
+    const double* wlmats, const double* wlgeo, double* Q, int nw2, int N,
+    int nm, double beta, double h, double rho, double g) {
+  using qtf::cd;
+  qtf::Args a;
+  a.nw2 = nw2; a.N = N; a.nm = nm; a.cosb = cos(beta); a.sinb = sin(beta);
+  a.h = h; a.rho = rho; a.g = g; a.w = w; a.k = k;
+  a.Xi = (const cd*)Xi; a.F1st = (const cd*)F1st; a.u = (const cd*)u;
+  a.dr = (const cd*)dr; a.nv = (const cd*)nv; a.nax = (const cd*)nax;
+  a.gu = (const cd*)gu; a.gp = (const cd*)gp; a.q = q; a.off = off;
+  a.pos = pos; a.Minert = Minert; a.CaMat = CaMat; a.ptMat = ptMat;
+  a.qMat = qMat; a.nsc = nsc; a.wlc = (const cd*)wlc;
+  a.wleta = (const cd*)wleta; a.wlmats = wlmats; a.wlgeo = wlgeo;
+  a.Q = (cd*)Q;
+  for (int i1 = 0; i1 < nw2; ++i1)
+    for (int i2 = 0; i2 < nw2; ++i2) {
+      qtf::Pair P = qtf::pair_setup(a, i1, i2);
+      double acc[12] = {0};
+      for (int n = 0; n < N; ++n) qtf::node_wrench(a, P, i1, i2, n, acc);
+      qtf::pair_finish(a, P, i1, i2, acc);
+    }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def qtf_lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not available to compile the kernel body")
+    d = tmp_path_factory.mktemp("qtf_body")
+    src = d / "host_qtf.cpp"
+    src.write_text(_QTF_HOST_SRC)
+    so = d / "libhost_qtf.so"
+    subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC",
+                    "-D__host__=", "-D__device__=", "-I", CSRC,
+                    "-o", str(so), str(src)], check=True)
+    L = ctypes.CDLL(str(so))
+    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    L.host_qtf.argtypes = [P] * 23 + [I, I, I, D, D, D, D]
+    return L
+
+
+def _qtf_body(lib, fields, beta, h, rho, g):
+    from raft_tpu_torch.ops.kernels.qtf_pair import kernel_operands
+
+    ops, (nw2, N, nm) = kernel_operands(fields)
+    names = ("w2", "k2", "Xi", "F1st", "u", "dr", "nv", "nax", "gu", "gp",
+             "q", "offsets", "pos", "Minert", "CaMat", "ptMat", "qMat",
+             "nodescal", "wlc", "wleta", "wlmats", "wlgeo")
+    ptrs = []
+    for name in names:
+        t = ops.get(name)
+        ptrs.append(None if t is None else (
+            torch.view_as_real(t).data_ptr() if t.is_complex()
+            else t.data_ptr()))
+    Q = torch.zeros((nw2, nw2, 6), dtype=torch.complex128)
+    lib.host_qtf(*ptrs, torch.view_as_real(Q).data_ptr(), nw2, N, nm,
+                 float(beta), float(h), float(rho), float(g))
+    return Q
+
+
+def _qtf_fields(design, w, beta, motion, pose=np.zeros(6)):
+    from raft_tpu_torch.models import fowt as TF
+    from raft_tpu_torch.models import qtf as TQ
+
+    f = TF.build_fowt(design, w, depth=float(design["site"]["water_depth"]),
+                      device="cpu")
+    p = TF.fowt_pose(f, pose)
+    kw = {}
+    if motion:
+        rng = np.random.default_rng(3)
+        Xi0 = rng.normal(size=(6, len(w))) + 1j * rng.normal(size=(6, len(w)))
+        Xi0[3:] *= 0.01
+        kw = dict(Xi0=Xi0, M_struc=TF.fowt_statics(f, p)["M_struc"])
+    return f, TQ.qtf_fields(f, p, beta, **kw)
+
+
+def _spar(rB_z):
+    return {
+        "site": {"water_depth": 200.0, "rho_water": 1025.0, "g": 9.81},
+        "platform": {
+            "potModMaster": 1, "potSecOrder": 1,
+            "min_freq2nd": 0.04, "max_freq2nd": 0.12, "df_freq2nd": 0.02,
+            "members": [{
+                "name": "spar", "type": 2, "rA": [0, 0, -20],
+                "rB": [0, 0, rB_z], "shape": "circ", "gamma": 0.0,
+                "potMod": False, "stations": [0, 0.5, 1],
+                "d": [10.0, 8.0, 8.0], "t": 0.05, "Cd": 0.6, "Ca": 0.97,
+                "CdEnd": 0.6, "CaEnd": 0.6, "rho_shell": 7850.0,
+                "dlsMax": 5.0}]}}
+
+
+@pytest.mark.parametrize("rB_z,beta,motion", [
+    (10.0, 0.0, True), (-5.0, 0.0, True), (10.0, 0.0, False),
+    (10.0, 0.35, True)], ids=["waterline", "no_waterline", "no_motion",
+                              "beta_035"])
+def test_qtf_body_matches_plain_spar(qtf_lib, rB_z, beta, motion):
+    from raft_tpu_torch.ops.kernels.qtf_pair import qtf_pair_grid_plain
+
+    w = np.arange(0.02, 0.25, 0.02) * 2 * np.pi
+    f, fields = _qtf_fields(_spar(rB_z), w, beta, motion)
+    ref = qtf_pair_grid_plain(fields, beta, f.depth, f.rho_water, f.g)
+    got = _qtf_body(qtf_lib, fields, beta, f.depth, f.rho_water, f.g)
+    assert _rel(got.numpy(), ref.numpy()) <= QTF_TOL
+
+
+@pytest.mark.parametrize("beta", [0.0, 0.35])
+def test_qtf_body_matches_plain_oc4semi(qtf_lib, beta):
+    """The example's shapes: nw2 = 30, N = 177 nodes, nm = 7 waterline
+    members, at an offset pose (submerged-node count changes)."""
+    from raft_tpu_torch.io.designs import load_design
+    from raft_tpu_torch.ops.kernels.qtf_pair import qtf_pair_grid_plain
+
+    d = load_design("OC4semi")
+    d["platform"].update(potSecOrder=1, min_freq2nd=0.005, max_freq2nd=0.15)
+    w = np.arange(0.005, 0.4025, 0.005) * 2 * np.pi
+    f, fields = _qtf_fields(d, w, beta, True,
+                            pose=np.array([2.0, 0.1, -0.2, 0.01, 0.03, 0.02]))
+    assert fields["q"].shape[0] == 177 and fields["wl"]["geo"].shape[0] == 7
+    ref = qtf_pair_grid_plain(fields, beta, f.depth, f.rho_water, f.g)
+    got = _qtf_body(qtf_lib, fields, beta, f.depth, f.rho_water, f.g)
+    assert got.shape == (30, 30, 6)
+    assert _rel(got.numpy(), ref.numpy()) <= QTF_TOL
