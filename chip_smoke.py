@@ -331,9 +331,10 @@ KERNEL_NAMES = {
 
 
 def _split_rel(X, Xp, ill, case_axis=0):
-    """(rel of the well lanes, rel of the ill lanes or 0.0)."""
+    """(rel of the well lanes, rel of the ill lanes; None where the
+    inputs have no ill lanes)."""
     if len(ill) == 0:
-        return _rel(X, Xp), 0.0
+        return _rel(X, Xp), None
     keep = torch.ones(X.shape[case_axis], dtype=torch.bool)
     keep[ill] = False
     keep = keep.to(X.device)
@@ -397,7 +398,7 @@ def check_impedance(G, g, dev, width):
                        rel_ill=rel_ill,
                        max_abs_err=float(torch.max(torch.abs(X - Xp))))
             tol = X_TOL_F32 if width == "f32" else X_TOL
-            ok = rel <= tol and rel_ill <= ILL_TOL \
+            ok = rel <= tol and (rel_ill is None or rel_ill <= ILL_TOL) \
                 and bool(torch.all(torch.isfinite(X)))
             if width in ("f64", "f32"):
                 Z = (-(w ** 2) * M + 1j * w * B + C[..., None]).movedim(-1, -3)
@@ -413,7 +414,7 @@ def check_impedance(G, g, dev, width):
                     and row["promoted"] >= len(ill) * nw_
             if not ok:
                 fail(f"{key} {kind} lanes={lanes}: rel={rel:.3e} "
-                     f"ill={rel_ill:.3e} {row.get('promoted')}/"
+                     f"ill={rel_ill} {row.get('promoted')}/"
                      f"{row.get('promoted_plain')}")
             if kind == "random" and nb in (1, 1024):
                 Z = (-(w ** 2) * M + 1j * w * B + C[..., None]).movedim(-1, -3)
@@ -474,7 +475,7 @@ def check_gj(G, g, dev, width):
                            rel_ill=rel_ill,
                            max_abs_err=float(torch.max(torch.abs(x - xp))))
                 tol = X_TOL_F32 if width == "f32" else X_TOL
-                ok = rel <= tol and rel_ill <= ILL_TOL \
+                ok = rel <= tol and (rel_ill is None or rel_ill <= ILL_TOL) \
                     and bool(torch.all(torch.isfinite(x)))
                 if width in ("f64", "f32"):
                     row["normwise_residual"] = _normwise_residual(A, x, b)
@@ -488,7 +489,7 @@ def check_gj(G, g, dev, width):
                         and row["promoted"] >= len(ill)
                 if not ok:
                     fail(f"{key} {kind} lanes={lanes} k={k}: rel={rel:.3e} "
-                         f"ill={rel_ill:.3e} {row.get('promoted')}/"
+                         f"ill={rel_ill} {row.get('promoted')}/"
                          f"{row.get('promoted_plain')}")
                 if kind == "inv_complex":
                     eye = torch.eye(6, dtype=torch.complex128,
@@ -530,55 +531,77 @@ def check_kernels(dev):
 
 # ---- K5: the QTF pair grid ----
 
-#: FP64 operations of qtf_pair.cuh, counted from its body (a complex
-#: multiply is 6, a complex add 2, a real-by-complex multiply 2; tanh,
-#: cosh, sinh, sin, cos and sqrt one each, so the bound is a lower bound):
-#: per (pair, submerged node) 2076, plus 42 for the second-order
-#: potential off the diagonal; per pair 280 (set-up, Pinkster IV, the
-#: sum) plus 259 per waterline member
-QTF_NODE_OPS = 2076
-QTF_POT_OPS = 42
-QTF_PAIR_OPS = 280
-QTF_MEMBER_OPS = 259
+#: FP64 operations the pair grid needs, which is fewer than K5's body does
+#: (about 2,100 per pair and submerged node).  A complex multiply is 6, a
+#: complex add 2, a real-by-complex multiply 2, a real operation 1; tanh,
+#: cosh, sinh, sin, cos and sqrt one each, so the bound is a lower bound.
+#: Work on one frequency's fields is counted once per (frequency,
+#: submerged node), not per pair; constant factors fold into per-node
+#: matrices (rho v_i Minert + rho v_end Ca_End qMat as one, rho v_i CaMat,
+#: I - qMat); a matrix applied to several vectors that are then summed is
+#: applied once to their sum; o x v is the skew of o added to grad u (V).
+#: Names follow qtf_pair.cuh (1 = the w1 side, 2 = the w2 side, ua = u -
+#: nv, cu = CaMat ua, uat = (I - qMat) ua, oq = o x q).
+QTF_FREQ_NODE_OPS = sum((
+    6,     # ua
+    30,    # cu: real 3x3 by complex 3-vector
+    30,    # ptMat ua
+    30,    # uat
+    40,    # dw/dz = q . (grad u q)
+    22,    # t = ua - (q . ua) q, transverse to the axis
+    18,    # oq
+    12,    # V = grad u + skew(o): six off-diagonal adds
+))
+QTF_PAIR_NODE_OPS = sum((
+    162,   # grad u1 (conj u2 + i w1 conj dr2) + conj(grad u2) (u1 + conj(i w2) dr1)
+    30,    # the combined Minert/qMat matrix on that sum
+    22,    # ptMat ua1 . conj(cu2)
+    46,    # gp1 . conj(dr2) + conj(gp2) . dr1
+    4,     # the pressure sum
+    8,     # a_i p q
+    42,    # dw/dz1 conj(t2) + conj(dw/dz2) t1
+    22,    # its transverse part
+    42,    # conj(nax2) oq1 + nax1 conj(oq2)
+    138,   # V1 conj(cu2) + conj(V2) cu1
+    138,   # V1 conj(uat2) + conj(V2) uat1
+    12,    # the CaMat bracket
+    30,    # rho v_i CaMat on it
+    30,    # (I - qMat) on the cu products
+    18,    # the node force: four vectors summed
+    18,    # the moment, offset x f
+    12,    # into the node sum
+))
+#: the second-order potential, per off-diagonal pair and submerged node
+#: (the active mask zeroes the diagonal)
+QTF_POT_OPS = sum((
+    2,     # |dk| (z + h), clamped
+    4,     # cosh, sinh, over cosh(|dk| h)
+    5,     # phase exp(-i (dkx x + dky y))
+    11,    # the acceleration (the pair's factor is imaginary)
+    2,     # the pressure
+    8,     # into the Minert/qMat vector and the pressure sum
+))
+QTF_NODE_OPS = 50      # the per-node matrices and factors, once a node
+QTF_FREQ_OPS = 6       # o = i w Xi[3:], once a frequency
+#: per pair: the potential's pair factors (47), Pinkster IV (180), adding
+#: the node sum and the waterline sum (24)
+QTF_PAIR_OPS = 251
+#: per pair and waterline member: three two-sided products (126), two
+#: real 3x3 products (60), their sums (18), the moment and its sum (24)
+QTF_MEMBER_OPS = 228
 
 
 def qtf_ops(fields) -> int:
-    """FP64 operations K5 does on these fields (what this data needs:
-    every pair, the submerged nodes only)."""
+    """FP64 operations the pair grid needs on these fields (this data:
+    every pair, the submerged nodes only); see QTF_PAIR_NODE_OPS."""
     nw2 = int(fields["w2"].shape[0])
     sub = int(torch.count_nonzero(fields["nodescal"][:, 3]))
     nm = 0 if fields.get("wl") is None else int(fields["wl"]["geo"].shape[0])
-    return (nw2 * nw2 * sub * QTF_NODE_OPS
+    return (nw2 * nw2 * sub * QTF_PAIR_NODE_OPS
             + nw2 * (nw2 - 1) * sub * QTF_POT_OPS
+            + nw2 * sub * QTF_FREQ_NODE_OPS + sub * QTF_NODE_OPS
+            + nw2 * QTF_FREQ_OPS
             + nw2 * nw2 * (QTF_PAIR_OPS + QTF_MEMBER_OPS * nm))
-
-
-def _spar_design(rB_z):
-    """tests/test_qtf_kernel.py's spar (one waterline member above water,
-    none below)."""
-    return {
-        "site": {"water_depth": 200.0, "rho_water": 1025.0, "g": 9.81},
-        "platform": {
-            "potModMaster": 1, "potSecOrder": 1,
-            "min_freq2nd": 0.04, "max_freq2nd": 0.12, "df_freq2nd": 0.02,
-            "members": [{
-                "name": "spar", "type": 2, "rA": [0, 0, -20],
-                "rB": [0, 0, rB_z], "shape": "circ", "gamma": 0.0,
-                "potMod": False, "stations": [0, 0.5, 1],
-                "d": [10.0, 8.0, 8.0], "t": 0.05, "Cd": 0.6, "Ca": 0.97,
-                "CdEnd": 0.6, "CaEnd": 0.6, "rho_shell": 7850.0,
-                "dlsMax": 5.0}]}}
-
-
-def _oc4semi_qtf(max_freq2nd):
-    """examples/example_qtf.py's design: OC4semi with potSecOrder 1 on a
-    0.005 Hz second-order grid up to ``max_freq2nd``."""
-    from raft_tpu_torch.io.designs import load_design
-
-    d = load_design("OC4semi")
-    d["platform"].update(potSecOrder=1, min_freq2nd=0.005,
-                         max_freq2nd=max_freq2nd)
-    return d
 
 
 def qtf_cases(dev):
@@ -586,32 +609,21 @@ def qtf_cases(dev):
     four variants, and the OC4semi example at nw2 = 30 (its 0.005-0.15 Hz
     grid) and 80 (0.005-0.40 Hz, the design's own resolution), with
     seeded random RAOs."""
-    from raft_tpu_torch.models import fowt as TF
-    from raft_tpu_torch.models import qtf as TQ
+    from raft_tpu_torch.models import qtf_cases as QC
 
     out = []
-    rng = np.random.default_rng(55)
-    spar_w = np.arange(0.02, 0.25, 0.02) * 2 * np.pi
-    oc4_w = np.arange(0.005, 0.4025, 0.005) * 2 * np.pi
-    zero = np.zeros(6)
     for label, design, w, beta, motion, pose in (
-            ("spar_nm1", _spar_design(10.0), spar_w, 0.0, True, zero),
-            ("spar_nm0", _spar_design(-5.0), spar_w, 0.0, True, zero),
-            ("spar_fixed", _spar_design(10.0), spar_w, 0.0, False, zero),
-            ("spar_b035", _spar_design(10.0), spar_w, 0.35, True, zero),
-            ("oc4semi_30", _oc4semi_qtf(0.15), oc4_w, 0.0, True, zero),
-            ("oc4semi_80", _oc4semi_qtf(0.40), oc4_w, 0.0, True,
-             np.array([2.0, 0.1, -0.2, 0.01, 0.03, 0.02]))):
-        f = TF.build_fowt(design, w, depth=float(design["site"]["water_depth"]),
-                          device=dev)
-        p = TF.fowt_pose(f, pose)
-        kw = {}
-        if motion:
-            Xi0 = rng.standard_normal((6, len(w))) \
-                + 1j * rng.standard_normal((6, len(w)))
-            Xi0[3:] *= 0.01
-            kw = dict(Xi0=Xi0, M_struc=TF.fowt_statics(f, p)["M_struc"])
-        out.append((label, f, TQ.qtf_fields(f, p, beta, **kw), beta))
+            ("spar_nm1", QC.spar_design(10.0), QC.SPAR_W, 0.0, True, None),
+            ("spar_nm0", QC.spar_design(-5.0), QC.SPAR_W, 0.0, True, None),
+            ("spar_fixed", QC.spar_design(10.0), QC.SPAR_W, 0.0, False, None),
+            ("spar_b035", QC.spar_design(10.0), QC.SPAR_W, 0.35, True, None),
+            ("oc4semi_30", QC.oc4semi_design(0.15), QC.OC4SEMI_W, 0.0, True,
+             None),
+            ("oc4semi_80", QC.oc4semi_design(0.40), QC.OC4SEMI_W, 0.0, True,
+             QC.OFFSET_POSE)):
+        f, _, _, fields = QC.case_fields(design, w, beta, motion=motion,
+                                         pose=pose, device=dev)
+        out.append((label, f, fields, beta))
     return out
 
 
@@ -632,7 +644,7 @@ def check_qtf(dev):
         row = dict(case=label, lanes=nw2 * nw2, nw2=nw2,
                    N=int(fields["q"].shape[0]), nm=nm,
                    submerged=int(torch.count_nonzero(fields["nodescal"][:, 3])),
-                   rel_vs_plain=rel, rel_ill=0.0,
+                   rel_vs_plain=rel,
                    max_abs_err=float(torch.max(torch.abs(Q - Qp))),
                    max_abs_Q=float(torch.max(torch.abs(Qp))))
         if not (rel <= QTF_TOL and bool(torch.all(torch.isfinite(Q)))):
@@ -963,12 +975,13 @@ def run_qtf(dev):
     with two headings (2 K5 launches)."""
     from raft_tpu_torch import Model, run_raft
     from raft_tpu_torch.io.designs import load_design
+    from raft_tpu_torch.models import qtf_cases as QC
 
     out = {}
     expect = ("impedance_gj", "gj_solve", "qtf_pair")
     with counted("qtf", expect):
         t0 = time.perf_counter()
-        model = run_raft(_oc4semi_qtf(0.15), device=dev)
+        model = run_raft(QC.oc4semi_design(), device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     c0 = model.results["case_metrics"][0][0]
@@ -986,14 +999,7 @@ def run_qtf(dev):
         fail(f"qtf: K5 launched {PATH_LAUNCHES['qtf'].get('qtf_pair')} "
              "times on the OC4semi example, not 1")
 
-    d = load_design("Vertical_cylinder")
-    d["settings"].update(min_freq=0.02, max_freq=0.2)
-    d["platform"].update(potSecOrder=1, min_freq2nd=0.02, max_freq2nd=0.16)
-    keys = d["cases"]["keys"]
-    row = dict(zip(keys, d["cases"]["data"][0]))
-    row.update(wave_spectrum=["JONSWAP"] * 2, wave_period=[10.0, 8.0],
-               wave_height=[6.0, 4.0], wave_heading=[0.0, 30.0])
-    d["cases"]["data"] = [[row[k] for k in keys]]
+    d = QC.cylinder_two_headings(load_design("Vertical_cylinder"))
     with counted("qtf_2heading", expect):
         t0 = time.perf_counter()
         m = Model(d, device=dev)
@@ -1097,11 +1103,14 @@ def main() -> int:
                                    if r["lanes"] == lanes),
                 # relative to the plain version's peak: the well-conditioned
                 # lanes, and the promoted cond-1e9 lanes (solutions ~1e11,
-                # which set max_abs_err for K3/K4)
+                # which set max_abs_err for K3/K4; null for a kernel whose
+                # rows hold no such lanes)
                 "max_rel_err": max(r["rel_vs_plain"] for r in rows[key]
                                    if r["lanes"] == lanes),
-                "max_rel_err_ill": max(r["rel_ill"] for r in rows[key]
-                                       if r["lanes"] == lanes),
+                "max_rel_err_ill": max(
+                    (r["rel_ill"] for r in rows[key]
+                     if r["lanes"] == lanes and r.get("rel_ill") is not None),
+                    default=None),
                 "ms": main["ms"], "plain_ms": main["plain_ms"],
                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
                 "library_ms": main["library_ms"], "lanes": lanes,

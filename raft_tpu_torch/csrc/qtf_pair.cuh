@@ -27,18 +27,23 @@
 // member's last submerged node, wlgeo (nm, 4) = [area, r_int - r_PRP].
 // Output Q (nw2, nw2, 6) complex.
 //
-// What bounds it on this card: FP64 arithmetic.  Each (pair, submerged
-// node) does about 2,100 FP64 operations (counted in
+// What bounds it on this card: FP64 arithmetic.  The function needs
+// about 800 FP64 operations per (pair, submerged node) (counted in
 // chip_smoke.py:qtf_ops) on ~1.2 KB of node fields that are shared by a
 // whole row or column of the pair grid and stay in L2, so bytes from HBM
-// are ~1/nw2 of what the threads read.  The design: one block per pair,
-// the threads striding over the nodes with the wrench in 12 registers,
-// nodes above water skipped (their wrench is multiplied by zero), one
-// warp-shuffle and shared-memory reduction, and one thread adding the
-// per-pair terms.  What keeps it above that bound is each thread's
-// serial chain through the node body at the register limit (PERF.md has
-// the card's numbers); sharing the per-frequency node fields of a row
-// across blocks and splitting the body over lanes is later work.
+// are ~1/nw2 of what the threads read.  The body below does about 2,100
+// there: it redoes per pair the work that depends on one frequency
+// (dw/dz, the transverse and (I - qMat) projections, CaMat and ptMat on
+// u - nv, the axis products) and applies each matrix to each term on its
+// own.  The design: one block per pair, the threads striding over the
+// nodes with the wrench in 12 registers, nodes above water skipped (their
+// wrench is multiplied by zero), one warp-shuffle and shared-memory
+// reduction, and one thread adding the per-pair terms.  What keeps it
+// above that bound is the repeated work and each thread's serial chain
+// through the node body at the register limit (PERF.md has the card's
+// numbers); hoisting the per-frequency node terms into a first pass,
+// sharing them across a row's blocks and splitting the body over lanes
+// is later work.
 #pragma once
 
 #include <math.h>
@@ -248,7 +253,10 @@ __host__ __device__ inline void node_wrench(const Args& a, const Pair& P,
                                             int i1, int i2, int n,
                                             double* acc) {
   const double* ns = a.nsc + 4 * n;
-  if (ns[3] == 0.0) return;   // above water: the wrench is masked to 0
+  // above water: the wrench is masked to 0.  Skipping the node equals
+  // multiplying by 0 only for finite fields, which qtf_fields checks
+  // (ops/kernels/qtf_pair.py:check_dry_nodes).
+  if (ns[3] == 0.0) return;
   const int N = a.N;
   const double rho = a.rho;
   const double rv = rho * ns[0];          // rho v_i

@@ -27,7 +27,8 @@ import torch
 
 from raft_tpu_torch import errors
 from raft_tpu_torch._config import COMPLEX, REAL, as_real
-from raft_tpu_torch.ops.kernels.qtf_pair import qtf_pair_grid
+from raft_tpu_torch.ops.kernels.qtf_pair import (check_dry_nodes,
+                                                 qtf_pair_grid)
 from raft_tpu_torch.ops.waves import (
     wave_kinematics, kinematics_from_motion, wave_vel_gradient,
     wave_pres1st_gradient,
@@ -169,7 +170,8 @@ def qtf_fields(fowt, pose, beta, Xi0=None, M_struc=None) -> dict:
     ``Xi0`` (6, nw) on the model grid resampled onto ``fowt.w1_2nd`` (zero
     outside), the first-order inertial loads, the stacked node fields
     (lane-last, on the model's device) and the waterline-crossing members'
-    fields.  ``Xi0`` None is a fixed body."""
+    fields.  ``Xi0`` None is a fixed body.  Raises ``NonFiniteResult``
+    if a field of a node above water is not finite (``check_dry_nodes``)."""
     if any(m.MCF for m in fowt.members):
         raise errors.ModelConfigError(
             "the Kim & Yue correction for MacCamy-Fuchs members is not part "
@@ -284,7 +286,7 @@ def qtf_fields(fowt, pose, beta, Xi0=None, M_struc=None) -> dict:
     if wl:
         wl_fields = {k: torch.stack([m[k] for m in wl])
                      for k in ("c", "eta", "mats", "geo")}
-    return dict(
+    fields = dict(
         w2=w2, k2=k2, Xi=Xi, F1st=F1st,
         u=u_n, dr=dr_n, nv=nodeV, nax=nodeV_ax,
         gu=grad_u.movedim(1, -1).contiguous(),        # (N,3,3,nw2)
@@ -293,6 +295,8 @@ def qtf_fields(fowt, pose, beta, Xi0=None, M_struc=None) -> dict:
         Minert=Minert, CaMat=CaMat, ptMat=ptMat, qMat=as_real(pose["qMat"], dev),
         nodescal=torch.stack([v_i, v_end * Ca_End, a_i, submerged], dim=1),
         wl=wl_fields)
+    check_dry_nodes(fields)
+    return fields
 
 
 def complete_hermitian(Q, w2):

@@ -41,6 +41,10 @@ _PLAIN_CHUNK_BYTES = 32 * 2**20
 
 COMPLEX_FIELDS = ("Xi", "F1st", "u", "dr", "nv", "nax", "gu", "gp")
 
+#: the fields with one row per strip node
+NODE_FIELDS = ("u", "dr", "nv", "nax", "gu", "gp", "q", "offsets", "pos",
+               "Minert", "CaMat", "ptMat", "qMat", "nodescal")
+
 
 def reset_launches():
     for k in LAUNCHES:
@@ -219,6 +223,21 @@ def qtf_pair_grid(fields: dict, beta, h, rho, g):
         raise errors.KernelFailure(f"no kernel for device {dev}",
                                    kernel="qtf_pair")
     return _qtf_cuda(fields, float(beta), float(h), float(rho), float(g))
+
+
+def check_dry_nodes(fields: dict) -> None:
+    """Raise :class:`~raft_tpu_torch.errors.NonFiniteResult` if a field of
+    a node above water (``nodescal[:, 3] == 0``) is not finite.  The plain
+    version, like the JAX package, multiplies such a node's wrench by 0,
+    so a NaN there would make its QTF NaN; the kernel skips the node and
+    would return a finite QTF.  With finite fields the two agree."""
+    dry = fields["nodescal"][:, 3] == 0.0
+    bad = torch.stack([~torch.all(torch.isfinite(fields[k][dry]))
+                       for k in NODE_FIELDS])
+    if bool(torch.any(bad)):
+        names = [k for k, b in zip(NODE_FIELDS, bad.tolist()) if b]
+        raise errors.NonFiniteResult(
+            "non-finite QTF fields at a node above water", fields=names)
 
 
 def _check(cond, msg, **ctx):

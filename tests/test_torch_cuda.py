@@ -127,29 +127,19 @@ def test_qtf_kernel_matches_plain_on_the_card(card, beta):
     """K5 against its plain version on the OC4semi example's fields (nw2 =
     30, N = 177, nm = 7) and through calc_qtf_slender_body, 1e-12 of
     max|Q| (the node sum runs in another order)."""
-    from raft_tpu_torch.io.designs import load_design
-    from raft_tpu_torch.models import fowt as TF
     from raft_tpu_torch.models import qtf as TQ
+    from raft_tpu_torch.models import qtf_cases as QC
     from raft_tpu_torch.ops.kernels import qtf_pair as K
 
-    d = load_design("OC4semi")
-    d["platform"].update(potSecOrder=1, min_freq2nd=0.005, max_freq2nd=0.15)
-    w = np.arange(0.005, 0.4025, 0.005) * 2 * np.pi
-    f = TF.build_fowt(d, w, depth=float(d["site"]["water_depth"]),
-                      device=card)
-    pose = TF.fowt_pose(f, np.array([2.0, 0.1, -0.2, 0.01, 0.03, 0.02]))
-    rng = np.random.default_rng(7)
-    Xi0 = rng.standard_normal((6, len(w))) \
-        + 1j * rng.standard_normal((6, len(w)))
-    Xi0[3:] *= 0.01
-    M = TF.fowt_statics(f, pose)["M_struc"]
-    fields = TQ.qtf_fields(f, pose, beta, Xi0=Xi0, M_struc=M)
+    f, pose, kw, fields = QC.case_fields(QC.oc4semi_design(), QC.OC4SEMI_W,
+                                         beta, pose=QC.OFFSET_POSE, seed=7,
+                                         device=card)
     K.reset_launches()
     Q = K.qtf_pair_grid(fields, beta, f.depth, f.rho_water, f.g)
     torch.cuda.synchronize()
     assert K.LAUNCHES["qtf_pair"] == 1
     ref = K.qtf_pair_grid_plain(fields, beta, f.depth, f.rho_water, f.g)
     assert Q.shape == (30, 30, 6) and _rel(Q, ref) <= 1e-12
-    full = TQ.calc_qtf_slender_body(f, pose, beta, Xi0=Xi0, M_struc=M)
+    full = TQ.calc_qtf_slender_body(f, pose, beta, **kw)
     assert K.LAUNCHES["qtf_pair"] == 2
     assert _rel(full, TQ.complete_hermitian(ref, fields["w2"])) <= 1e-12

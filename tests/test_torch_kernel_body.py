@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from raft_tpu_torch.models import qtf_cases as QC
 from raft_tpu_torch.ops.kernels.gj_solve import (
     gj_solve_plain, impedance_gj_solve_plain)
 
@@ -383,37 +384,6 @@ def _qtf_body(lib, fields, beta, h, rho, g):
     return Q
 
 
-def _qtf_fields(design, w, beta, motion, pose=np.zeros(6)):
-    from raft_tpu_torch.models import fowt as TF
-    from raft_tpu_torch.models import qtf as TQ
-
-    f = TF.build_fowt(design, w, depth=float(design["site"]["water_depth"]),
-                      device="cpu")
-    p = TF.fowt_pose(f, pose)
-    kw = {}
-    if motion:
-        rng = np.random.default_rng(3)
-        Xi0 = rng.normal(size=(6, len(w))) + 1j * rng.normal(size=(6, len(w)))
-        Xi0[3:] *= 0.01
-        kw = dict(Xi0=Xi0, M_struc=TF.fowt_statics(f, p)["M_struc"])
-    return f, TQ.qtf_fields(f, p, beta, **kw)
-
-
-def _spar(rB_z):
-    return {
-        "site": {"water_depth": 200.0, "rho_water": 1025.0, "g": 9.81},
-        "platform": {
-            "potModMaster": 1, "potSecOrder": 1,
-            "min_freq2nd": 0.04, "max_freq2nd": 0.12, "df_freq2nd": 0.02,
-            "members": [{
-                "name": "spar", "type": 2, "rA": [0, 0, -20],
-                "rB": [0, 0, rB_z], "shape": "circ", "gamma": 0.0,
-                "potMod": False, "stations": [0, 0.5, 1],
-                "d": [10.0, 8.0, 8.0], "t": 0.05, "Cd": 0.6, "Ca": 0.97,
-                "CdEnd": 0.6, "CaEnd": 0.6, "rho_shell": 7850.0,
-                "dlsMax": 5.0}]}}
-
-
 @pytest.mark.parametrize("rB_z,beta,motion", [
     (10.0, 0.0, True), (-5.0, 0.0, True), (10.0, 0.0, False),
     (10.0, 0.35, True)], ids=["waterline", "no_waterline", "no_motion",
@@ -421,25 +391,47 @@ def _spar(rB_z):
 def test_qtf_body_matches_plain_spar(qtf_lib, rB_z, beta, motion):
     from raft_tpu_torch.ops.kernels.qtf_pair import qtf_pair_grid_plain
 
-    w = np.arange(0.02, 0.25, 0.02) * 2 * np.pi
-    f, fields = _qtf_fields(_spar(rB_z), w, beta, motion)
+    f, _, _, fields = QC.case_fields(QC.spar_design(rB_z), QC.SPAR_W, beta,
+                                     motion=motion)
     ref = qtf_pair_grid_plain(fields, beta, f.depth, f.rho_water, f.g)
     got = _qtf_body(qtf_lib, fields, beta, f.depth, f.rho_water, f.g)
     assert _rel(got.numpy(), ref.numpy()) <= QTF_TOL
+
+
+def test_qtf_body_skips_dry_nodes_the_plain_version_masks(qtf_lib):
+    """The body skips the nodes above water, where the plain version
+    multiplies the wrench by 0: with finite fields (which ``qtf_fields``
+    checks) no value of theirs reaches either result."""
+    from raft_tpu_torch.ops.kernels.qtf_pair import (NODE_FIELDS,
+                                                     qtf_pair_grid_plain)
+
+    f, _, _, fields = QC.case_fields(QC.spar_design(10.0), QC.SPAR_W, 0.35)
+    dry = fields["nodescal"][:, 3] == 0.0
+    assert 0 < int(dry.sum()) < int(dry.numel())
+    g = torch.Generator().manual_seed(11)
+    noisy = dict(fields)
+    for name in NODE_FIELDS:
+        if name in ("nodescal", "pos"):
+            continue
+        t = fields[name].clone()
+        t[dry] = 1e3 * torch.randn(t[dry].shape, generator=g,
+                                   dtype=t.dtype)
+        noisy[name] = t
+    args = (0.35, f.depth, f.rho_water, f.g)
+    assert torch.equal(qtf_pair_grid_plain(noisy, *args),
+                       qtf_pair_grid_plain(fields, *args))
+    assert torch.equal(_qtf_body(qtf_lib, noisy, *args),
+                       _qtf_body(qtf_lib, fields, *args))
 
 
 @pytest.mark.parametrize("beta", [0.0, 0.35])
 def test_qtf_body_matches_plain_oc4semi(qtf_lib, beta):
     """The example's shapes: nw2 = 30, N = 177 nodes, nm = 7 waterline
     members, at an offset pose (submerged-node count changes)."""
-    from raft_tpu_torch.io.designs import load_design
     from raft_tpu_torch.ops.kernels.qtf_pair import qtf_pair_grid_plain
 
-    d = load_design("OC4semi")
-    d["platform"].update(potSecOrder=1, min_freq2nd=0.005, max_freq2nd=0.15)
-    w = np.arange(0.005, 0.4025, 0.005) * 2 * np.pi
-    f, fields = _qtf_fields(d, w, beta, True,
-                            pose=np.array([2.0, 0.1, -0.2, 0.01, 0.03, 0.02]))
+    f, _, _, fields = QC.case_fields(QC.oc4semi_design(), QC.OC4SEMI_W, beta,
+                                     pose=QC.OFFSET_POSE)
     assert fields["q"].shape[0] == 177 and fields["wl"]["geo"].shape[0] == 7
     ref = qtf_pair_grid_plain(fields, beta, f.depth, f.rho_water, f.g)
     got = _qtf_body(qtf_lib, fields, beta, f.depth, f.rho_water, f.g)

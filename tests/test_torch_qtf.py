@@ -38,6 +38,7 @@ from raft_tpu_torch.convert import state_from_numpy
 from raft_tpu_torch.io.designs import load_design
 from raft_tpu_torch.models import fowt as TF
 from raft_tpu_torch.models import qtf as TQ
+from raft_tpu_torch.models.qtf_cases import SPAR_W, seeded_rao, spar_design
 from raft_tpu_torch.ops import waves as TW
 from raft_tpu_torch.ops.kernels import qtf_pair as K
 
@@ -126,29 +127,6 @@ def test_wave_pot_2nd_order_matches_jax(sea):
 # 2. the pair grid
 # ---------------------------------------------------------------------------
 
-def spar_design(rB_z=10.0):
-    """tests/test_qtf_kernel.py's single spar: ``rB_z`` above water gives
-    one waterline-crossing member, below water none."""
-    return {
-        "site": {"water_depth": 200.0, "rho_water": 1025.0, "g": 9.81},
-        "platform": {
-            "potModMaster": 1, "potSecOrder": 1,
-            "min_freq2nd": 0.04, "max_freq2nd": 0.12, "df_freq2nd": 0.02,
-            "members": [{
-                "name": "spar", "type": 2,
-                "rA": [0, 0, -20], "rB": [0, 0, rB_z],
-                "shape": "circ", "gamma": 0.0, "potMod": False,
-                "stations": [0, 0.5, 1], "d": [10.0, 8.0, 8.0],
-                "t": 0.05, "Cd": 0.6, "Ca": 0.97,
-                "CdEnd": 0.6, "CaEnd": 0.6, "rho_shell": 7850.0,
-                "dlsMax": 5.0,
-            }],
-        },
-    }
-
-
-SPAR_W = np.arange(0.02, 0.25, 0.02) * 2 * np.pi
-
 VARIANTS = {
     "waterline": dict(rB_z=10.0, beta=0.0, motion=True),
     "no_waterline": dict(rB_z=-5.0, beta=0.0, motion=True),
@@ -164,11 +142,8 @@ def spar_inputs(rB_z, motion):
     kw = {}
     if motion:
         stat = JF.fowt_statics(jf, jp)
-        rng = np.random.default_rng(3)
-        Xi0 = (rng.normal(size=(6, len(SPAR_W)))
-               + 1j * rng.normal(size=(6, len(SPAR_W))))
-        Xi0[3:] *= 0.01
-        kw = dict(Xi0=Xi0, M_struc=np.asarray(stat["M_struc"]))
+        kw = dict(Xi0=seeded_rao(len(SPAR_W)),
+                  M_struc=np.asarray(stat["M_struc"]))
     return jf, jp, kw
 
 
@@ -226,6 +201,31 @@ def test_qtf_plain_chunking_is_exact(monkeypatch):
     monkeypatch.setattr(K, "_PLAIN_CHUNK_BYTES", 1)
     rows = K.qtf_pair_grid_plain(fields, 0.35, 200.0, 1025.0, 9.81)
     assert _rel(rows, whole) < 1e-15
+
+
+def test_non_finite_field_at_a_dry_node_raises(monkeypatch):
+    """K5 skips the nodes above water, where the plain version and the
+    JAX package multiply the wrench by 0; ``qtf_fields`` refuses a
+    non-finite field there, so a NaN cannot come out of one and not the
+    other.  A NaN at a submerged node is left to reach both."""
+    jf, jp, kw = spar_inputs(10.0, True)
+    tf = state_from_numpy(jf, "cpu")
+    tp = TF.fowt_pose(tf, np.zeros(6))
+    seen = []
+    monkeypatch.setattr(TQ, "check_dry_nodes",
+                        lambda fl: seen.append(K.check_dry_nodes(fl)))
+    fields = TQ.qtf_fields(tf, tp, 0.0, **kw)
+    assert len(seen) == 1
+    dry = fields["nodescal"][:, 3] == 0.0
+    assert 0 < int(dry.sum()) < int(dry.numel())
+    for name in ("u", "gu", "nax", "Minert"):
+        t = fields[name].clone()
+        t[dry] = float("nan")
+        with pytest.raises(errors.NonFiniteResult, match=name):
+            K.check_dry_nodes(dict(fields, **{name: t}))
+        t = fields[name].clone()
+        t[~dry] = float("nan")
+        K.check_dry_nodes(dict(fields, **{name: t}))
 
 
 def test_mcf_member_raises():

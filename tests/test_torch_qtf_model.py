@@ -27,6 +27,8 @@ from raft_tpu.models import qtf as JQ
 
 from raft_tpu_torch import Model, ledger, run_raft
 from raft_tpu_torch.io.designs import load_design
+from raft_tpu_torch.models.qtf_cases import (cylinder_two_headings,
+                                             oc4semi_design)
 
 TOL = 1e-6
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
@@ -36,15 +38,8 @@ CHANS = ("surge", "sway", "heave", "roll", "pitch", "yaw")
 def vc_design(load, **platform):
     """Vertical_cylinder on the coarse grid with potSecOrder 1 and one
     case of two JONSWAP headings (the vendored case row is 'still')."""
-    d = load("Vertical_cylinder")
-    d["settings"].update(min_freq=0.02, max_freq=0.2)
-    d["platform"].update(potSecOrder=1, min_freq2nd=0.02, max_freq2nd=0.16)
+    d = cylinder_two_headings(load("Vertical_cylinder"))
     d["platform"].update(platform)
-    keys = d["cases"]["keys"]
-    row = dict(zip(keys, d["cases"]["data"][0]))
-    row.update(wave_spectrum=["JONSWAP"] * 2, wave_period=[10.0, 8.0],
-               wave_height=[6.0, 4.0], wave_heading=[0.0, 30.0])
-    d["cases"]["data"] = [[row[k] for k in keys]]
     return d
 
 
@@ -106,9 +101,7 @@ def test_pso2_from_a_jax_written_12d_matches_jax(jax_two_headings, tmp_path):
 
 
 def test_oc4semi_example_reproduces_the_golden():
-    d = load_design("OC4semi")
-    d["platform"].update(potSecOrder=1, min_freq2nd=0.005, max_freq2nd=0.15)
-    model = run_raft(d, device="cpu")
+    model = run_raft(oc4semi_design(), device="cpu")
     assert model.nw == 80 and len(model.fowtList[0].w1_2nd) == 30
     gold = ledger.load_ledger(os.path.join(GOLDEN, "oc4semi_qtf.ledger.json"))
     live = model.last_ledger
