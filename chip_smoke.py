@@ -8,17 +8,20 @@ Phases (any failure exits non-zero; no phase's failure is turned into a
  1. device  — requires CUDA; prints the card's name and power limit;
  2. build   — compiles the hand-written kernels (nvcc, sm_90a; one nvcc
               per translation unit, all started together) from the sources
-              in raft_tpu_torch/csrc and prints the build time and the
-              -Xptxas -v register/spill lines;
+              in raft_tpu_torch/csrc and prints the build time, the
+              -Xptxas -v register/spill lines (every K1/K3 instantiation:
+              a stack frame or spill fails the run) and the static SASS
+              counts of the n = 6 K1/K3 kernels (cuobjdump);
  3. kernels — holds each kernel against its plain PyTorch version on the
               card: K1/K2 at float64 and float32, K3/K4 (the mixed ladder)
               at the f32 and bf16 elimination widths with promoted counts
               compared; random systems, systems that need pivoting, the
               mixed row-scale stressor and SVD-conditioned (cond 1e9)
               lanes mixed into well-conditioned ones; at 80, 5120 and
-              81,920 lanes (K2/K4: 80 and 5120, n = 12, k in {1, 6}); times
-              kernel, plain version and the torch.linalg.solve yardstick at
-              the main paths' shapes; K5 (the QTF pair grid) on the spar of
+              81,920 lanes (K2/K4: 80 and 5120, n = 12, k in {1, 6}), and
+              K1 at the f64 sweep's own operand shapes (M and C shared by
+              1024 cases); times kernel, plain version and the
+              torch.linalg.solve yardstick at the main paths' shapes; K5 (the QTF pair grid) on the spar of
               tests/test_qtf_kernel.py at nw2 = 5 (one and no waterline
               member, with and without motion, heading 0.35) and on the
               OC4semi example's fields at nw2 = 30 and 80 (N = 177, nm =
@@ -317,11 +320,14 @@ ROWS: dict = {}
 
 #: per kernel key: the profiler's names for it (demangled, mangled)
 KERNEL_NAMES = {
-    "impedance_gj": ("impedance_kernel<double, double", "impedance_kernelIddLi"),
-    "impedance_gj_f32": ("impedance_kernel<float, float", "impedance_kernelIffLi"),
-    "impedance_gj_mixed": ("impedance_kernel<double, float", "impedance_kernelIdfLi"),
-    "impedance_gj_mixed_bf16": ("impedance_kernel<double, gjl::bf16r",
-                                "impedance_kernelIdN3gjl5bf16rE"),
+    "impedance_gj": ("impedance_group_kernel<double, double",
+                     "impedance_group_kernelIddLi"),
+    "impedance_gj_f32": ("impedance_group_kernel<float, float",
+                         "impedance_group_kernelIffLi"),
+    "impedance_gj_mixed": ("impedance_group_kernel<double, float",
+                           "impedance_group_kernelIdfLi"),
+    "impedance_gj_mixed_bf16": ("impedance_group_kernel<double, gjl::bf16r",
+                                "impedance_group_kernelIdN3gjl5bf16rE"),
     "gj_solve": ("gj_kernel<double, double", "gj_kernelIddLi"),
     "gj_solve_f32": ("gj_kernel<float, float", "gj_kernelIffLi"),
     "gj_solve_mixed": ("gj_kernel<double, float", "gj_kernelIdfLi"),
@@ -445,6 +451,102 @@ def check_impedance(G, g, dev, width):
             _log_row(key, row)
 
 
+def check_impedance_sweep_shapes(G, g, dev):
+    """K1 at the f64 sweep's own operand shapes: M (6, 6, 80) and C (6, 6)
+    shared by 1024 cases, B (1024, 6, 6, 80) and F (1024, 6, 80) per case.
+    The wrapper materialises the broadcast M (23.6 MB) at every call, so
+    this row's call ms against its device ms is what that costs."""
+    n, nb, nw = 6, SWEEP_CASES, 80
+    key = "impedance_gj"
+    (w, M, B, C, F), _ = impedance_inputs(g, nb, nw, n, "random", dev)
+    M, C = M[0].contiguous(), C[0].contiguous()
+    X = G.impedance_gj_solve(w, M, B, C, F)
+    Xp = G.impedance_gj_solve_plain(w, M, B, C, F)
+    torch.cuda.synchronize()
+    rel = _rel(X, Xp)
+    lanes = nb * nw
+    row = dict(lanes=lanes, case="sweep_shapes", rel_vs_plain=rel,
+               rel_ill=None, max_abs_err=float(torch.max(torch.abs(X - Xp))))
+    Z = (-(w ** 2) * M + 1j * w * B + C[..., None]).movedim(-1, -3)
+    Fz = F.movedim(-1, -2)[..., None]
+    row["normwise_residual"] = _normwise_residual(Z, X.movedim(-1, -2)[..., None],
+                                                  Fz)
+    if not (rel <= X_TOL and row["normwise_residual"] <= RESID_TOL
+            and bool(torch.all(torch.isfinite(X)))):
+        fail(f"{key} sweep_shapes lanes={lanes}: rel={rel:.3e}")
+    _time_row(row, lambda: G.impedance_gj_solve(w, M, B, C, F),
+              lambda: G.impedance_gj_solve_plain(w, M, B, C, F),
+              lambda: torch.linalg.solve(Z, Fz), KERNEL_NAMES[key])
+    row["bound_ms"], row["bound_by"] = bound(
+        nbytes(w, M, B, C, F, X), lanes * (gj_flops(2 * n, 1) + 8 * n * n))
+    ROWS.setdefault(key, []).append(row)
+    _log_row(key, row)
+
+
+def impedance_ptxas(report) -> list:
+    """Registers, stack frame and spills of every K1/K3 instantiation from
+    the -Xptxas -v report: [{symbol, width, n, registers, stack, spill_stores,
+    spill_loads}]."""
+    import re
+
+    widths = (("IddLi", "f64"), ("IffLi", "f32"), ("IdfLi", "mixed_f32"),
+              ("IdN3gjl5bf16rELi", "mixed_bf16"))
+    out = []
+    for sym, lines in report.items():
+        if "impedance_group_kernel" not in sym:
+            continue
+        text = " | ".join(lines)
+        nums = {}
+        for name, pat in (("registers", r"Used (\d+) registers"),
+                          ("stack", r"(\d+) bytes stack frame"),
+                          ("spill_stores", r"(\d+) bytes spill stores"),
+                          ("spill_loads", r"(\d+) bytes spill loads")):
+            m = re.search(pat, text)
+            nums[name] = int(m.group(1)) if m else None
+        width = next((w for tag, w in widths if tag in sym), "?")
+        m = re.search(r"Li(\d)E", sym)
+        out.append(dict(symbol=sym, width=width,
+                        n=int(m.group(1)) if m else None, **nums))
+    out.sort(key=lambda d: (d["width"], d["n"] or 0))
+    return out
+
+
+def impedance_sass(lib_path) -> dict:
+    """Static SASS facts of the n = 6 K1/K3 instantiations (the main
+    paths' width), from ``cuobjdump -sass`` of the built library: total
+    instructions, FP64 and FP32 arithmetic, shuffles, shared-memory loads
+    and stores, calls.  {} where the toolkit has no cuobjdump."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.isfile(tool):
+        return {}
+    try:
+        out = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                             text=True, timeout=120).stdout
+    except (OSError, subprocess.SubprocessError):
+        return {}
+    classes = {"fp64": ("DFMA", "DMUL", "DADD"),
+               "fp32": ("FFMA", "FMUL", "FADD"), "shfl": ("SHFL",),
+               "lds": ("LDS",), "sts": ("STS",), "call": ("CALL",),
+               "local": ("LDL", "STL")}
+    facts = {}
+    for block in re.split(r"\n\s*Function : ", out):
+        name = block.split("\n", 1)[0].strip()
+        if "impedance_group_kernel" not in name or "Li6E" not in name:
+            continue
+        ops = [m.group(2).split(".")[0] for m in re.finditer(
+            r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", block)]
+        width = next((w for tag, w in (("IddLi", "f64"), ("IffLi", "f32"),
+                                       ("IdfLi", "mixed_f32"),
+                                       ("IdN3gjl5bf16rELi", "mixed_bf16"))
+                      if tag in name), "?")
+        facts[width] = dict(total=len(ops), **{
+            k: sum(op in v for op in ops) for k, v in classes.items()})
+    return facts
+
+
 def check_gj(G, g, dev, width):
     """K2 (width "f64" / "f32") or K4 ("mixed_f32" / "mixed_bf16")."""
     n = 12
@@ -525,6 +627,8 @@ def check_kernels(dev):
     g = torch.Generator().manual_seed(1234)
     for width in ("f64", "f32", "mixed_f32", "mixed_bf16"):
         check_impedance(G, g, dev, width)
+        if width == "f64":
+            check_impedance_sweep_shapes(G, g, dev)
         check_gj(G, g, dev, width)
     return ROWS
 
@@ -744,8 +848,10 @@ def _allclose(a, b, rtol, atol=1e-12) -> bool:
 def device_busy(fn):
     """Run ``fn`` once under torch.profiler (CPU + CUDA activity) and
     return its wall (sync, profiler on), the summed self device time of
-    every kernel, the busy share (device / wall) and the six kernels with
-    the most device time; None where the profiler sees no device time."""
+    every kernel, the busy share (device / wall), the six kernels with
+    the most device time and the device time and launches of each of the
+    port's kernels (KERNEL_NAMES) that ran; None where the profiler sees
+    no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -758,7 +864,7 @@ def device_busy(fn):
             wall = time.perf_counter() - t0
     except (RuntimeError, AttributeError):
         return None
-    dev_us, top = 0.0, []
+    dev_us, top, ours = 0.0, [], {}
     for ev in prof.key_averages():
         t = getattr(ev, "self_device_time_total", None)
         if t is None:
@@ -766,12 +872,17 @@ def device_busy(fn):
         if t > 0:
             dev_us += t
             top.append((t / 1e3, ev.count, ev.key[:70]))
+            for key, names in KERNEL_NAMES.items():
+                if any(sub in ev.key for sub in names):
+                    ms, n = ours.get(key, (0.0, 0))
+                    ours[key] = (ms + t / 1e3, n + ev.count)
     if dev_us <= 0:
         return None
     top.sort(reverse=True)
     return dict(wall_s=wall, device_s=dev_us / 1e6,
                 busy_share=dev_us / 1e6 / wall,
-                top=[dict(ms=t, count=c, kernel=k) for t, c, k in top[:6]])
+                top=[dict(ms=t, count=c, kernel=k) for t, c, k in top[:6]],
+                ours={k: dict(ms=ms, count=n) for k, (ms, n) in ours.items()})
 
 
 def run_sweeps(dev):
@@ -863,7 +974,10 @@ def run_sweeps(dev):
             f"kernels {prof['device_s']:.3f} s, device busy share "
             f"{prof['busy_share']:.3f}; top: "
             + "; ".join(f"{t['kernel']} {t['ms']:.2f} ms x{t['count']}"
-                        for t in prof["top"]))
+                        for t in prof["top"])
+            + "; the port's kernels: "
+            + "; ".join(f"{k} {v['ms']:.3f} ms x{v['count']}"
+                        for k, v in prof["ours"].items()))
     return res
 
 
@@ -1059,10 +1173,27 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load()
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {_build.BUILD_INFO})")
-    for sym, lines in _build.ptxas_report().items():
-        if ("impedance_kernel" in sym and "Li6E" in sym) \
-                or "Li12ELi6E" in sym or "qtf_pair_kernel" in sym:
+    report = _build.ptxas_report()
+    for sym, lines in report.items():
+        if "Li12ELi6E" in sym or "qtf_pair_kernel" in sym:
             log(f"  ptxas {sym}: {' | '.join(lines)}")
+    imp = impedance_ptxas(report)
+    for d in imp:
+        log(f"  ptxas K1/K3 {d['width']:10s} n={d['n']}: {d['registers']} "
+            f"registers, {d['stack']} bytes stack frame, "
+            f"{d['spill_stores']}/{d['spill_loads']} bytes spill stores/loads")
+    no_local = len(imp) == 32 and all(
+        d["stack"] == 0 and d["spill_stores"] == 0 and d["spill_loads"] == 0
+        for d in imp)
+    log(f"  ptxas K1/K3: {len(imp)} instantiations, no stack frame and no "
+        f"spill in any: {no_local}")
+    sass = impedance_sass(_build.BUILD_INFO["path"])
+    for width, d in sass.items():
+        log(f"  SASS K1/K3 {width:10s} n=6 (static): " + ", ".join(
+            f"{k} {v}" for k, v in d.items()))
+    if not no_local:
+        fail("the impedance kernels use local memory (stack frame or spill) "
+             "or not all 32 instantiations were reported")
     os.makedirs(OUT, exist_ok=True)
     with open(os.path.join(OUT, "ptxas.log"), "w") as f:
         f.write(_build.ptxas_log())
@@ -1120,6 +1251,7 @@ def main() -> int:
     kernels = [summary(*k) for k in KERNELS]
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "rows": rows,
+                   "ptxas_impedance": imp, "sass_impedance": sass,
                    "paths": PATH_LAUNCHES, "phases": phases,
                    "wall_s": time.perf_counter() - t_start}, f, indent=1)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "

@@ -20,20 +20,36 @@
 // K1 and K2 at T = E = float are the f32 instantiations
 // (RAFT_TPU_PRECISION=f32).
 //
-// What bounds them on this card: each thread's serial latency.  One
-// thread owns one lane and runs three eliminations of a 12 x 13 (K1) or
-// 12 x 18 (K2, k = 6) block that lives in local memory; the card measured
-// 0.07-0.17 ms per launch at 80-5120 lanes, 4-9x a prediction made from
-// launch cost, with bytes and the FP64 rate both far below (bound
-// 2e-5-4e-3 ms).  What the mixed ladder does about it: the three
-// eliminations run in f32 (or bf16 rounded in f32 registers) on a working
-// block half the size, so more of it stays in registers and each
-// operation has the f32 pipe's latency; the residual and correction stay
-// in FP64.  A lane whose residual misses the tolerance is promoted in
-// the same thread (a full FP64 solve of its own inputs), so there is no
-// second launch, no masking and no host sync, and the promoted count is
-// one warp-aggregated atomicAdd.  The shared-memory / warp-per-lane
-// redesign that shortens the serial chain itself is later work.
+// K1 / K3 (impedance_group_kernel): one block per case and 8 consecutive
+// frequencies (128 threads), one group of 16 threads per (case,
+// frequency) lane, one row of the 2n x 2n block per thread (2n <= 16),
+// the per-row arithmetic in gj_imp_group.cuh.  The block copies its slices
+// of M, B, F and the case's C into shared memory with neighbouring threads
+// on neighbouring addresses, each thread assembles and equilibrates its
+// own row there (Z never reaches device memory), pivots by a width-16
+// shuffle max-reduction over (|a|, position) and takes the pivot row from
+// a shared slot of its group; rows keep their place and swap logical
+// positions.  Refinement, the ladder's residual (a group max) and the
+// promotion to a T-width re-solve stay inside the group, in the same
+// launch; X goes back through shared memory so its stores coalesce too.
+// Every array is indexed by compile-time constants and no division calls
+// a subroutine (gjg::quot), so nothing lives in local memory.
+//
+// What bounded the design it replaces (PR 1/2: one lane a thread, the
+// 12 x 13 block a per-thread array, pivot rows picked at run time): local
+// memory.  Its ~1.25 KB (f64) a thread, ~100 MB at 81,920 lanes, exceeds
+// L1 and the 50 MB L2, so every pivot step's read-modify-write went to HBM:
+// on NVIDIA H100 80GB HBM3 (700 W) K1 f64 took 1.461 ms of device time at
+// 81,920 lanes against a 0.0189 ms byte bound (77x) and 4.4x
+// torch.linalg.solve's time on the same systems; K3 f32 1.085 ms.
+// What bounds this one: @@MEASURED@@
+//
+// K2 / K4 (gj_kernel) are still one lane a thread with the working block
+// in local memory (gj_lane.cuh), bound by each thread's serial latency:
+// 0.13-0.16 ms per launch at 80-5120 lanes against bounds of 5.5e-5 to
+// 3.5e-3 ms.  The mixed ladder there runs the eliminations in f32 (or
+// bf16 rounded in f32 registers) and promotes a lane in the same thread.
+// In both, the promoted count is one warp-aggregated atomicAdd.
 //
 // Every entry point launches on the given stream, does not synchronise,
 // allocates nothing, and returns the cudaError_t of cudaGetLastError()
@@ -45,6 +61,7 @@
 
 #include <type_traits>
 
+#include "gj_imp_group.cuh"
 #include "gj_lane.cuh"
 
 namespace gjk {
@@ -59,20 +76,148 @@ __device__ inline void count_promoted(int* promoted, bool p) {
     atomicAdd(promoted, __popc(m));
 }
 
+// ---- K1 / K3: one lane a group of 16 threads, one row a thread ----
+
+constexpr int kImpThreads = gjg::kGroup * gjg::kTileF;  // 128
+constexpr int kSlot = gjg::kGroup + 1;                  // [As | rhs] columns
+
+// a group's exchange slots in shared memory: the pivot row as its owner
+// wrote it and normalised (one column a thread), at either width, and the
+// solution vector.  Two __syncwarp a step order every write after the
+// reads of the step before, so one buffer each suffices.
+template <typename T>
+struct GroupSlots {
+  double rawd[kSlot];
+  double outd[kSlot];
+  float rawf[kSlot];
+  float outf[kSlot];
+  T xs[gjg::kGroup];
+};
+
+// The card's group policy for gjg::solve_lane (see gj_imp_group.cuh): the
+// thread holds its own row (kLanes = 1); the 16 threads of a group meet in
+// width-16 shuffles and the group's shared slots.  Both groups of a warp
+// run every exchange together (the ragged edge's idle group solves a copy
+// of a live lane, and a promoted re-solve runs if either group needs it),
+// so every shuffle and __syncwarp takes the full warp mask, which the
+// compiler issues without a convergence sequence.
+template <typename T>
+struct DevGroup {
+  static constexpr int kLanes = 1;
+  static constexpr unsigned mask = 0xffffffffu;
+  GroupSlots<T>& sl;
+  int r;
+
+  __device__ __forceinline__ DevGroup(GroupSlots<T>& s, int tid)
+      : sl(s), r(tid & (gjg::kGroup - 1)) {}
+
+  __device__ __forceinline__ int rank(int) const { return r; }
+
+  __device__ __forceinline__ bool any(bool p) const {
+    return __any_sync(mask, p);
+  }
+
+  template <typename F>
+  __device__ __forceinline__ gjg::Key argmax(F key) const {
+    gjg::Key k = key(0);
+#pragma unroll
+    for (int o = gjg::kGroup / 2; o > 0; o >>= 1) {
+      gjg::Key q;
+      q.key = __shfl_xor_sync(mask, k.key, o, gjg::kGroup);
+      q.pos = __shfl_xor_sync(mask, k.pos, o, gjg::kGroup);
+      if (gjg::better(q, k)) k = q;
+    }
+    return k;
+  }
+
+  template <typename F>
+  __device__ __forceinline__ auto max(F v) const -> decltype(v(0)) {
+    auto m = v(0);
+#pragma unroll
+    for (int o = gjg::kGroup / 2; o > 0; o >>= 1)
+      m = gjl::nan_max(m, __shfl_xor_sync(mask, m, o, gjg::kGroup));
+    return m;
+  }
+
+  template <int KK, typename W, int S>
+  __device__ __forceinline__ const gjg::slot_t<W>* pivot_row(
+      const gjg::Work<W, S>* wk) {
+    gjg::slot_t<W>* raw;
+    gjg::slot_t<W>* out;
+    if constexpr (std::is_same<gjg::slot_t<W>, double>::value) {
+      raw = sl.rawd;
+      out = sl.outd;
+    } else {
+      raw = sl.rawf;
+      out = sl.outf;
+    }
+    if (wk[0].pos == KK) {
+#pragma unroll
+      for (int j = KK; j <= S; ++j) raw[j] = gjg::to_slot(wk[0].a[j]);
+    }
+    __syncwarp(mask);
+    const int j = KK + 1 + r;
+    if (j <= S) out[j] = gjg::pivot_entry<W>(raw[j], raw[KK]);
+    __syncwarp(mask);
+    return out;
+  }
+
+  template <typename>
+  __device__ __forceinline__ T* x() {
+    return sl.xs;
+  }
+
+  // the row at position i adds its component into x_i (positions are
+  // unique, so the group's rows never write one entry twice)
+  template <typename W, int S>
+  __device__ __forceinline__ void publish_x(const gjg::Work<W, S>* wk,
+                                            const gjg::Row<T, S>* rw,
+                                            bool first, bool keep) {
+    if (keep && rw[0].active) {
+      const T d = gjl::to<T>(wk[0].a[S]);
+      sl.xs[wk[0].pos] = first ? d : sl.xs[wk[0].pos] + d;
+    }
+    __syncwarp(mask);
+  }
+};
+
+// One block: case b, frequencies f0 .. f0 + 7, group g on frequency f0 + g.
+// The launch bound of 4 blocks an SM lets ptxas use up to 128 registers a
+// thread, which every instantiation fits without a stack frame or spill
+// (left to its default, it held some at 64 and spilled a few values).
+// w (nw); M, B (nb, N, N, nw); C (nb, N, N); F, X (nb, N, nw) complex,
+// interleaved (re, im); rn (nb * nw) case-major, read only on the ladder.
 template <typename T, typename E, int N>
-__global__ void impedance_kernel(const T* __restrict__ w,
-                                 const T* __restrict__ M,
-                                 const T* __restrict__ B,
-                                 const T* __restrict__ C,
-                                 const T* __restrict__ F, T* __restrict__ X,
-                                 T* __restrict__ rn, int* promoted,
-                                 int lanes, int nw, int refine, double tol) {
-  int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= lanes) return;
-  bool p = gjl::impedance_lane<T, E, N>(w, M, B, C, F, X, rn, nw, lane,
-                                        refine, tol);
-  if constexpr (!std::is_same<T, E>::value) count_promoted(promoted, p);
+__global__ void __launch_bounds__(kImpThreads, 4)
+    impedance_group_kernel(const T* __restrict__ w, const T* __restrict__ M,
+                           const T* __restrict__ B, const T* __restrict__ C,
+                           const T* __restrict__ F, T* __restrict__ X,
+                           T* __restrict__ rn, int* promoted, int nw,
+                           int refine, double tol) {
+  __shared__ gjg::Tile<T, N> tile;
+  __shared__ GroupSlots<T> slots[gjg::kTileF];
+  const int ntile = (nw + gjg::kTileF - 1) / gjg::kTileF;
+  const int b = blockIdx.x / ntile;
+  const int f0 = (blockIdx.x - b * ntile) * gjg::kTileF;
+  const int grp = threadIdx.x / gjg::kGroup;
+  gjg::stage(tile, w, M, B, C, F, b, f0, nw, threadIdx.x, blockDim.x);
+  __syncthreads();
+  // a group past the last frequency solves the tile's last live lane again
+  // and writes nothing
+  const bool live = f0 + grp < nw;
+  DevGroup<T> g(slots[grp], threadIdx.x);
+  T r;
+  const bool p = gjg::solve_lane<T, E, N>(g, tile, live ? grp : nw - 1 - f0,
+                                          live, refine, tol, &r);
+  const bool lead = live && g.r == 0 && p;
+  if constexpr (!std::is_same<T, E>::value)
+    if (live && g.r == 0) rn[(size_t)b * nw + f0 + grp] = r;
+  __syncthreads();
+  gjg::writeback(tile, X, b, f0, nw, threadIdx.x, blockDim.x);
+  if constexpr (!std::is_same<T, E>::value) count_promoted(promoted, lead);
 }
+
+// ---- K2 / K4: one lane a thread ----
 
 template <typename T, typename E, int N, int K>
 __global__ void gj_kernel(const T* __restrict__ A, const T* __restrict__ b,
@@ -86,19 +231,18 @@ __global__ void gj_kernel(const T* __restrict__ A, const T* __restrict__ b,
 
 #define GJK_IMP_CASE(NN)                                                  \
   case NN:                                                                \
-    impedance_kernel<T, E, NN><<<grid, kThreads, 0, s>>>(                 \
-        w, M, B, C, F, X, rn, promoted, lanes, nw, refine, tol);          \
+    impedance_group_kernel<T, E, NN><<<grid, kImpThreads, 0, s>>>(        \
+        w, M, B, C, F, X, rn, promoted, nw, refine, tol);                 \
     break;
 
-// K1 / K3 for n = 1..8 (2n <= 16)
+// K1 / K3 for n = 1..8 (2n <= 16): one block per case and 8 frequencies
 template <typename T, typename E>
 int impedance(const T* w, const T* M, const T* B, const T* C, const T* F,
               T* X, T* rn, int* promoted, int nb, int nw, int n, int refine,
               double tol, void* stream) {
-  int lanes = nb * nw;
-  if (lanes <= 0) return 0;
+  if (nb <= 0 || nw <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int grid = (lanes + kThreads - 1) / kThreads;
+  int grid = nb * ((nw + gjg::kTileF - 1) / gjg::kTileF);
   switch (n) {
     GJK_IMP_CASE(1)
     GJK_IMP_CASE(2)

@@ -143,3 +143,55 @@ def test_qtf_kernel_matches_plain_on_the_card(card, beta):
     full = TQ.calc_qtf_slender_body(f, pose, beta, **kw)
     assert K.LAUNCHES["qtf_pair"] == 2
     assert _rel(full, TQ.complete_hermitian(ref, fields["w2"])) <= 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_impedance_kernels_every_n_on_the_card(card, n):
+    """K1 (f64) and K3 (f32 and bf16 elimination) at every instantiated n
+    against their plain versions, nw = 21 (a ragged last tile of 8
+    frequencies), with one cond-1e9 case whose lanes promote and one case
+    undamped at a resonance, where one frequency promotes and its
+    neighbours, in the same warp, do not (n >= 2: the embedding of a 1 x 1
+    complex Z has cond 1)."""
+    rng = np.random.default_rng(40 + n)
+    nb, nw = 3, 21
+    w = torch.tensor(np.linspace(0.03, 2.5, nw), device=card)
+    M = rng.standard_normal((nb, n, n, nw)) + 5.0 * np.eye(n)[None, :, :, None]
+    B = 0.1 * rng.standard_normal((nb, n, n, nw))
+    C = rng.standard_normal((nb, n, n)) + 10.0 * np.eye(n)
+    M[1] = 0.0
+    B[1] = 0.0
+    U, _, Vt = np.linalg.svd(C[1])
+    C[1] = (U * np.geomspace(1.0, 1e-9, n)) @ Vt
+    # case 2: Z = Q diag(c - w^2) Q^T, c_0 within 1e-9 of w[5]^2
+    wn = np.linspace(0.03, 2.5, nw)
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    c = 10.0 + rng.uniform(0.0, 5.0, n)
+    c[0] = wn[5] ** 2 * (1.0 + 1e-9)
+    M[2] = np.eye(n)[:, :, None]
+    B[2] = 0.0
+    C[2] = (Q * c) @ Q.T
+    F = rng.standard_normal((nb, n, nw)) + 1j * rng.standard_normal((nb, n, nw))
+    M, B, C, F = (torch.tensor(a, device=card) for a in (M, B, C, F))
+    G.reset_launches()
+    ill = 1e9 * 2.2e-16 * 10
+    X = G.impedance_gj_solve(w, M, B, C, F)
+    Xp = G.impedance_gj_solve_plain(w, M, B, C, F)
+    assert _rel(X[0], Xp[0]) < 1e-10
+    assert _rel(X[1], Xp[1]) < ill and _rel(X[2], Xp[2]) < ill
+    for fd, tol in ((torch.float32, 1e-10), (torch.bfloat16, 1e-7)):
+        kw = dict(refine=2, precision="mixed", factor_dtype=fd,
+                  promote_tol=1e-9, return_stats=True)
+        X, st = G.impedance_gj_solve(w, M, B, C, F, **kw)
+        Xp, stp = G.impedance_gj_solve_plain(w, M, B, C, F, **kw)
+        assert int(st["promoted"]) == int(stp["promoted"])
+        assert torch.equal(~(st["rn"] <= 1e-9), ~(stp["rn"] <= 1e-9))
+        if n > 1:
+            assert int(st["promoted"]) >= nw + 1
+            assert not bool(st["rn"][2 * nw + 4] > 1e-9) or fd == torch.bfloat16
+        assert _rel(X[0], Xp[0]) < tol
+        assert _rel(X[1], Xp[1]) < ill and _rel(X[2], Xp[2]) < ill
+    assert {k: v for k, v in G.LAUNCHES.items() if v} == {
+        "impedance_gj": 1, "impedance_gj_mixed": 1,
+        "impedance_gj_mixed_bf16": 1}

@@ -1,15 +1,20 @@
 """The CUDA kernels' per-lane arithmetic, compiled for the host.
 
-``raft_tpu_torch/csrc/gj_lane.cuh`` holds everything the Gauss-Jordan
-kernels compute per lane, and ``csrc/qtf_pair.cuh`` everything the QTF
-pair-grid kernel (K5) computes per (pair, node) and per pair, as
-``__host__ __device__`` functions.  Here they are compiled with g++
-(``__host__``/``__device__`` defined empty) into small C libraries in
-``tmp_path``, loaded with ctypes, and held against the port's plain
-PyTorch versions — the only check of the kernels' arithmetic (real row
-swaps and all) that can run without a card.  The kernels themselves are
-checked against the same plain versions on the card by
-``chip_smoke.py``.
+``raft_tpu_torch/csrc/gj_lane.cuh`` holds everything the batched
+Gauss-Jordan kernels (K2/K4) compute per lane, ``csrc/gj_imp_group.cuh``
+everything the impedance kernels (K1/K3) compute per row of a lane, and
+``csrc/qtf_pair.cuh`` everything the QTF pair-grid kernel (K5) computes
+per (pair, node) and per pair, as ``__host__ __device__`` functions.
+Here they are compiled with g++ (``__host__``/``__device__`` defined
+empty) into small C libraries in ``tmp_path``, loaded with ctypes, and
+held against the port's plain PyTorch versions — the only check of the
+kernels' arithmetic (row exchanges and all) that can run without a card.
+K1/K3's rows meet through a group policy; here ``gjg::HostGroup`` steps
+a lane's 16 rows in lockstep where the card's shuffles and shared slots
+exchange them, and divides with ``a / b`` where the card takes the
+division's fast path (``gjg::quot``).  The kernels themselves are checked
+against the same plain versions on the card by ``chip_smoke.py`` and
+``tests/test_torch_cuda.py``.
 """
 import ctypes
 import os
@@ -32,33 +37,80 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 TOL = 1e-10
 
 _HOST_SRC = r"""
+#include "gj_imp_group.cuh"
 #include "gj_lane.cuh"
-// width: 0 = float64 (K1/K2), 1 = mixed with float32 elimination,
-// 2 = mixed with bf16 elimination (K3/K4); returns the promoted count
+// K1/K3: the kernel's tiles in turn, each staged, solved group by group
+// (gjg::HostGroup: the 16 rows of a lane in lockstep) and written back.
+// width: 0 = float64 (K1), 1 = mixed with float32 elimination, 2 = mixed
+// with bf16 elimination (K3/K4); returns the promoted count.
+template <typename T, typename E, int N, typename P>
+static int imp_group(P& g, const T* w, const T* M, const T* B, const T* C,
+    const T* F, T* X, T* rn, int nb, int nw, int refine, double tol) {
+  int promoted = 0;
+  gjg::Tile<T, N> tile;
+  const int ntile = (nw + gjg::kTileF - 1) / gjg::kTileF;
+  for (int b = 0; b < nb; ++b)
+    for (int tb = 0; tb < ntile; ++tb) {
+      const int f0 = tb * gjg::kTileF;
+      gjg::stage(tile, w, M, B, C, F, b, f0, nw, 0, 1);
+      for (int fl = 0; fl < gjg::kTileF && f0 + fl < nw; ++fl) {
+        T r;
+        promoted += gjg::solve_lane<T, E, N>(g, tile, fl, true, refine, tol,
+                                             &r);
+        if (rn) rn[b * nw + f0 + fl] = r;
+      }
+      gjg::writeback(tile, X, b, f0, nw, 0, 1);
+    }
+  return promoted;
+}
 template <int N>
 static int imp_n(const double* w, const double* M, const double* B,
     const double* C, const double* F, double* X, double* rn, int nb, int nw,
     int refine, int width, double tol) {
-  int promoted = 0;
-  for (int lane = 0; lane < nb * nw; ++lane) {
-    if (width == 0)
-      gjl::impedance_lane<double, double, N>(w, M, B, C, F, X, nullptr, nw,
-                                             lane, refine, tol);
-    else if (width == 1)
-      promoted += gjl::impedance_lane<double, float, N>(w, M, B, C, F, X, rn,
-                                                        nw, lane, refine, tol);
-    else
-      promoted += gjl::impedance_lane<double, gjl::bf16r, N>(
-          w, M, B, C, F, X, rn, nw, lane, refine, tol);
-  }
-  return promoted;
+  gjg::HostGroup g;
+  if (width == 0)
+    return imp_group<double, double, N>(g, w, M, B, C, F, X, nullptr, nb, nw,
+                                        refine, tol);
+  if (width == 1)
+    return imp_group<double, float, N>(g, w, M, B, C, F, X, rn, nb, nw,
+                                       refine, tol);
+  return imp_group<double, gjl::bf16r, N>(g, w, M, B, C, F, X, rn, nb, nw,
+                                          refine, tol);
 }
+#define IMP_N(NN) \
+  if (n == NN) return imp_n<NN>(w, M, B, C, F, X, rn, nb, nw, refine, width, tol);
 extern "C" int host_impedance(const double* w, const double* M,
     const double* B, const double* C, const double* F, double* X, double* rn,
     int nb, int nw, int n, int refine, int width, double tol) {
-  if (n == 6) return imp_n<6>(w, M, B, C, F, X, rn, nb, nw, refine, width, tol);
-  if (n == 3) return imp_n<3>(w, M, B, C, F, X, rn, nb, nw, refine, width, tol);
+  IMP_N(1) IMP_N(2) IMP_N(3) IMP_N(4) IMP_N(5) IMP_N(6) IMP_N(7) IMP_N(8)
   return -1;
+}
+extern "C" void host_impedance_f32(const float* w, const float* M,
+    const float* B, const float* C, const float* F, float* X, int nb, int nw,
+    int refine) {
+  gjg::HostGroup g;
+  imp_group<float, float, 6>(g, w, M, B, C, F, X, nullptr, nb, nw, refine,
+                             0.0);
+}
+// the pivot positions that every elimination step of a lane chose, in
+// order (the first elimination's S steps first)
+struct TraceGroup : gjg::HostGroup {
+  int* log;
+  int n = 0;
+  template <typename Fn>
+  gjg::Key argmax(Fn key) {
+    gjg::Key k = gjg::HostGroup::argmax(key);
+    log[n++] = k.pos;
+    return k;
+  }
+};
+extern "C" int host_impedance_pivots(const double* w, const double* M,
+    const double* B, const double* C, const double* F, double* X, int nw,
+    int* log) {
+  TraceGroup g;
+  g.log = log;
+  imp_group<double, double, 3>(g, w, M, B, C, F, X, nullptr, 1, nw, 0, 0.0);
+  return g.n;
 }
 template <int N, int K>
 static int gj_nk(const double* A, const double* b, double* x, double* rn,
@@ -110,6 +162,9 @@ def lib(tmp_path_factory):
     D, Fl = ctypes.c_double, ctypes.c_float
     L.host_impedance.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, D]
     L.host_impedance.restype = I
+    L.host_impedance_f32.argtypes = [P, P, P, P, P, P, I, I, I]
+    L.host_impedance_pivots.argtypes = [P, P, P, P, P, P, I, P]
+    L.host_impedance_pivots.restype = I
     L.host_gj.argtypes = [P, P, P, P, I, I, I, I, I, D]
     L.host_gj.restype = I
     L.host_gj_f32.argtypes = [P, P, P, I, I]
@@ -167,24 +222,150 @@ def test_gj_lane_matches_plain(lib, case, nk):
     assert _rel(x_body, x_plain) < TOL
 
 
-@pytest.mark.parametrize("n,nb,nw", [(6, 3, 17), (3, 2, 5)])
-def test_impedance_lane_matches_plain(lib, n, nb, nw):
-    rng = np.random.default_rng(11)
+def _imp_inputs(rng, n, nb, nw):
     w = np.linspace(0.1, 2.5, nw)
     M = rng.standard_normal((nb, n, n, nw)) + 5.0 * np.eye(n)[None, :, :, None]
     B = 0.3 * rng.standard_normal((nb, n, n, nw))
     C = rng.standard_normal((nb, n, n)) + 10.0 * np.eye(n)
     F = rng.standard_normal((nb, n, nw)) + 1j * rng.standard_normal((nb, n, nw))
+    return w, M, B, C, F
+
+
+def _tie(M, B, C, case=0):
+    """Make every lane of ``case`` Z = C with |C[i, 0]| = 4 the largest
+    entry of every row: after equilibration the first pivot column ties
+    exactly at magnitude 1 over the top n rows (signs alternate)."""
+    n = C.shape[-1]
+    M[case] = 0.0
+    B[case] = 0.0
+    C[case] = np.clip(C[case], -1.0, 1.0)
+    C[case][:, 0] = 4.0 * (-1.0) ** np.arange(n)
+    return M, B, C
+
+
+def _imp_body(lib, w, M, B, C, F, refine=1, width=0, tol=1e-9):
+    """The group body's solve of every lane: X, or (X, rn, promoted) for
+    the mixed widths (1: float32 elimination, 2: bf16)."""
+    nb, n, nw = F.shape
     X = np.zeros((nb, n, nw), dtype=complex)
-    Fc = np.ascontiguousarray(F)
-    lib.host_impedance(_ptr(w), _ptr(np.ascontiguousarray(M)),
-                       _ptr(np.ascontiguousarray(B)),
-                       _ptr(np.ascontiguousarray(C)), _ptr(Fc), _ptr(X),
-                       None, nb, nw, n, 1, 0, 0.0)
-    X_plain = impedance_gj_solve_plain(
-        torch.tensor(w), torch.tensor(M), torch.tensor(B), torch.tensor(C),
-        torch.tensor(F)).numpy()
-    assert _rel(X, X_plain) < TOL
+    rn = np.zeros(nb * nw)
+    promoted = lib.host_impedance(
+        _ptr(w), _ptr(np.ascontiguousarray(M)), _ptr(np.ascontiguousarray(B)),
+        _ptr(np.ascontiguousarray(C)), _ptr(np.ascontiguousarray(F)), _ptr(X),
+        _ptr(rn), nb, nw, n, refine, width, tol)
+    assert promoted >= 0
+    return X if width == 0 else (X, rn, promoted)
+
+
+def _imp_plain(w, M, B, C, F, **kw):
+    out = impedance_gj_solve_plain(torch.tensor(w), torch.tensor(M),
+                                   torch.tensor(B), torch.tensor(C),
+                                   torch.tensor(F), **kw)
+    return out.numpy() if not isinstance(out, tuple) else (out[0].numpy(),
+                                                           out[1])
+
+
+@pytest.mark.parametrize("n,nb,nw", [(6, 3, 17), (3, 2, 5), (1, 2, 9),
+                                     (2, 3, 8), (7, 2, 11), (8, 2, 13)])
+def test_impedance_lane_matches_plain(lib, n, nb, nw):
+    """K1's group body (one row a "thread", positions swapped for rows)
+    against the plain version, ragged tiles (nw not a multiple of 8)
+    included."""
+    w, M, B, C, F = _imp_inputs(np.random.default_rng(11), n, nb, nw)
+    X = _imp_body(lib, w, M, B, C, F)
+    assert _rel(X, _imp_plain(w, M, B, C, F)) < TOL
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 6, 7, 8])
+@pytest.mark.parametrize("width", [0, 1, 2])
+def test_impedance_tie_lanes_match_plain(lib, width, n):
+    """A case whose first pivot column ties exactly on every lane: the
+    first maximal row wins on both sides, X and the promoted count agree."""
+    w, M, B, C, F = _imp_inputs(np.random.default_rng(31), n, 2, 10)
+    M, B, C = _tie(M, B, C)
+    if width == 0:
+        X = _imp_body(lib, w, M, B, C, F)
+        assert _rel(X, _imp_plain(w, M, B, C, F)) < TOL
+        return
+    X, _, promoted = _imp_body(lib, w, M, B, C, F, refine=2, width=width)
+    Xp, st = _imp_plain(w, M, B, C, F, refine=2, precision="mixed",
+                        factor_dtype=_WIDTHS[width], promote_tol=1e-9,
+                        return_stats=True)
+    assert promoted == int(st["promoted"])
+    assert _rel(X, Xp) < (1e-10 if width == 1 else 1e-7)
+
+
+def test_impedance_pivots_first_maximal_row(lib):
+    """The pivot position each elimination step of the group body took,
+    against a scan that takes the first maximal row (numpy's argmax) over
+    the same equilibrated embedding: on the tie lanes the first of the
+    tied rows, every step."""
+    rng = np.random.default_rng(37)
+    n, nw = 3, 4
+    w, M, B, C, F = _imp_inputs(rng, n, 1, nw)
+    M, B, C = _tie(M, B, C)
+    X = np.zeros((1, n, nw), dtype=complex)
+    log = np.zeros(2 * n * nw, dtype=np.int32)
+    steps = lib.host_impedance_pivots(
+        _ptr(w), _ptr(np.ascontiguousarray(M)), _ptr(np.ascontiguousarray(B)),
+        _ptr(np.ascontiguousarray(C)), _ptr(np.ascontiguousarray(F)), _ptr(X),
+        nw, _ptr(log))
+    assert steps == 2 * n * nw
+    want = []
+    for f in range(nw):
+        Z = C[0] - w[f] ** 2 * M[0, :, :, f] + 1j * w[f] * B[0, :, :, f]
+        A = np.block([[Z.real, -Z.imag], [Z.imag, Z.real]])
+        A = A / np.maximum(np.max(np.abs(A), axis=1, keepdims=True), 1e-300)
+        for kk in range(2 * n):
+            p = kk + int(np.argmax(np.abs(A[kk:, kk])))
+            want.append(p)
+            A[[kk, p]] = A[[p, kk]]
+            A[kk] = A[kk] / A[kk, kk]
+            for i in range(2 * n):
+                if i != kk:
+                    A[i] = A[i] - A[i, kk] * A[kk]
+    assert want[0] == 0 and want[2 * n] == 0    # ties: the first row
+    assert log.tolist() == want
+
+
+@pytest.mark.parametrize("width", [0, 1, 2])
+def test_impedance_nan_lane_matches_plain(lib, width):
+    """A NaN in M at one lane: that lane's X is NaN in full on both sides
+    (its row's scale is NaN and the NaN row wins the first pivot), every
+    other lane agrees, and under the ladder the NaN lane promotes."""
+    n, nb, nw = 6, 2, 9
+    w, M, B, C, F = _imp_inputs(np.random.default_rng(41), n, nb, nw)
+    M[1, 2, 4, 5] = np.nan
+    kw = {} if width == 0 else dict(
+        refine=2, precision="mixed", factor_dtype=_WIDTHS[width],
+        promote_tol=1e-9, return_stats=True)
+    out = _imp_body(lib, w, M, B, C, F, refine=kw.get("refine", 1),
+                    width=width)
+    X = out if width == 0 else out[0]
+    Xp = _imp_plain(w, M, B, C, F, **kw)
+    if width:
+        Xp, st = Xp
+        assert out[2] == int(st["promoted"]) >= 1
+        assert np.isnan(out[1][1 * nw + 5])
+    bad = np.isnan(Xp)
+    assert bad[1, :, 5].all() and bad.sum() == n
+    np.testing.assert_array_equal(np.isnan(X), bad)
+    assert _rel(np.where(bad, 0, X), np.where(bad, 0, Xp)) < (
+        1e-7 if width == 2 else TOL)
+
+
+def test_impedance_lane_f32_matches_plain(lib):
+    """K1's float32 instantiation against the plain float32 solve."""
+    w, M, B, C, F = _imp_inputs(np.random.default_rng(43), 6, 2, 12)
+    f32 = [np.ascontiguousarray(a.astype(np.float32)) for a in (w, M, B, C)]
+    Fc = np.ascontiguousarray(F.astype(np.complex64))
+    X = np.zeros(Fc.shape, np.complex64)
+    lib.host_impedance_f32(*(_ptr(a) for a in f32), _ptr(Fc), _ptr(X), 2, 12,
+                           1)
+    Xp = impedance_gj_solve_plain(*(torch.tensor(a) for a in f32),
+                                  torch.tensor(Fc)).numpy()
+    assert Xp.dtype == np.complex64
+    assert _rel(X, Xp) < 1e-4
 
 
 # ---------------------------------------------------------------------------
@@ -258,36 +439,29 @@ def test_gj_lane_mixed_matches_plain(lib, width, case, nk):
                                   ~(st["rn"].numpy() <= 1e-9))
 
 
+@pytest.mark.parametrize("n", [6, 1, 2, 3, 7, 8])
 @pytest.mark.parametrize("width", [1, 2])
-def test_impedance_lane_mixed_matches_plain(lib, width):
-    """K3's lane arithmetic against the plain ladder, with some lanes
-    made near-singular so they promote."""
+def test_impedance_lane_mixed_matches_plain(lib, width, n):
+    """K3's group body against the plain ladder, with one case made
+    near-singular so its lanes promote (for n = 1 no case can be: the
+    embedding of a 1 x 1 complex Z is a scaled rotation, cond 1)."""
     rng = np.random.default_rng(23)
-    n, nb, nw = 6, 3, 17
-    w = np.linspace(0.1, 2.5, nw)
-    M = rng.standard_normal((nb, n, n, nw)) + 5.0 * np.eye(n)[None, :, :, None]
-    B = 0.3 * rng.standard_normal((nb, n, n, nw))
-    C = rng.standard_normal((nb, n, n)) + 10.0 * np.eye(n)
+    nb, nw = 3, 17
+    w, M, B, C, F = _imp_inputs(rng, n, nb, nw)
     # case 1: Z = C with cond(C) = 1e9 at every bin -> all its lanes
     # promote
     M[1] = 0.0
     B[1] = 0.0
     C[1] = _ill(rng, C[1:2].copy(), 1)[0]
-    F = rng.standard_normal((nb, n, nw)) + 1j * rng.standard_normal((nb, n, nw))
-    X = np.zeros((nb, n, nw), dtype=complex)
-    rn = np.zeros(nb * nw)
-    promoted = lib.host_impedance(
-        _ptr(w), _ptr(np.ascontiguousarray(M)), _ptr(np.ascontiguousarray(B)),
-        _ptr(np.ascontiguousarray(C)), _ptr(np.ascontiguousarray(F)), _ptr(X),
-        _ptr(rn), nb, nw, n, 2, width, 1e-9)
-    X_plain, st = impedance_gj_solve_plain(
-        torch.tensor(w), torch.tensor(M), torch.tensor(B), torch.tensor(C),
-        torch.tensor(F), refine=2, precision="mixed",
-        factor_dtype=_WIDTHS[width], promote_tol=1e-9, return_stats=True)
-    assert promoted == int(st["promoted"]) and promoted >= nw
-    X_plain = X_plain.numpy()
-    # the promoted cond-1e9 case agrees to cond * eps (real vs arithmetic
-    # row swaps), the others at the ladder's accuracy
+    X, rn, promoted = _imp_body(lib, w, M, B, C, F, refine=2, width=width)
+    X_plain, st = _imp_plain(w, M, B, C, F, refine=2, precision="mixed",
+                             factor_dtype=_WIDTHS[width], promote_tol=1e-9,
+                             return_stats=True)
+    assert promoted == int(st["promoted"])
+    assert n == 1 or promoted >= nw
+    np.testing.assert_array_equal(~(rn <= 1e-9), ~(st["rn"].numpy() <= 1e-9))
+    # the promoted cond-1e9 case agrees to cond * eps (positions swapped vs
+    # arithmetic row swaps), the others at the ladder's accuracy
     assert _rel(X[1], X_plain[1]) < 1e9 * 2.2e-16 * 10
     assert _rel(X[[0, 2]], X_plain[[0, 2]]) < (1e-10 if width == 1 else 1e-7)
 
