@@ -18,11 +18,13 @@
 //   max(f)      the NaN-propagating max over the group;
 //   pivot_row<KK>(wk)  the pivot row's columns KK+1.., normalised
 //               (pivot_entry), from the row at position KK;
+//   pivot_rhs<KK>(wk)  the same for the last column alone (refinements);
 //   any(p)      whether p holds anywhere the exchanges reach (the warp);
 //   publish_x(wk, rw, first, keep)  x_i += (or =) the solution component
 //               of the row at position i, into the group's solution vector
 //               (nothing when !keep);
-//   x<T>()      that vector (x_0 .. x_{S-1}), read by every row.
+//   x<T>()      that vector (x_0 .. x_{S-1}), read by every row;
+//   row_store<T>(t)  where held row t keeps its equilibrated row of As.
 // The card's policy (gjk::DevGroup in gj_kernels.cuh) does these with
 // shuffles and a shared-memory slot per group; HostGroup below with loops.
 //
@@ -37,11 +39,13 @@
 // run at the input width T; under the ladder (E narrower than T) the
 // lane's relative residual rn = max|rhs - As x| / (max|rhs| + eps) is a
 // group max, and a lane with !(rn <= tol) is re-solved at T by its own
-// group, in the same launch.  Every array is indexed by compile-time
-// constants only (the elimination step is a template parameter), the
-// solution vector lives in the group's shared slot, and no division
-// calls a subroutine, so the kernel holds its rows in registers and has
-// no local memory.
+// group, in the same launch.  A refinement eliminates the same matrix, so
+// after the first elimination only the right-hand-side column is replayed,
+// with the pivots, positions and multipliers that elimination recorded.
+// Every array is indexed by compile-time constants only (the elimination
+// step is a template parameter), the solution vector and the As rows live
+// in the policy's stores, and no division calls a subroutine, so the
+// kernel holds its working rows in registers and has no local memory.
 #pragma once
 
 #include <cmath>
@@ -134,20 +138,24 @@ GJG_FN void writeback(const Tile<T, N>& s, T* X, int b, int f0, int nw,
 // ---------------------------------------------------------------------------
 
 // A row's share of the lane at the input width T: its equilibrated row of
-// the matrix and right-hand side.
+// the matrix (in the policy's row store: shared memory on the card, which
+// keeps the registers for the working rows) and right-hand side.
 template <typename T, int S>
 struct Row {
-  T as[S];
+  T* as;
   T rhs;
   int r;
   bool active;  // r < S; rows S..15 of the group idle along
 };
 
-// A row's working copy for one elimination at width W: [As | rhs] and
-// its logical position.
+// A row's working copy for the eliminations at width W: [As | rhs], its
+// logical position, and a[KK] as it stood at each step KK of the first
+// elimination (the row's multiplier, or its pivot at the step it was the
+// pivot row), which the refinement passes reuse.
 template <typename W, int S>
 struct Work {
   W a[S + 1];
+  W c[S];
   int pos;
 };
 
@@ -260,16 +268,19 @@ GJG_FN T row_times_x(const Row<T, S>& me, const T* x) {
   return acc;
 }
 
-// Load the working row for the elimination of pass `first` (the solve of
-// rhs) or of a refinement (the residual rhs - As x).
+// Load the working row for the first elimination: [As | rhs] at width W.
 template <typename T, typename W, int S>
-GJG_FN void load_work(Work<W, S>& wk, const Row<T, S>& me, const T* x,
-                      bool first) {
-  const T res = first ? me.rhs : me.rhs - row_times_x(me, x);
+GJG_FN void load_work(Work<W, S>& wk, const Row<T, S>& me) {
 #pragma unroll
   for (int j = 0; j < S; ++j) wk.a[j] = to<W>(me.as[j]);
-  wk.a[S] = to<W>(res);
+  wk.a[S] = to<W>(me.rhs);
   wk.pos = me.r;
+}
+
+// Load a refinement's right-hand side, the residual rhs - As x at T.
+template <typename T, typename W, int S>
+GJG_FN void load_residual(Work<W, S>& wk, const Row<T, S>& me, const T* x) {
+  wk.a[S] = to<W>(me.rhs - row_times_x(me, x));
 }
 
 // The pivot key of a row at step KK: (|a[KK]| as ordered bits + 1, with
@@ -313,6 +324,7 @@ template <int KK, typename W, int S>
 GJG_FN void eliminate_row(Work<W, S>& wk, const slot_t<W>* prow) {
   const bool pivot = wk.pos == KK;
   const W c = wk.a[KK];
+  wk.c[KK] = c;
 #pragma unroll
   for (int j = KK + 1; j <= S; ++j) {
     const W p = from_slot<W>(prow[j]);
@@ -320,6 +332,19 @@ GJG_FN void eliminate_row(Work<W, S>& wk, const slot_t<W>* prow) {
     wk.a[j] = pivot ? p : u;
   }
   wk.a[KK] = to<W>(pivot ? 1.0 : 0.0);
+}
+
+// One row's share of step KK of a refinement: the same eliminate on the
+// last column alone.  A refinement eliminates the same matrix as the
+// first pass (the same As at width W), so its pivots, positions and
+// multipliers repeat the first pass's bit for bit; only the right-hand
+// side is new: the pivot row takes d = rhs / piv (from pivot_rhs), every
+// other row rhs - c d.
+template <int KK, typename W, int S>
+GJG_FN void substitute_row(Work<W, S>& wk, slot_t<W> d) {
+  const W dv = from_slot<W>(d);
+  const W u = wk.a[S] - wk.c[KK] * dv;
+  wk.a[S] = wk.pos == KK ? dv : u;
 }
 
 // ---------------------------------------------------------------------------
@@ -350,18 +375,36 @@ struct Elim {
   }
 };
 
+// Step KK.. S-1 of a refinement's elimination (substitute_row).
+template <int KK, int S>
+struct Subst {
+  template <typename P, typename W>
+  GJG_FN static void run(P& g, Work<W, S>* wk) {
+    if constexpr (KK < S) {
+      const slot_t<W> d = g.template pivot_rhs<KK>(wk);
+#pragma unroll
+      for (int t = 0; t < P::kLanes; ++t) substitute_row<KK>(wk[t], d);
+      Subst<KK + 1, S>::run(g, wk);
+    }
+  }
+};
+
 // Solve at width W with `refine` residual re-solves at T into the
 // group's solution vector; with keep false the group runs the solve (its
 // warp-mate needs it) and leaves its vector as it was.
 template <typename W, typename P, typename T, int S>
 GJG_FN void solve_width(P& g, Row<T, S>* rw, int refine, bool keep) {
   Work<W, S> wk[P::kLanes];
-  for (int it = 0; it <= refine; ++it) {
+#pragma unroll
+  for (int t = 0; t < P::kLanes; ++t) load_work(wk[t], rw[t]);
+  Elim<0, S>::run(g, wk, rw);
+  g.publish_x(wk, rw, true, keep);
+  for (int it = 0; it < refine; ++it) {
 #pragma unroll
     for (int t = 0; t < P::kLanes; ++t)
-      load_work(wk[t], rw[t], g.template x<T>(), it == 0);
-    Elim<0, S>::run(g, wk, rw);
-    g.publish_x(wk, rw, it == 0, keep);
+      load_residual(wk[t], rw[t], g.template x<T>());
+    Subst<0, S>::run(g, wk);
+    g.publish_x(wk, rw, false, keep);
   }
 }
 
@@ -394,7 +437,10 @@ GJG_FN bool solve_lane(P& g, Tile<T, N>& s, int fl, bool live, int refine,
   Row<T, S> rw[P::kLanes];
 #pragma unroll
   for (int t = 0; t < P::kLanes; ++t)
+  {
+    rw[t].as = g.template row_store<T>(t);
     assemble_row<T, N>(rw[t], s, fl, g.rank(t));
+  }
   bool promoted = false;
   *rn = T(0);
   solve_width<E>(g, rw, refine, true);
@@ -422,6 +468,8 @@ struct HostGroup {
   static constexpr int kLanes = kGroup;
   double xsd[kGroup];
   float xsf[kGroup];
+  double asd[kGroup][kGroup];
+  float asf[kGroup][kGroup];
   double pivd[kGroup + 1];
   float pivf[kGroup + 1];
 
@@ -458,6 +506,23 @@ struct HostGroup {
         for (int j = KK + 1; j <= S; ++j)
           out[j] = pivot_entry<W>(to_slot(wk[t].a[j]), to_slot(wk[t].a[KK]));
     return out;
+  }
+
+  template <typename T>
+  T* row_store(int t) {
+    if constexpr (std::is_same<T, double>::value)
+      return asd[t];
+    else
+      return asf[t];
+  }
+
+  template <int KK, typename W, int S>
+  slot_t<W> pivot_rhs(const Work<W, S>* wk) const {
+    slot_t<W> d = 0;
+    for (int t = 0; t < kLanes; ++t)
+      if (wk[t].pos == KK)
+        d = pivot_entry<W>(to_slot(wk[t].a[S]), to_slot(wk[t].c[KK]));
+    return d;
   }
 
   template <typename T>

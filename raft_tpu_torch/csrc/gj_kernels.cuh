@@ -29,20 +29,31 @@
 // own row there (Z never reaches device memory), pivots by a width-16
 // shuffle max-reduction over (|a|, position) and takes the pivot row from
 // a shared slot of its group; rows keep their place and swap logical
-// positions.  Refinement, the ladder's residual (a group max) and the
-// promotion to a T-width re-solve stay inside the group, in the same
-// launch; X goes back through shared memory so its stores coalesce too.
-// Every array is indexed by compile-time constants and no division calls
-// a subroutine (gjg::quot), so nothing lives in local memory.
+// positions.  A refinement eliminates the same matrix again, so it
+// replays only the right-hand-side column with the first elimination's
+// pivots and multipliers (the same operations, bit for bit).  The
+// ladder's residual (a group max) and the promotion to a T-width re-solve
+// stay inside the group, in the same launch; X goes back through shared
+// memory so its stores coalesce too.  Every register array is indexed by
+// compile-time constants, each row's As waits in shared memory, and no
+// division calls a subroutine (gjg::quot), so nothing lives in local
+// memory.
 //
-// What bounded the design it replaces (PR 1/2: one lane a thread, the
+// What bounded the design it replaces (one lane a thread, the
 // 12 x 13 block a per-thread array, pivot rows picked at run time): local
 // memory.  Its ~1.25 KB (f64) a thread, ~100 MB at 81,920 lanes, exceeds
 // L1 and the 50 MB L2, so every pivot step's read-modify-write went to HBM:
 // on NVIDIA H100 80GB HBM3 (700 W) K1 f64 took 1.461 ms of device time at
 // 81,920 lanes against a 0.0189 ms byte bound (77x) and 4.4x
 // torch.linalg.solve's time on the same systems; K3 f32 1.085 ms.
-// What bounds this one: @@MEASURED@@
+// What bounds this one, on the same card (chip_smoke.py): neither bytes
+// (K1 f64 at 81,920 lanes sits several times above its byte bound) nor
+// FP64, but issuing each pivot step's exchange - a shuffle butterfly over
+// (key, position), the pivot row through shared memory, one division a
+// thread, two __syncwarp - for about 13 FMAs a thread, with a quarter of
+// each group idle at n = 6.  Occupancy is what moved it most: the per-n
+// launch bounds below and the As rows in shared memory keep the main
+// paths' n = 6 kernels at 6 blocks an SM.
 //
 // K2 / K4 (gj_kernel) are still one lane a thread with the working block
 // in local memory (gj_lane.cuh), bound by each thread's serial latency:
@@ -82,16 +93,22 @@ constexpr int kImpThreads = gjg::kGroup * gjg::kTileF;  // 128
 constexpr int kSlot = gjg::kGroup + 1;                  // [As | rhs] columns
 
 // a group's exchange slots in shared memory: the pivot row as its owner
-// wrote it and normalised (one column a thread), at either width, and the
-// solution vector.  Two __syncwarp a step order every write after the
-// reads of the step before, so one buffer each suffices.
+// wrote it and normalised (one column a thread), at either width (two
+// __syncwarp a step order every write after the reads of the step before,
+// so one buffer each suffices); a refinement step's normalised right-hand
+// side (one __syncwarp a step: two buffers, alternating by step); the
+// solution vector; and each row's equilibrated As (each thread reads only
+// its own), which would otherwise hold 2n registers at T.
 template <typename T>
 struct GroupSlots {
   double rawd[kSlot];
   double outd[kSlot];
   float rawf[kSlot];
   float outf[kSlot];
+  double rhsd[2];
+  float rhsf[2];
   T xs[gjg::kGroup];
+  T as[gjg::kGroup][kSlot];  // each row's As (stride kSlot: no bank conflict)
 };
 
 // The card's group policy for gjg::solve_lane (see gj_imp_group.cuh): the
@@ -167,8 +184,28 @@ struct DevGroup {
     return sl.xs;
   }
 
+  template <typename>
+  __device__ __forceinline__ T* row_store(int) {
+    return sl.as[r];
+  }
+
   // the row at position i adds its component into x_i (positions are
   // unique, so the group's rows never write one entry twice)
+  template <int KK, typename W, int S>
+  __device__ __forceinline__ gjg::slot_t<W> pivot_rhs(
+      const gjg::Work<W, S>* wk) {
+    gjg::slot_t<W>* d;
+    if constexpr (std::is_same<gjg::slot_t<W>, double>::value)
+      d = &sl.rhsd[KK & 1];
+    else
+      d = &sl.rhsf[KK & 1];
+    if (wk[0].pos == KK)
+      *d = gjg::pivot_entry<W>(gjg::to_slot(wk[0].a[S]),
+                               gjg::to_slot(wk[0].c[KK]));
+    __syncwarp(mask);
+    return *d;
+  }
+
   template <typename W, int S>
   __device__ __forceinline__ void publish_x(const gjg::Work<W, S>* wk,
                                             const gjg::Row<T, S>* rw,
@@ -181,14 +218,18 @@ struct DevGroup {
   }
 };
 
+// Resident blocks an SM asked of ptxas for size n: as many as the largest
+// register budget that n fits without a stack frame or spill (65,536
+// registers / (128 threads x blocks): 85 at 6 blocks, 102 at 5, 128 at 4);
+// left to its default, ptxas held some instantiations at 64 registers and
+// spilled a few values.
+constexpr int imp_min_blocks(int n) { return n <= 6 ? 6 : (n == 7 ? 5 : 4); }
+
 // One block: case b, frequencies f0 .. f0 + 7, group g on frequency f0 + g.
-// The launch bound of 4 blocks an SM lets ptxas use up to 128 registers a
-// thread, which every instantiation fits without a stack frame or spill
-// (left to its default, it held some at 64 and spilled a few values).
 // w (nw); M, B (nb, N, N, nw); C (nb, N, N); F, X (nb, N, nw) complex,
 // interleaved (re, im); rn (nb * nw) case-major, read only on the ladder.
 template <typename T, typename E, int N>
-__global__ void __launch_bounds__(kImpThreads, 4)
+__global__ void __launch_bounds__(kImpThreads, imp_min_blocks(N))
     impedance_group_kernel(const T* __restrict__ w, const T* __restrict__ M,
                            const T* __restrict__ B, const T* __restrict__ C,
                            const T* __restrict__ F, T* __restrict__ X,
