@@ -9,9 +9,10 @@ Phases (any failure exits non-zero; no phase's failure is turned into a
  2. build   — compiles the hand-written kernels (nvcc, sm_90a; one nvcc
               per translation unit, all started together) from the sources
               in raft_tpu_torch/csrc and prints the build time, the
-              -Xptxas -v register/spill lines (every K1/K3 instantiation:
+              -Xptxas -v register/spill lines (every K1-K4 instantiation:
               a stack frame or spill fails the run) and the static SASS
-              counts of the n = 6 K1/K3 kernels (cuobjdump);
+              counts of the main paths' K1/K3 (n = 6) and K2 f64 / K4 f32
+              (n = 12, k = 6) kernels (cuobjdump);
  3. kernels — holds each kernel against its plain PyTorch version on the
               card: K1/K2 at float64 and float32, K3/K4 (the mixed ladder)
               at the f32 and bf16 elimination widths with promoted counts
@@ -328,11 +329,12 @@ KERNEL_NAMES = {
                            "impedance_group_kernelIdfLi"),
     "impedance_gj_mixed_bf16": ("impedance_group_kernel<double, gjl::bf16r",
                                 "impedance_group_kernelIdN3gjl5bf16rE"),
-    "gj_solve": ("gj_kernel<double, double", "gj_kernelIddLi"),
-    "gj_solve_f32": ("gj_kernel<float, float", "gj_kernelIffLi"),
-    "gj_solve_mixed": ("gj_kernel<double, float", "gj_kernelIdfLi"),
-    "gj_solve_mixed_bf16": ("gj_kernel<double, gjl::bf16r",
-                            "gj_kernelIdN3gjl5bf16rE"),
+    "gj_solve": ("gj_group_kernel<double, double", "gj_group_kernelIddLi"),
+    "gj_solve_f32": ("gj_group_kernel<float, float", "gj_group_kernelIffLi"),
+    "gj_solve_mixed": ("gj_group_kernel<double, float",
+                       "gj_group_kernelIdfLi"),
+    "gj_solve_mixed_bf16": ("gj_group_kernel<double, gjl::bf16r",
+                            "gj_group_kernelIdN3gjl5bf16rE"),
 }
 
 
@@ -483,17 +485,43 @@ def check_impedance_sweep_shapes(G, g, dev):
     _log_row(key, row)
 
 
-def impedance_ptxas(report) -> list:
-    """Registers, stack frame and spills of every K1/K3 instantiation from
-    the -Xptxas -v report: [{symbol, width, n, registers, stack, spill_stores,
-    spill_loads}]."""
+#: the mangled symbols' tags of the four widths
+WIDTH_TAGS = (("IddLi", "f64"), ("IffLi", "f32"), ("IdfLi", "mixed_f32"),
+              ("IdN3gjl5bf16rELi", "mixed_bf16"))
+#: the Gauss-Jordan kernel families: (name, symbol stem, instantiations:
+#: K1/K3 n = 1..8, K2/K4 even n <= 16 with k = 1 and n/2, at 4 widths)
+GROUP_FAMILIES = (("K1/K3", "impedance_group_kernel", 32),
+                  ("K2/K4", "gj_group_kernel", 60))
+
+
+def _family(sym):
+    return next((f for f, stem, _ in GROUP_FAMILIES if stem in sym), None)
+
+
+def _width(sym):
+    return next((w for tag, w in WIDTH_TAGS if tag in sym), "?")
+
+
+def _nk(sym):
+    """(n, k) of a K1-K4 symbol (k = 1 for K1/K3)."""
     import re
 
-    widths = (("IddLi", "f64"), ("IffLi", "f32"), ("IdfLi", "mixed_f32"),
-              ("IdN3gjl5bf16rELi", "mixed_bf16"))
+    m = re.search(r"Li(\d+)E(?:Li(\d+)E)?", sym)
+    if not m:
+        return None, None
+    return int(m.group(1)), int(m.group(2) or 1)
+
+
+def group_ptxas(report) -> list:
+    """Registers, stack frame and spills of every K1-K4 instantiation from
+    the -Xptxas -v report: [{family, symbol, width, n, k, registers,
+    stack, spill_stores, spill_loads}]."""
+    import re
+
     out = []
     for sym, lines in report.items():
-        if "impedance_group_kernel" not in sym:
+        family = _family(sym)
+        if family is None:
             continue
         text = " | ".join(lines)
         nums = {}
@@ -503,19 +531,19 @@ def impedance_ptxas(report) -> list:
                           ("spill_loads", r"(\d+) bytes spill loads")):
             m = re.search(pat, text)
             nums[name] = int(m.group(1)) if m else None
-        width = next((w for tag, w in widths if tag in sym), "?")
-        m = re.search(r"Li(\d)E", sym)
-        out.append(dict(symbol=sym, width=width,
-                        n=int(m.group(1)) if m else None, **nums))
-    out.sort(key=lambda d: (d["width"], d["n"] or 0))
+        n, k = _nk(sym)
+        out.append(dict(family=family, symbol=sym, width=_width(sym), n=n,
+                        k=k, **nums))
+    out.sort(key=lambda d: (d["family"], d["width"], d["n"] or 0, d["k"] or 0))
     return out
 
 
-def impedance_sass(lib_path) -> dict:
-    """Static SASS facts of the n = 6 K1/K3 instantiations (the main
-    paths' width), from ``cuobjdump -sass`` of the built library: total
-    instructions, FP64 and FP32 arithmetic, shuffles, shared-memory loads
-    and stores, calls.  {} where the toolkit has no cuobjdump."""
+def group_sass(lib_path) -> dict:
+    """Static SASS facts of the main paths' K1/K3 instantiations (n = 6,
+    every width) and of K2 f64 and K4 f32 at n = 12, k = 6, from
+    ``cuobjdump -sass`` of the built library: total instructions, FP64
+    and FP32 arithmetic, shuffles, shared-memory loads and stores, calls,
+    local loads and stores.  {} where the toolkit has no cuobjdump."""
     import re
     import shutil
 
@@ -534,16 +562,15 @@ def impedance_sass(lib_path) -> dict:
     facts = {}
     for block in re.split(r"\n\s*Function : ", out):
         name = block.split("\n", 1)[0].strip()
-        if "impedance_group_kernel" not in name or "Li6E" not in name:
+        family, width, (n, k) = _family(name), _width(name), _nk(name)
+        if not ((family == "K1/K3" and n == 6) or (
+                family == "K2/K4" and (n, k) == (12, 6)
+                and width in ("f64", "mixed_f32"))):
             continue
         ops = [m.group(2).split(".")[0] for m in re.finditer(
             r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", block)]
-        width = next((w for tag, w in (("IddLi", "f64"), ("IffLi", "f32"),
-                                       ("IdfLi", "mixed_f32"),
-                                       ("IdN3gjl5bf16rELi", "mixed_bf16"))
-                      if tag in name), "?")
-        facts[width] = dict(total=len(ops), **{
-            k: sum(op in v for op in ops) for k, v in classes.items()})
+        facts.setdefault(family, {})[width] = dict(total=len(ops), **{
+            kk: sum(op in v for op in ops) for kk, v in classes.items()})
     return facts
 
 
@@ -1177,23 +1204,28 @@ def main() -> int:
     for sym, lines in report.items():
         if "Li12ELi6E" in sym or "qtf_pair_kernel" in sym:
             log(f"  ptxas {sym}: {' | '.join(lines)}")
-    imp = impedance_ptxas(report)
-    for d in imp:
-        log(f"  ptxas K1/K3 {d['width']:10s} n={d['n']}: {d['registers']} "
-            f"registers, {d['stack']} bytes stack frame, "
-            f"{d['spill_stores']}/{d['spill_loads']} bytes spill stores/loads")
-    no_local = len(imp) == 32 and all(
-        d["stack"] == 0 and d["spill_stores"] == 0 and d["spill_loads"] == 0
-        for d in imp)
-    log(f"  ptxas K1/K3: {len(imp)} instantiations, no stack frame and no "
-        f"spill in any: {no_local}")
-    sass = impedance_sass(_build.BUILD_INFO["path"])
-    for width, d in sass.items():
-        log(f"  SASS K1/K3 {width:10s} n=6 (static): " + ", ".join(
-            f"{k} {v}" for k, v in d.items()))
-    if not no_local:
-        fail("the impedance kernels use local memory (stack frame or spill) "
-             "or not all 32 instantiations were reported")
+    ptx = group_ptxas(report)
+    for d in ptx:
+        log(f"  ptxas {d['family']} {d['width']:10s} n={d['n']:2d} "
+            f"k={d['k']}: {d['registers']} registers, {d['stack']} bytes "
+            f"stack frame, {d['spill_stores']}/{d['spill_loads']} bytes "
+            "spill stores/loads")
+    for family, _, want in GROUP_FAMILIES:
+        got = [d for d in ptx if d["family"] == family]
+        no_local = len(got) == want and all(
+            d["stack"] == 0 and d["spill_stores"] == 0
+            and d["spill_loads"] == 0 for d in got)
+        log(f"  ptxas {family}: {len(got)} instantiations, no stack frame "
+            f"and no spill in any: {no_local}")
+        if not no_local:
+            fail(f"the {family} kernels use local memory (stack frame or "
+                 f"spill) or not all {want} instantiations were reported")
+    sass = group_sass(_build.BUILD_INFO["path"])
+    for family, by_width in sass.items():
+        for width, d in by_width.items():
+            shape = "n=6" if family == "K1/K3" else "n=12 k=6"
+            log(f"  SASS {family} {width:10s} {shape} (static): " + ", ".join(
+                f"{k} {v}" for k, v in d.items()))
     os.makedirs(OUT, exist_ok=True)
     with open(os.path.join(OUT, "ptxas.log"), "w") as f:
         f.write(_build.ptxas_log())
@@ -1251,7 +1283,7 @@ def main() -> int:
     kernels = [summary(*k) for k in KERNELS]
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "rows": rows,
-                   "ptxas_impedance": imp, "sass_impedance": sass,
+                   "ptxas": ptx, "sass": sass,
                    "paths": PATH_LAUNCHES, "phases": phases,
                    "wall_s": time.perf_counter() - t_start}, f, indent=1)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "

@@ -20,47 +20,45 @@
 // K1 and K2 at T = E = float are the f32 instantiations
 // (RAFT_TPU_PRECISION=f32).
 //
-// K1 / K3 (impedance_group_kernel): one block per case and 8 consecutive
-// frequencies (128 threads), one group of 16 threads per (case,
-// frequency) lane, one row of the 2n x 2n block per thread (2n <= 16),
-// the per-row arithmetic in gj_imp_group.cuh.  The block copies its slices
-// of M, B, F and the case's C into shared memory with neighbouring threads
-// on neighbouring addresses, each thread assembles and equilibrates its
-// own row there (Z never reaches device memory), pivots by a width-16
-// shuffle max-reduction over (|a|, position) and takes the pivot row from
-// a shared slot of its group; rows keep their place and swap logical
-// positions.  A refinement eliminates the same matrix again, so it
-// replays only the right-hand-side column with the first elimination's
-// pivots and multipliers (the same operations, bit for bit).  The
-// ladder's residual (a group max) and the promotion to a T-width re-solve
-// stay inside the group, in the same launch; X goes back through shared
-// memory so its stores coalesce too.  Every register array is indexed by
-// compile-time constants, each row's As waits in shared memory, and no
-// division calls a subroutine (gjg::quot), so nothing lives in local
-// memory.
+// All four are one design: one lane per group of 16 threads, one row of
+// the lane's system per thread (at most 16 rows), 8 lanes a block of 128
+// threads, the per-row arithmetic in gj_group.cuh.  The block copies its
+// 8 lanes' operands into shared memory with neighbouring threads on
+// neighbouring addresses; each thread builds its own row there (K1/K3
+// assemble it from the case's M, B, C and w, so Z never reaches device
+// memory; K2/K4 equilibrate their staged row of A and b in place), pivots
+// by a width-16 shuffle max-reduction over (|a|, position) and takes the
+// normalised pivot row from a shared slot of its group; rows keep their
+// place and swap logical positions.  A refinement eliminates the same
+// matrix again, so it replays only the right-hand-side columns with the
+// first elimination's pivots and multipliers (the same operations, bit for
+// bit).  The ladder's residual (a group max over rows and right-hand
+// sides) and the promotion to a T-width re-solve stay inside the group, in
+// the same launch; the promoted count is one warp-aggregated atomicAdd.
+// Every register array is indexed by compile-time constants, each row's
+// As waits in shared memory, and no division calls a subroutine
+// (gjg::quot), so nothing lives in local memory.
 //
-// What bounded the design it replaces (one lane a thread, the
-// 12 x 13 block a per-thread array, pivot rows picked at run time): local
-// memory.  Its ~1.25 KB (f64) a thread, ~100 MB at 81,920 lanes, exceeds
-// L1 and the 50 MB L2, so every pivot step's read-modify-write went to HBM:
-// on NVIDIA H100 80GB HBM3 (700 W) K1 f64 took 1.461 ms of device time at
-// 81,920 lanes against a 0.0189 ms byte bound (77x) and 4.4x
-// torch.linalg.solve's time on the same systems; K3 f32 1.085 ms.
-// What bounds this one, on the same card (chip_smoke.py): neither bytes
-// (K1 f64 at 81,920 lanes sits several times above its byte bound) nor
-// FP64, but issuing each pivot step's exchange - a shuffle butterfly over
-// (key, position), the pivot row through shared memory, one division a
-// thread, two __syncwarp - for about 13 FMAs a thread, with a quarter of
-// each group idle at n = 6.  Occupancy is what moved it most: the per-n
-// launch bounds below and the As rows in shared memory keep the main
-// paths' n = 6 kernels at 6 blocks an SM.
-//
-// K2 / K4 (gj_kernel) are still one lane a thread with the working block
-// in local memory (gj_lane.cuh), bound by each thread's serial latency:
-// 0.13-0.16 ms per launch at 80-5120 lanes against bounds of 5.5e-5 to
-// 3.5e-3 ms.  The mixed ladder there runs the eliminations in f32 (or
-// bf16 rounded in f32 registers) and promotes a lane in the same thread.
-// In both, the promoted count is one warp-aggregated atomicAdd.
+// What bounded the one-lane-a-thread design this replaced (each thread's
+// working block a per-thread array with rows swapped at run-time pivots):
+// local memory.  K1 f64's ~1.25 KB a thread at 81,920 lanes exceeded L1
+// and L2, so every pivot step's read-modify-write went to HBM (1.461 ms
+// against a 0.0189 ms byte bound); K2/K4 at n = 12, k = 6 ran 80 lanes as
+// 80 threads on 3 SMs, each thread's 12 x 18 block in local memory (K2 f64
+// 254 registers and 564 bytes of spill, K4 f32 1504 bytes), so a launch
+// cost one thread's serial latency, 0.13-0.63 ms, against byte bounds of
+// 5.5e-5 to 3.5e-3 ms (NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py).
+// What bounds this one on the same card: neither bytes nor FP64, but
+// issuing each pivot step's exchange - a shuffle butterfly over (key,
+// position), the pivot row through shared memory, one division a thread,
+// two __syncwarp - for a few FMAs a thread, with the rows past n idle (a
+// quarter of each group at K1's n = 6 and K2's n = 12), and the occupancy
+// that hides its latency: the per-size launch bounds below.  K2 f64 at
+// n = 12, k = 6 compiles to 3000 static instructions (538 FP64, 144
+// shuffles, no local access): 0.0079 ms of device time at 80 lanes, one
+// group's chain of 12 pivot steps and 12 refinement steps behind a launch,
+// and 0.0171 ms at 5120 lanes (640 blocks, all resident at 8 an SM),
+// against byte bounds of 5.5e-5 and 3.5e-3 ms.
 //
 // Every entry point launches on the given stream, does not synchronise,
 // allocates nothing, and returns the cudaError_t of cudaGetLastError()
@@ -72,12 +70,13 @@
 
 #include <type_traits>
 
-#include "gj_imp_group.cuh"
+#include "gj_group.cuh"
 #include "gj_lane.cuh"
 
 namespace gjk {
 
-constexpr int kThreads = 32;
+constexpr int kThreads = gjg::kGroup * gjg::kTileF;  // 128, 8 lanes a block
+constexpr int kSlot = gjg::kGroup + 1;  // K1/K3's [As | rhs] columns
 
 // add this warp's promoted lanes to *promoted with one atomic
 __device__ inline void count_promoted(int* promoted, bool p) {
@@ -87,45 +86,46 @@ __device__ inline void count_promoted(int* promoted, bool p) {
     atomicAdd(promoted, __popc(m));
 }
 
-// ---- K1 / K3: one lane a group of 16 threads, one row a thread ----
-
-constexpr int kImpThreads = gjg::kGroup * gjg::kTileF;  // 128
-constexpr int kSlot = gjg::kGroup + 1;                  // [As | rhs] columns
-
-// a group's exchange slots in shared memory: the pivot row as its owner
+// A group's exchange slots in shared memory: the pivot row as its owner
 // wrote it and normalised (one column a thread), at either width (two
 // __syncwarp a step order every write after the reads of the step before,
-// so one buffer each suffices); a refinement step's normalised right-hand
-// side (one __syncwarp a step: two buffers, alternating by step); the
-// solution vector; and each row's equilibrated As (each thread reads only
-// its own), which would otherwise hold 2n registers at T.
-template <typename T>
-struct GroupSlots {
-  double rawd[kSlot];
-  double outd[kSlot];
-  float rawf[kSlot];
-  float outf[kSlot];
+// so one buffer each suffices); a K = 1 refinement step's normalised
+// right-hand side (one __syncwarp a step: two buffers, alternating by
+// step; K > 1 refinements pass theirs through the pivot-row buffers); and
+// the solution, S x K row-major.  C: [As | rhs] columns; X: S * K.
+template <typename T, int C, int X>
+struct Slots {
+  double rawd[C];
+  double outd[C];
+  float rawf[C];
+  float outf[C];
   double rhsd[2];
   float rhsf[2];
-  T xs[gjg::kGroup];
-  T as[gjg::kGroup][kSlot];  // each row's As (stride kSlot: no bank conflict)
+  T xs[X];
 };
 
-// The card's group policy for gjg::solve_lane (see gj_imp_group.cuh): the
-// thread holds its own row (kLanes = 1); the 16 threads of a group meet in
-// width-16 shuffles and the group's shared slots.  Both groups of a warp
-// run every exchange together (the ragged edge's idle group solves a copy
-// of a live lane, and a promoted re-solve runs if either group needs it),
-// so every shuffle and __syncwarp takes the full warp mask, which the
-// compiler issues without a convergence sequence.
+// K1/K3's slots also hold each row's equilibrated As (each thread reads
+// only its own), which would otherwise take 2n registers at T.
 template <typename T>
+struct ImpSlots : Slots<T, kSlot, gjg::kGroup> {
+  T as[gjg::kGroup][kSlot];  // stride kSlot: no bank conflict
+};
+
+// The card's group policy for the body of gj_group.cuh: the thread holds
+// its own row (kLanes = 1); the 16 threads of a group meet in width-16
+// shuffles and the group's shared slots SL.  Both groups of a warp run
+// every exchange together (the ragged edge's idle group solves a copy of
+// a live lane, and a promoted re-solve runs if either group needs it), so
+// every shuffle and __syncwarp takes the full warp mask, which the
+// compiler issues without a convergence sequence.
+template <typename T, typename SL>
 struct DevGroup {
   static constexpr int kLanes = 1;
   static constexpr unsigned mask = 0xffffffffu;
-  GroupSlots<T>& sl;
+  SL& sl;
   int r;
 
-  __device__ __forceinline__ DevGroup(GroupSlots<T>& s, int tid)
+  __device__ __forceinline__ DevGroup(SL& s, int tid)
       : sl(s), r(tid & (gjg::kGroup - 1)) {}
 
   __device__ __forceinline__ int rank(int) const { return r; }
@@ -156,11 +156,9 @@ struct DevGroup {
     return m;
   }
 
-  template <int KK, typename W, int S>
-  __device__ __forceinline__ const gjg::slot_t<W>* pivot_row(
-      const gjg::Work<W, S>* wk) {
-    gjg::slot_t<W>* raw;
-    gjg::slot_t<W>* out;
+  template <typename W>
+  __device__ __forceinline__ void buffers(gjg::slot_t<W>*& raw,
+                                          gjg::slot_t<W>*& out) {
     if constexpr (std::is_same<gjg::slot_t<W>, double>::value) {
       raw = sl.rawd;
       out = sl.outd;
@@ -168,13 +166,27 @@ struct DevGroup {
       raw = sl.rawf;
       out = sl.outf;
     }
+  }
+
+  // columns KK+1 .. S+K-1 normalised, one a thread (two where the row is
+  // wider than the group)
+  template <int KK, typename W, int S, int K>
+  __device__ __forceinline__ const gjg::slot_t<W>* pivot_row(
+      const gjg::Work<W, S, K>* wk) {
+    gjg::slot_t<W>* raw;
+    gjg::slot_t<W>* out;
+    buffers<W>(raw, out);
     if (wk[0].pos == KK) {
 #pragma unroll
-      for (int j = KK; j <= S; ++j) raw[j] = gjg::to_slot(wk[0].a[j]);
+      for (int j = KK; j < S + K; ++j) raw[j] = gjg::to_slot(wk[0].a[j]);
     }
     __syncwarp(mask);
     const int j = KK + 1 + r;
-    if (j <= S) out[j] = gjg::pivot_entry<W>(raw[j], raw[KK]);
+    if (j < S + K) out[j] = gjg::pivot_entry<W>(raw[j], raw[KK]);
+    if constexpr (S + K - 1 - KK > gjg::kGroup) {
+      const int j2 = j + gjg::kGroup;
+      if (j2 < S + K) out[j2] = gjg::pivot_entry<W>(raw[j2], raw[KK]);
+    }
     __syncwarp(mask);
     return out;
   }
@@ -189,34 +201,58 @@ struct DevGroup {
     return sl.as[r];
   }
 
-  // the row at position i adds its component into x_i (positions are
-  // unique, so the group's rows never write one entry twice)
-  template <int KK, typename W, int S>
-  __device__ __forceinline__ gjg::slot_t<W> pivot_rhs(
-      const gjg::Work<W, S>* wk) {
-    gjg::slot_t<W>* d;
-    if constexpr (std::is_same<gjg::slot_t<W>, double>::value)
-      d = &sl.rhsd[KK & 1];
-    else
-      d = &sl.rhsf[KK & 1];
-    if (wk[0].pos == KK)
-      *d = gjg::pivot_entry<W>(gjg::to_slot(wk[0].a[S]),
-                               gjg::to_slot(wk[0].c[KK]));
-    __syncwarp(mask);
-    return *d;
+  // the pivot row's K right-hand sides normalised: at K = 1 by the pivot
+  // thread (one __syncwarp), else one a thread through the pivot-row
+  // buffers (two)
+  template <int KK, typename W, int S, int K>
+  __device__ __forceinline__ const gjg::slot_t<W>* pivot_rhs(
+      const gjg::Work<W, S, K>* wk) {
+    if constexpr (K == 1) {
+      gjg::slot_t<W>* d;
+      if constexpr (std::is_same<gjg::slot_t<W>, double>::value)
+        d = &sl.rhsd[KK & 1];
+      else
+        d = &sl.rhsf[KK & 1];
+      if (wk[0].pos == KK)
+        *d = gjg::pivot_entry<W>(gjg::to_slot(wk[0].a[S]),
+                                 gjg::to_slot(wk[0].c[KK]));
+      __syncwarp(mask);
+      return d;
+    } else {
+      gjg::slot_t<W>* raw;
+      gjg::slot_t<W>* out;
+      buffers<W>(raw, out);
+      if (wk[0].pos == KK) {
+        raw[KK] = gjg::to_slot(wk[0].c[KK]);
+#pragma unroll
+        for (int c = 0; c < K; ++c) raw[S + c] = gjg::to_slot(wk[0].a[S + c]);
+      }
+      __syncwarp(mask);
+      if (r < K) out[S + r] = gjg::pivot_entry<W>(raw[S + r], raw[KK]);
+      __syncwarp(mask);
+      return out + S;
+    }
   }
 
-  template <typename W, int S>
-  __device__ __forceinline__ void publish_x(const gjg::Work<W, S>* wk,
-                                            const gjg::Row<T, S>* rw,
-                                            bool first, bool keep) {
+  // the row at position i adds its components into row i of x (positions
+  // are unique, so the group's rows never write one entry twice)
+  template <typename W, int S, int K, typename R>
+  __device__ __forceinline__ void publish_x(const gjg::Work<W, S, K>* wk,
+                                            const R* rw, bool first,
+                                            bool keep) {
     if (keep && rw[0].active) {
-      const T d = gjl::to<T>(wk[0].a[S]);
-      sl.xs[wk[0].pos] = first ? d : sl.xs[wk[0].pos] + d;
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        const T d = gjl::to<T>(wk[0].a[S + c]);
+        T& xe = sl.xs[wk[0].pos * K + c];
+        xe = first ? d : xe + d;
+      }
     }
     __syncwarp(mask);
   }
 };
+
+// ---- K1 / K3: impedance, one (case, frequency) lane a group ----
 
 // Resident blocks an SM asked of ptxas for size n: as many as the largest
 // register budget that n fits without a stack frame or spill (65,536
@@ -229,14 +265,14 @@ constexpr int imp_min_blocks(int n) { return n <= 6 ? 6 : (n == 7 ? 5 : 4); }
 // w (nw); M, B (nb, N, N, nw); C (nb, N, N); F, X (nb, N, nw) complex,
 // interleaved (re, im); rn (nb * nw) case-major, read only on the ladder.
 template <typename T, typename E, int N>
-__global__ void __launch_bounds__(kImpThreads, imp_min_blocks(N))
+__global__ void __launch_bounds__(kThreads, imp_min_blocks(N))
     impedance_group_kernel(const T* __restrict__ w, const T* __restrict__ M,
                            const T* __restrict__ B, const T* __restrict__ C,
                            const T* __restrict__ F, T* __restrict__ X,
                            T* __restrict__ rn, int* promoted, int nw,
                            int refine, double tol) {
   __shared__ gjg::Tile<T, N> tile;
-  __shared__ GroupSlots<T> slots[gjg::kTileF];
+  __shared__ ImpSlots<T> slots[gjg::kTileF];
   const int ntile = (nw + gjg::kTileF - 1) / gjg::kTileF;
   const int b = blockIdx.x / ntile;
   const int f0 = (blockIdx.x - b * ntile) * gjg::kTileF;
@@ -246,7 +282,7 @@ __global__ void __launch_bounds__(kImpThreads, imp_min_blocks(N))
   // a group past the last frequency solves the tile's last live lane again
   // and writes nothing
   const bool live = f0 + grp < nw;
-  DevGroup<T> g(slots[grp], threadIdx.x);
+  DevGroup<T, ImpSlots<T>> g(slots[grp], threadIdx.x);
   T r;
   const bool p = gjg::solve_lane<T, E, N>(g, tile, live ? grp : nw - 1 - f0,
                                           live, refine, tol, &r);
@@ -258,21 +294,59 @@ __global__ void __launch_bounds__(kImpThreads, imp_min_blocks(N))
   if constexpr (!std::is_same<T, E>::value) count_promoted(promoted, lead);
 }
 
-// ---- K2 / K4: one lane a thread ----
+// ---- K2 / K4: batched A x = b, one system a group ----
 
+// Resident blocks an SM asked of ptxas for an n x n system with k
+// right-hand sides at width T (`ladder`: a float or bf16 elimination and a
+// T-width re-solve in one kernel): the most that each instantiation fits
+// without a stack frame or spill, of 3, 4, 5, 6 and 8 blocks (65,536
+// registers / (128 threads x blocks): 64 at 8, 80 at 6, 96 at 5, 128 at 4,
+// 168 at 3), as -Xptxas -v reported them for sm_90a; at n = 16 the f64
+// tile (~40 KB at k = 8) holds 5 blocks an SM in shared memory anyway.
+// The need does not grow evenly with n and k (the ladder spills at
+// (10, 5) and (14, 7) where it fits (12, 6) at 8), so this is a table.
+constexpr int gj_min_blocks(int n, int k, int bytes, bool ladder) {
+  if (bytes == 4 || n <= 8) return 8;
+  if (n == 16) return 5;
+  if (n == 14) return ladder && k > 1 ? 3 : 6;
+  if (!ladder) return 8;
+  if (n == 10) return k == 1 ? 8 : 5;
+  return k == 1 ? 6 : 8;  // n = 12
+}
+
+// One block: systems lane0 .. lane0 + 7, group g on system lane0 + g.
+// A (lanes, N, N), b and x (lanes, N, K) row-major; rn (lanes), read only
+// on the ladder.
 template <typename T, typename E, int N, int K>
-__global__ void gj_kernel(const T* __restrict__ A, const T* __restrict__ b,
-                          T* __restrict__ x, T* __restrict__ rn,
-                          int* promoted, int lanes, int refine, double tol) {
-  int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= lanes) return;
-  bool p = gjl::gj_lane<T, E, N, K>(A, b, x, rn, lane, refine, tol);
-  if constexpr (!std::is_same<T, E>::value) count_promoted(promoted, p);
+__global__ void __launch_bounds__(
+    kThreads, gj_min_blocks(N, K, sizeof(T), !std::is_same<T, E>::value))
+    gj_group_kernel(const T* __restrict__ A, const T* __restrict__ b,
+                    T* __restrict__ x, T* __restrict__ rn, int* promoted,
+                    int lanes, int refine, double tol) {
+  using SL = Slots<T, N + K, N * K>;
+  __shared__ gjg::GjTile<T, N, K> tile;
+  __shared__ SL slots[gjg::kTileL];
+  const int lane0 = blockIdx.x * gjg::kTileL;
+  const int grp = threadIdx.x / gjg::kGroup;
+  gjg::stage_gj(tile, A, b, lane0, lanes, threadIdx.x, blockDim.x);
+  __syncthreads();
+  // a group past the last system solves a copy of it and writes nothing
+  const bool live = lane0 + grp < lanes;
+  DevGroup<T, SL> g(slots[grp], threadIdx.x);
+  T r;
+  const bool p = gjg::solve_system<T, E, N, K>(g, tile, grp, refine, tol, &r);
+  if (live)
+    gjg::store_x<N * K>(g.sl.xs, x + (size_t)(lane0 + grp) * N * K, g.r,
+                        gjg::kGroup);
+  const bool lead = live && g.r == 0 && p;
+  if constexpr (!std::is_same<T, E>::value)
+    if (live && g.r == 0) rn[lane0 + grp] = r;
+  if constexpr (!std::is_same<T, E>::value) count_promoted(promoted, lead);
 }
 
 #define GJK_IMP_CASE(NN)                                                  \
   case NN:                                                                \
-    impedance_group_kernel<T, E, NN><<<grid, kImpThreads, 0, s>>>(        \
+    impedance_group_kernel<T, E, NN><<<grid, kThreads, 0, s>>>(           \
         w, M, B, C, F, X, rn, promoted, nw, refine, tol);                 \
     break;
 
@@ -303,12 +377,12 @@ int impedance(const T* w, const T* M, const T* B, const T* C, const T* F,
 template <typename T, typename E, int N>
 int gj_n(const T* A, const T* b, T* x, T* rn, int* promoted, int lanes,
          int k, int refine, double tol, cudaStream_t s) {
-  int grid = (lanes + kThreads - 1) / kThreads;
+  int grid = (lanes + gjg::kTileL - 1) / gjg::kTileL;
   if (k == 1) {
-    gj_kernel<T, E, N, 1><<<grid, kThreads, 0, s>>>(A, b, x, rn, promoted,
-                                                    lanes, refine, tol);
+    gj_group_kernel<T, E, N, 1><<<grid, kThreads, 0, s>>>(
+        A, b, x, rn, promoted, lanes, refine, tol);
   } else if (k == N / 2) {
-    gj_kernel<T, E, N, (N / 2 > 1 ? N / 2 : 1)><<<grid, kThreads, 0, s>>>(
+    gj_group_kernel<T, E, N, N / 2><<<grid, kThreads, 0, s>>>(
         A, b, x, rn, promoted, lanes, refine, tol);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -33,7 +33,7 @@ CSRC = os.path.join(_PKG, "csrc")
 UNITS = ("gj_k1_f64.cu", "gj_k1_f32.cu", "gj_k2_f64.cu", "gj_k2_f32.cu",
          "gj_k3_mixed_f32.cu", "gj_k3_mixed_bf16.cu", "gj_k4_mixed_f32.cu",
          "gj_k4_mixed_bf16.cu", "qtf_k5_f64.cu")
-SOURCES = UNITS + ("gj_kernels.cuh", "gj_imp_group.cuh", "gj_lane.cuh",
+SOURCES = UNITS + ("gj_kernels.cuh", "gj_group.cuh", "gj_lane.cuh",
                    "qtf_pair.cuh")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "raft_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -25,9 +25,9 @@ on the card and what their design does about it is written in
 
 The plain versions repeat the TPU kernels' algorithm in their op order,
 lane-last like ``_gj_batchlast`` / ``_gj_elim`` (including the
-arithmetic row swap, which is why the kernels' exchanges — a real swap in
-K2/K4, two rows trading positions in K1/K3 — agree with them to rounding,
-not bitwise).  They are the CPU path, the tests' reference, and the
+arithmetic row swap, which is why the kernels' exchange — two rows
+trading logical positions — agrees with them to rounding, not
+bitwise).  They are the CPU path, the tests' reference, and the
 yardstick the card's kernels are held against.
 """
 from __future__ import annotations

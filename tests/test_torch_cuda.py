@@ -195,3 +195,47 @@ def test_impedance_kernels_every_n_on_the_card(card, n):
     assert {k: v for k, v in G.LAUNCHES.items() if v} == {
         "impedance_gj": 1, "impedance_gj_mixed": 1,
         "impedance_gj_mixed_bf16": 1}
+
+
+#: every (n, k) the K2/K4 kernels instantiate: even n <= 16, k = 1 and n/2
+GJ_NK = sorted({(n, k) for n in range(2, 17, 2) for k in (1, n // 2)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", GJ_NK)
+def test_gj_kernels_every_n_on_the_card(card, n, k):
+    """K2 (f64, f32) and K4 (f32 and bf16 elimination) at every
+    instantiated (n, k) against their plain versions: 21 systems (a ragged
+    last block of 8), every fourth conditioned to 1e9, so that in the
+    warps of the ladder one group promotes and its neighbour does not."""
+    rng = np.random.default_rng(80 + n + k)
+    lanes = 21
+    A = rng.standard_normal((lanes, n, n)) + 5.0 * np.eye(n)
+    ill = np.arange(0, lanes, 4)
+    for i in ill:
+        U, _, Vt = np.linalg.svd(A[i])
+        A[i] = (U * np.geomspace(1.0, 1e-9, n)) @ Vt
+    well = np.setdiff1d(np.arange(lanes), ill)
+    A = torch.tensor(A, device=card)
+    b = torch.tensor(rng.standard_normal((lanes, n, k)), device=card)
+    G.reset_launches()
+    ill_tol = 1e9 * 2.2e-16 * 10
+    x = G.gj_solve(A, b)
+    xp = G.gj_solve_plain(A, b)
+    assert _rel(x[well], xp[well]) < 1e-10 and _rel(x[ill], xp[ill]) < ill_tol
+    # f32: the well-conditioned systems, at f32 rounding
+    x32 = G.gj_solve(A.float(), b.float())
+    xp32 = G.gj_solve_plain(A.float(), b.float())
+    assert x32.dtype == torch.float32 and _rel(x32[well], xp32[well]) < 1e-4
+    for fd, tol in ((torch.float32, 1e-10), (torch.bfloat16, 1e-7)):
+        kw = dict(refine=2, precision="mixed", factor_dtype=fd,
+                  promote_tol=1e-9, return_stats=True)
+        x, st = G.gj_solve(A, b, **kw)
+        xp, stp = G.gj_solve_plain(A, b, **kw)
+        assert int(st["promoted"]) == int(stp["promoted"]) >= len(ill)
+        assert torch.equal(~(st["rn"] <= 1e-9), ~(stp["rn"] <= 1e-9))
+        assert _rel(x[well], xp[well]) < tol
+        assert _rel(x[ill], xp[ill]) < ill_tol
+    assert {kk: v for kk, v in G.LAUNCHES.items() if v} == {
+        "gj_solve": 1, "gj_solve_f32": 1, "gj_solve_mixed": 1,
+        "gj_solve_mixed_bf16": 1}

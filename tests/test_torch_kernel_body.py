@@ -1,18 +1,18 @@
 """The CUDA kernels' per-lane arithmetic, compiled for the host.
 
-``raft_tpu_torch/csrc/gj_lane.cuh`` holds everything the batched
-Gauss-Jordan kernels (K2/K4) compute per lane, ``csrc/gj_imp_group.cuh``
-everything the impedance kernels (K1/K3) compute per row of a lane, and
+``raft_tpu_torch/csrc/gj_group.cuh`` holds everything the Gauss-Jordan
+kernels compute per row of a lane — the impedance solve (K1/K3) and the
+batched solve A x = b (K2/K4), one body for both — and
 ``csrc/qtf_pair.cuh`` everything the QTF pair-grid kernel (K5) computes
 per (pair, node) and per pair, as ``__host__ __device__`` functions.
 Here they are compiled with g++ (``__host__``/``__device__`` defined
 empty) into small C libraries in ``tmp_path``, loaded with ctypes, and
 held against the port's plain PyTorch versions — the only check of the
 kernels' arithmetic (row exchanges and all) that can run without a card.
-K1/K3's rows meet through a group policy; here ``gjg::HostGroup`` steps
+A lane's rows meet through a group policy; here ``gjg::HostGroup`` steps
 a lane's 16 rows in lockstep where the card's shuffles and shared slots
 exchange them, and divides with ``a / b`` where the card takes the
-division's fast path (``gjg::quot``).  The kernels themselves are checked
+division's fast path (``gjl::quot``).  The kernels themselves are checked
 against the same plain versions on the card by ``chip_smoke.py`` and
 ``tests/test_torch_cuda.py``.
 """
@@ -37,8 +37,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 TOL = 1e-10
 
 _HOST_SRC = r"""
-#include "gj_imp_group.cuh"
-#include "gj_lane.cuh"
+#include "gj_group.cuh"
 // K1/K3: the kernel's tiles in turn, each staged, solved group by group
 // (gjg::HostGroup: the 16 rows of a lane in lockstep) and written back.
 // width: 0 = float64 (K1), 1 = mixed with float32 elimination, 2 = mixed
@@ -112,34 +111,59 @@ extern "C" int host_impedance_pivots(const double* w, const double* M,
   imp_group<double, double, 3>(g, w, M, B, C, F, X, nullptr, 1, nw, 0, 0.0);
   return g.n;
 }
-template <int N, int K>
-static int gj_nk(const double* A, const double* b, double* x, double* rn,
-    int lanes, int refine, int width, double tol) {
+// K2/K4: the kernel's tiles of 8 systems in turn, each staged and solved
+// group by group (gjg::HostGroup), the solutions stored from the group's
+// slot.  width as for host_impedance; returns the promoted count.
+template <typename T, typename E, int N, int K, typename P>
+static int gj_group(P& g, const T* A, const T* b, T* x, T* rn, int lanes,
+    int refine, double tol) {
   int promoted = 0;
-  for (int lane = 0; lane < lanes; ++lane) {
-    if (width == 0)
-      gjl::gj_lane<double, double, N, K>(A, b, x, nullptr, lane, refine, tol);
-    else if (width == 1)
-      promoted += gjl::gj_lane<double, float, N, K>(A, b, x, rn, lane, refine,
-                                                    tol);
-    else
-      promoted += gjl::gj_lane<double, gjl::bf16r, N, K>(A, b, x, rn, lane,
-                                                         refine, tol);
+  static gjg::GjTile<T, N, K> tile;
+  for (int lane0 = 0; lane0 < lanes; lane0 += gjg::kTileL) {
+    gjg::stage_gj(tile, A, b, lane0, lanes, 0, 1);
+    for (int l = 0; l < gjg::kTileL && lane0 + l < lanes; ++l) {
+      T r;
+      promoted += gjg::solve_system<T, E, N, K>(g, tile, l, refine, tol, &r);
+      gjg::store_x<N * K>(g.template x<T>(), x + (size_t)(lane0 + l) * N * K,
+                          0, 1);
+      if (rn) rn[lane0 + l] = r;
+    }
   }
   return promoted;
 }
+template <int N, int K>
+static int gj_nk(const double* A, const double* b, double* x, double* rn,
+    int lanes, int refine, int width, double tol) {
+  gjg::HostGroup g;
+  if (width == 0)
+    return gj_group<double, double, N, K>(g, A, b, x, nullptr, lanes, refine,
+                                          tol);
+  if (width == 1)
+    return gj_group<double, float, N, K>(g, A, b, x, rn, lanes, refine, tol);
+  return gj_group<double, gjl::bf16r, N, K>(g, A, b, x, rn, lanes, refine,
+                                            tol);
+}
+#define GJ_NK(NN, KK) \
+  if (n == NN && k == KK) return gj_nk<NN, KK>(A, b, x, rn, lanes, refine, width, tol);
+// the (n, k) the tests take: even n = 2..16 with k = 1 and n/2
 extern "C" int host_gj(const double* A, const double* b, double* x,
     double* rn, int lanes, int n, int k, int refine, int width, double tol) {
-  if (n == 12 && k == 6) return gj_nk<12, 6>(A, b, x, rn, lanes, refine, width, tol);
-  if (n == 12 && k == 1) return gj_nk<12, 1>(A, b, x, rn, lanes, refine, width, tol);
-  if (n == 4 && k == 2) return gj_nk<4, 2>(A, b, x, rn, lanes, refine, width, tol);
-  if (n == 8 && k == 1) return gj_nk<8, 1>(A, b, x, rn, lanes, refine, width, tol);
+  GJ_NK(2, 1) GJ_NK(4, 1) GJ_NK(4, 2) GJ_NK(6, 1) GJ_NK(6, 3) GJ_NK(8, 1)
+  GJ_NK(8, 4) GJ_NK(10, 1) GJ_NK(10, 5) GJ_NK(12, 1) GJ_NK(12, 6)
+  GJ_NK(14, 1) GJ_NK(14, 7) GJ_NK(16, 1) GJ_NK(16, 8)
   return -1;
 }
 extern "C" void host_gj_f32(const float* A, const float* b, float* x,
     int lanes, int refine) {
-  for (int lane = 0; lane < lanes; ++lane)
-    gjl::gj_lane<float, float, 12, 6>(A, b, x, nullptr, lane, refine, 0.0);
+  gjg::HostGroup g;
+  gj_group<float, float, 12, 6>(g, A, b, x, nullptr, lanes, refine, 0.0);
+}
+extern "C" int host_gj_pivots(const double* A, const double* b, double* x,
+    int lanes, int* log) {
+  TraceGroup g;
+  g.log = log;
+  gj_group<double, double, 12, 6>(g, A, b, x, nullptr, lanes, 0, 0.0);
+  return g.n;
 }
 extern "C" float host_round_bf16(float v) { return gjl::round_bf16(v); }
 """
@@ -154,7 +178,9 @@ def lib(tmp_path_factory):
     src = d / "host_gj.cpp"
     src.write_text(_HOST_SRC)
     so = d / "libhost_gj.so"
-    subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC",
+    # -O1: the body's unrolled instantiations build in half -O2's time,
+    # with the same IEEE arithmetic
+    subprocess.run([gxx, "-O1", "-std=c++17", "-shared", "-fPIC",
                     "-D__host__=", "-D__device__=", "-I", CSRC,
                     "-o", str(so), str(src)], check=True)
     L = ctypes.CDLL(str(so))
@@ -168,6 +194,8 @@ def lib(tmp_path_factory):
     L.host_gj.argtypes = [P, P, P, P, I, I, I, I, I, D]
     L.host_gj.restype = I
     L.host_gj_f32.argtypes = [P, P, P, I, I]
+    L.host_gj_pivots.argtypes = [P, P, P, I, P]
+    L.host_gj_pivots.restype = I
     L.host_round_bf16.argtypes = [Fl]
     L.host_round_bf16.restype = Fl
     return L
@@ -477,6 +505,143 @@ def test_gj_lane_f32_matches_plain(lib):
     x_plain = gj_solve_plain(torch.tensor(A), torch.tensor(b)).numpy()
     assert x_plain.dtype == np.float32
     assert _rel(x, x_plain) < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# K2/K4's group body at every instantiated size
+# ---------------------------------------------------------------------------
+
+#: every (n, k) the K2/K4 kernels instantiate: even n <= 16, k = 1 and n/2
+GJ_NK = sorted({(n, k) for n in range(2, 17, 2) for k in (1, n // 2)})
+
+
+def _gj_plain(A, b, width=0, refine=None):
+    """The plain version's x (and its stats under the ladder)."""
+    if width == 0:
+        return gj_solve_plain(torch.tensor(A), torch.tensor(b),
+                              refine=refine or 1).numpy()
+    x, st = gj_solve_plain(torch.tensor(A), torch.tensor(b),
+                           refine=refine or 2, precision="mixed",
+                           factor_dtype=_WIDTHS[width], promote_tol=1e-9,
+                           return_stats=True)
+    return x.numpy(), st
+
+
+@pytest.mark.parametrize("n,k", GJ_NK)
+def test_gj_group_every_n_matches_plain(lib, n, k):
+    """K2's group body at every instantiated (n, k) against the plain
+    version: 21 systems (a ragged last tile of 8), random and pivoting
+    ones."""
+    rng = np.random.default_rng(50 + n + k)
+    lanes = 21
+    A = np.concatenate([rng.standard_normal((11, n, n)) + 4.0 * np.eye(n),
+                        _pivot_stack(rng, lanes - 11, n)])
+    b = rng.standard_normal((lanes, n, k)) * 1e3
+    x = _gj_body(lib, A, b)
+    assert _rel(x, _gj_plain(A, b)) < TOL
+
+
+@pytest.mark.parametrize("n,k", GJ_NK)
+@pytest.mark.parametrize("width", [1, 2])
+def test_gj_group_every_n_mixed_matches_plain(lib, width, n, k):
+    """K4's group body at every instantiated (n, k): 21 systems, every
+    fourth conditioned to 1e9 so that it promotes among lanes that do not;
+    the promoted count and which side of the tolerance each lane's
+    residual falls equal the plain ladder's."""
+    rng = np.random.default_rng(60 + n + k)
+    lanes = 21
+    A = rng.standard_normal((lanes, n, n)) + 5.0 * np.eye(n)
+    ill = np.arange(0, lanes, 4)
+    A[ill] = _ill(rng, A[ill].copy(), len(ill))
+    b = rng.standard_normal((lanes, n, k)) * 1e3
+    x, rn, promoted = _gj_body(lib, A, b, refine=2, width=width)
+    xp, st = _gj_plain(A, b, width)
+    assert promoted == int(st["promoted"]) >= len(ill)
+    np.testing.assert_array_equal(~(rn <= 1e-9), ~(st["rn"].numpy() <= 1e-9))
+    well = np.setdiff1d(np.arange(lanes), ill)
+    assert _rel(x[ill], xp[ill]) < 1e9 * 2.2e-16 * 10
+    assert _rel(x[well], xp[well]) < (1e-10 if width == 1 else 1e-7)
+
+
+def _gj_tie(rng, lanes, n):
+    """Systems whose every row has |A[i, 0]| = 4 as its largest entry:
+    after equilibration the first pivot column ties exactly at magnitude 1
+    over all n rows (signs alternate)."""
+    A = rng.uniform(-1.0, 1.0, (lanes, n, n))
+    A[:, :, 0] = 4.0 * (-1.0) ** np.arange(n)
+    return A
+
+
+@pytest.mark.parametrize("n,k", [(2, 1), (6, 3), (12, 6), (16, 8)])
+@pytest.mark.parametrize("width", [0, 1, 2])
+def test_gj_tie_lanes_match_plain(lib, width, n, k):
+    """Systems whose first pivot column ties exactly on every row: the
+    first maximal row wins on both sides, x and the promoted count
+    agree."""
+    rng = np.random.default_rng(70 + n)
+    A = _gj_tie(rng, 19, n)
+    b = rng.standard_normal((19, n, k))
+    if width == 0:
+        assert _rel(_gj_body(lib, A, b), _gj_plain(A, b)) < TOL
+        return
+    x, _, promoted = _gj_body(lib, A, b, refine=2, width=width)
+    xp, st = _gj_plain(A, b, width)
+    assert promoted == int(st["promoted"])
+    # the promoted lanes are solved at f64 on both sides
+    assert _rel(x, xp) < (1e-10 if width == 1 else 1e-7)
+
+
+def test_gj_pivots_first_maximal_row(lib):
+    """The pivot position each elimination step of K2's group body took
+    (n = 12, k = 6), against a scan that takes the first maximal row
+    (numpy's argmax) of the same equilibrated system: on the tie lanes
+    the first of the tied rows."""
+    rng = np.random.default_rng(73)
+    n, k, lanes = 12, 6, 3
+    A = _gj_tie(rng, lanes, n)
+    b = rng.standard_normal((lanes, n, k))
+    x = np.zeros((lanes, n, k))
+    log = np.zeros(n * lanes, dtype=np.int32)
+    steps = lib.host_gj_pivots(_ptr(A), _ptr(b), _ptr(x), lanes, _ptr(log))
+    assert steps == n * lanes
+    want = []
+    for lane in range(lanes):
+        a = A[lane] / np.maximum(np.max(np.abs(A[lane]), axis=1,
+                                        keepdims=True), 1e-300)
+        for kk in range(n):
+            p = kk + int(np.argmax(np.abs(a[kk:, kk])))
+            want.append(p)
+            a[[kk, p]] = a[[p, kk]]
+            a[kk] = a[kk] / a[kk, kk]
+            for i in range(n):
+                if i != kk:
+                    a[i] = a[i] - a[i, kk] * a[kk]
+    assert want[0] == 0 and want[n] == 0    # ties: the first row
+    assert log.tolist() == want
+
+
+@pytest.mark.parametrize("width", [0, 1, 2])
+def test_gj_nan_lane_matches_plain(lib, width):
+    """A NaN in A at one system: its x is NaN in full on both sides (its
+    row's scale is NaN and the NaN row wins the first pivot), every other
+    system agrees, and under the ladder the NaN system promotes."""
+    n, k, lanes = 12, 6, 13
+    rng = np.random.default_rng(79)
+    A = rng.standard_normal((lanes, n, n)) + 5.0 * np.eye(n)
+    A[9, 4, 7] = np.nan
+    b = rng.standard_normal((lanes, n, k))
+    out = _gj_body(lib, A, b, refine=2 if width else 1, width=width)
+    x = out if width == 0 else out[0]
+    xp = _gj_plain(A, b, width)
+    if width:
+        xp, st = xp
+        assert out[2] == int(st["promoted"]) >= 1
+        assert np.isnan(out[1][9])
+    bad = np.isnan(xp)
+    assert bad[9].all() and bad.sum() == n * k
+    np.testing.assert_array_equal(np.isnan(x), bad)
+    assert _rel(np.where(bad, 0, x), np.where(bad, 0, xp)) < (
+        1e-7 if width == 2 else TOL)
 
 
 
