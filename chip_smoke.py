@@ -9,10 +9,11 @@ Phases (any failure exits non-zero; no phase's failure is turned into a
  2. build   — compiles the hand-written kernels (nvcc, sm_90a; one nvcc
               per translation unit, all started together) from the sources
               in raft_tpu_torch/csrc and prints the build time, the
-              -Xptxas -v register/spill lines (every K1-K4 instantiation:
-              a stack frame or spill fails the run) and the static SASS
-              counts of the main paths' K1/K3 (n = 6) and K2 f64 / K4 f32
-              (n = 12, k = 6) kernels (cuobjdump);
+              -Xptxas -v register/spill lines (every K1-K4 instantiation
+              and the three K5 kernels: a stack frame or spill fails the
+              run, and so do more than 128 registers in a K5 kernel) and
+              the static SASS counts of the main paths' K1/K3 (n = 6) and
+              K2 f64 / K4 f32 (n = 12, k = 6) kernels (cuobjdump);
  3. kernels — holds each kernel against its plain PyTorch version on the
               card: K1/K2 at float64 and float32, K3/K4 (the mixed ladder)
               at the f32 and bf16 elimination widths with promoted counts
@@ -22,11 +23,17 @@ Phases (any failure exits non-zero; no phase's failure is turned into a
               81,920 lanes (K2/K4: 80 and 5120, n = 12, k in {1, 6}), and
               K1 at the f64 sweep's own operand shapes (M and C shared by
               1024 cases); times kernel, plain version and the
-              torch.linalg.solve yardstick at the main paths' shapes; K5 (the QTF pair grid) on the spar of
-              tests/test_qtf_kernel.py at nw2 = 5 (one and no waterline
-              member, with and without motion, heading 0.35) and on the
-              OC4semi example's fields at nw2 = 30 and 80 (N = 177, nm =
-              7), relative error <= 1e-12 of max|Q|, timed at both;
+              torch.linalg.solve yardstick at the main paths' shapes;
+              gj_solve at the shapes the K2/K4 kernels do not instantiate
+              (odd n = 1..15 in f64, f32 and mixed f32; the ladder with
+              k > n/2), x and promoted counts against the plain version;
+              K5 (the QTF pair grid: a record pass, a tiled pair pass, a
+              finishing pass) on the spar of tests/test_qtf_kernel.py at
+              nw2 = 5 (one and no waterline member, with and without
+              motion, heading 0.35) and on the OC4semi example's fields
+              at nw2 = 30 and 80 (N = 177, nm = 7), relative error <=
+              1e-12 of max|Q| and a second call bitwise equal, timed at
+              each (device time: the three kernels summed per call);
  4. main    — run_raft on OC3spar (its own 80-bin grid, 3 cases) and
               VolturnUS-S (80 bins, 1 case);
  5. sweep   — sweep_cases on OC3spar at its 80-bin grid, 1024 seeded cases
@@ -142,11 +149,14 @@ def time_ms(fn, reps=30, warmup=3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, kernel_substr, reps=20):
-    """Device time per launch of the CUDA kernel whose name contains
-    ``kernel_substr`` (or any of a tuple of substrings: the demangled and
-    the mangled spelling), from torch.profiler's CUDA activity (None when
-    the profiler sees no device time)."""
+def device_ms(fn, kernel_substr, reps=20, by_kernel=None):
+    """Device time per call of ``fn``: the summed device time of every
+    CUDA kernel whose name contains ``kernel_substr`` (or any of a tuple
+    of substrings: the demangled and the mangled spelling) over ``reps``
+    calls, from torch.profiler's CUDA activity, divided by ``reps`` (so a
+    call that launches several kernels counts them all); None when the
+    profiler sees no device time.  ``by_kernel``, a dict, gets each
+    matching kernel's ms per call by name."""
     subs = (kernel_substr,) if isinstance(kernel_substr, str) \
         else tuple(kernel_substr)
     from torch.profiler import ProfilerActivity, profile
@@ -160,15 +170,19 @@ def device_ms(fn, kernel_substr, reps=20):
             torch.cuda.synchronize()
     except (RuntimeError, AttributeError):
         return None
-    tot, n = 0.0, 0
+    tot = 0.0
     for ev in prof.key_averages():
         if any(sub in ev.key for sub in subs):
             t = getattr(ev, "device_time_total", None)
             if t is None:
                 t = getattr(ev, "cuda_time_total", 0.0)
             tot += t
-            n += ev.count
-    return tot / n / 1e3 if n and tot > 0 else None
+            if by_kernel is not None:
+                words = ev.key.replace("(", " ").split()
+                name = next((w.split("::")[-1] for w in words
+                             if any(sub in w for sub in subs)), ev.key[:60])
+                by_kernel[name] = by_kernel.get(name, 0.0) + t / reps / 1e3
+    return tot / reps / 1e3 if tot > 0 else None
 
 
 def launch_floor_ms() -> float:
@@ -488,10 +502,14 @@ def check_impedance_sweep_shapes(G, g, dev):
 #: the mangled symbols' tags of the four widths
 WIDTH_TAGS = (("IddLi", "f64"), ("IffLi", "f32"), ("IdfLi", "mixed_f32"),
               ("IdN3gjl5bf16rELi", "mixed_bf16"))
-#: the Gauss-Jordan kernel families: (name, symbol stem, instantiations:
-#: K1/K3 n = 1..8, K2/K4 even n <= 16 with k = 1 and n/2, at 4 widths)
+#: the kernel families the ptxas gate holds to no stack frame and no
+#: spill: (name, symbol stem, kernels: K1/K3 n = 1..8, K2/K4 even n <= 16
+#: with k = 1 and n/2, at 4 widths; K5's record, pair and finish passes)
 GROUP_FAMILIES = (("K1/K3", "impedance_group_kernel", 32),
-                  ("K2/K4", "gj_group_kernel", 60))
+                  ("K2/K4", "gj_group_kernel", 60),
+                  ("K5", "qtf_k5_", 3))
+#: K5's register ceiling: 2 blocks of 256 threads (16 warps) an SM
+K5_MAX_REGISTERS = 128
 
 
 def _family(sym):
@@ -513,7 +531,7 @@ def _nk(sym):
 
 
 def group_ptxas(report) -> list:
-    """Registers, stack frame and spills of every K1-K4 instantiation from
+    """Registers, stack frame and spills of every K1-K5 kernel from
     the -Xptxas -v report: [{family, symbol, width, n, k, registers,
     stack, spill_stores, spill_loads}]."""
     import re
@@ -540,10 +558,12 @@ def group_ptxas(report) -> list:
 
 def group_sass(lib_path) -> dict:
     """Static SASS facts of the main paths' K1/K3 instantiations (n = 6,
-    every width) and of K2 f64 and K4 f32 at n = 12, k = 6, from
-    ``cuobjdump -sass`` of the built library: total instructions, FP64
-    and FP32 arithmetic, shuffles, shared-memory loads and stores, calls,
-    local loads and stores.  {} where the toolkit has no cuobjdump."""
+    every width), of K2 f64 and K4 f32 at n = 12, k = 6 and of the three
+    K5 kernels, from ``cuobjdump -sass`` of the built library: total
+    instructions, FP64 and FP32 arithmetic, shuffles, shared-memory loads
+    and stores, calls, local loads and stores.  The K5 kernels' SASS is
+    also written to OUT/qtf_k5.sass.  {} where the toolkit has no
+    cuobjdump."""
     import re
     import shutil
 
@@ -560,10 +580,14 @@ def group_sass(lib_path) -> dict:
                "lds": ("LDS",), "sts": ("STS",), "call": ("CALL",),
                "local": ("LDL", "STL")}
     facts = {}
+    k5 = []
     for block in re.split(r"\n\s*Function : ", out):
         name = block.split("\n", 1)[0].strip()
         family, width, (n, k) = _family(name), _width(name), _nk(name)
-        if not ((family == "K1/K3" and n == 6) or (
+        if family == "K5":
+            k5.append(block)
+            width = re.search(r"qtf_k5_(records|pairs|finish)", name).group(0)
+        elif not ((family == "K1/K3" and n == 6) or (
                 family == "K2/K4" and (n, k) == (12, 6)
                 and width in ("f64", "mixed_f32"))):
             continue
@@ -571,6 +595,10 @@ def group_sass(lib_path) -> dict:
             r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", block)]
         facts.setdefault(family, {})[width] = dict(total=len(ops), **{
             kk: sum(op in v for op in ops) for kk, v in classes.items()})
+    if k5:
+        os.makedirs(OUT, exist_ok=True)
+        with open(os.path.join(OUT, "qtf_k5.sass"), "w") as f:
+            f.write("\n\n".join(k5))
     return facts
 
 
@@ -648,6 +676,88 @@ def check_gj(G, g, dev, width):
                 _log_row(key, row)
 
 
+#: the gj_solve shapes the K2/K4 kernels do not instantiate, which the
+#: wrapper runs on the card all the same (ROADMAP C6): odd n, padded
+#: exactly to n + 1, at k = 1 and 3; and the ladder with k > n/2, in
+#: column chunks with one promotion decision per lane
+C6_ODD_N = tuple(range(1, 16, 2))
+C6_LADDER_NK = ((2, 3), (6, 7), (12, 12), (16, 13))
+C6_WIDTH_FD = {"f64": None, "f32": None, "mixed_f32": torch.float32,
+               "mixed_bf16": torch.bfloat16}
+
+
+def _c6_row(G, A, b, ill, width, n, k, case):
+    fd = C6_WIDTH_FD[width]
+    if width == "f32":
+        A, b = A.float(), b.float()
+    kw = dict(refine=2, precision="mixed", factor_dtype=fd,
+              promote_tol=1e-9, return_stats=True) if fd else {}
+    from raft_tpu_torch import errors
+
+    try:
+        out = G.gj_solve(A, b, **kw)
+    except errors.KernelFailure as e:
+        fail(f"gj_solve C6 {width} n={n} k={k} {case}: {e}")
+        return None
+    outp = G.gj_solve_plain(A, b, **kw)
+    torch.cuda.synchronize()
+    (x, st), (xp, stp) = (out, outp) if fd else ((out, None), (outp, None))
+    rel, rel_ill = _split_rel(x, xp, ill)
+    row = dict(width=width, n=n, k=k, case=case, lanes=int(A.shape[0]),
+               rel_vs_plain=rel, rel_ill=rel_ill,
+               max_abs_err=float(torch.max(torch.abs(x - xp))))
+    tol = X_TOL_F32 if width == "f32" else X_TOL
+    ok = x.shape == xp.shape and rel <= tol and (
+        rel_ill is None or rel_ill <= ILL_TOL)
+    if fd:
+        row["promoted"] = int(st["promoted"])
+        row["promoted_plain"] = int(stp["promoted"])
+        ok = ok and row["promoted"] == row["promoted_plain"] \
+            and row["promoted"] >= len(ill)
+    if not ok:
+        fail(f"gj_solve C6 {width} n={n} k={k} {case}: rel={rel:.3e} "
+             f"ill={rel_ill} {row.get('promoted')}/"
+             f"{row.get('promoted_plain')}")
+    return row
+
+
+def check_gj_every_shape(G, g, dev):
+    """ROADMAP C6: gj_solve on the card at the shapes the kernels do not
+    instantiate, against the plain version (x, and the promoted count
+    under the ladder): odd n = 1..15 in f64, f32 and mixed f32, and the
+    ladder (f32 and bf16 elimination) with k > n/2; 80 systems, every
+    16th conditioned to 1e9 under the ladder (n > 1).  The launches of
+    this phase are comparisons: the path counters are reset before each
+    path."""
+    rows = ROWS.setdefault("gj_solve_c6", [])
+    for n in C6_ODD_N:
+        for k in (1, 3):
+            for width in ("f64", "f32", "mixed_f32"):
+                # a 1 x 1 system has cond 1: nothing to condition
+                kind = "svd_ill" if width.startswith("mixed") and n > 1 \
+                    else "random"
+                A, b, _, ill = gj_inputs(g, 80, n, k, kind, dev)
+                row = _c6_row(G, A, b, ill, width, n, k, f"odd_n_{kind}")
+                if row:
+                    rows.append(row)
+    for n, k in C6_LADDER_NK:
+        for width in ("mixed_f32", "mixed_bf16"):
+            A, b, _, ill = gj_inputs(g, 80, n, k, "svd_ill", dev)
+            # one lane's last column 1e6x the rest: a chunk's own residual
+            # would judge that lane otherwise than the lane's
+            b[3, :, -1] *= 1e6
+            row = _c6_row(G, A, b, ill, width, n, k, "ladder_k_gt_n_half")
+            if row:
+                rows.append(row)
+    worst = max((r["rel_vs_plain"] for r in rows), default=0.0)
+    log(f"  gj_solve C6: {len(rows)} shapes (odd n {C6_ODD_N[0]}-"
+        f"{C6_ODD_N[-1]}; ladder (n, k) {list(C6_LADDER_NK)}) on the card; "
+        f"worst rel {worst:.2e}; promoted equal on every ladder row "
+        + str(all(r.get("promoted") == r.get("promoted_plain")
+                  for r in rows)))
+    return rows
+
+
 def check_kernels(dev):
     from raft_tpu_torch.ops.kernels import gj_solve as G
 
@@ -657,6 +767,7 @@ def check_kernels(dev):
         if width == "f64":
             check_impedance_sweep_shapes(G, g, dev)
         check_gj(G, g, dev, width)
+    check_gj_every_shape(G, g, dev)
     return ROWS
 
 
@@ -778,12 +889,19 @@ def check_qtf(dev):
                    rel_vs_plain=rel,
                    max_abs_err=float(torch.max(torch.abs(Q - Qp))),
                    max_abs_Q=float(torch.max(torch.abs(Qp))))
-        if not (rel <= QTF_TOL and bool(torch.all(torch.isfinite(Q)))):
-            fail(f"qtf_pair {label}: rel={rel:.3e} vs plain")
+        row["bitwise_repeat"] = bool(torch.equal(K.qtf_pair_grid(*args), Q))
+        if not (rel <= QTF_TOL and bool(torch.all(torch.isfinite(Q)))
+                and row["bitwise_repeat"]):
+            fail(f"qtf_pair {label}: rel={rel:.3e} vs plain, second call "
+                 f"bitwise equal {row['bitwise_repeat']}")
         ops, _ = K.kernel_operands(fields)
+        row["node_split"] = K.node_split(nw2, row["submerged"])
         row["ms"] = time_ms(lambda: K.qtf_pair_grid(*args))
+        # the three K5 kernels of a call, summed (and each apart)
+        row["device_by_kernel"] = {}
         row["device_ms"] = device_ms(lambda: K.qtf_pair_grid(*args),
-                                     "qtf_pair_kernel")
+                                     "qtf_k5_",
+                                     by_kernel=row["device_by_kernel"])
         row["plain_ms"] = time_ms(lambda: K.qtf_pair_grid_plain(*args),
                                   reps=3, warmup=1)
         row["library_ms"] = None
@@ -793,11 +911,15 @@ def check_qtf(dev):
                                                  row["ops"])
         rows.append(row)
         log(f"  qtf_pair {label:11s} nw2={nw2:3d} N={row['N']:3d} nm={nm}"
-            f" submerged={row['submerged']} rel={rel:.2e} | kernel "
+            f" submerged={row['submerged']} rel={rel:.2e} bitwise repeat "
+            f"{row['bitwise_repeat']} nodes a block {row['node_split']} | "
+            "kernels "
             f"{row['ms']:.4f} ms (device {row['device_ms']})  plain "
             f"{row['plain_ms']:.3f} ms  bound {row['bound_ms']:.2e} ms "
             f"({row['bound_by']}: {row['ops']:.3e} FP64 ops, "
-            f"{row['bytes']} bytes)")
+            f"{row['bytes']} bytes); device by kernel "
+            + ", ".join(f"{k} {v:.4f}"
+                        for k, v in row["device_by_kernel"].items()))
     return rows
 
 
@@ -1202,28 +1324,33 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {_build.BUILD_INFO})")
     report = _build.ptxas_report()
     for sym, lines in report.items():
-        if "Li12ELi6E" in sym or "qtf_pair_kernel" in sym:
+        if "Li12ELi6E" in sym or "qtf_k5_" in sym:
             log(f"  ptxas {sym}: {' | '.join(lines)}")
     ptx = group_ptxas(report)
     for d in ptx:
-        log(f"  ptxas {d['family']} {d['width']:10s} n={d['n']:2d} "
-            f"k={d['k']}: {d['registers']} registers, {d['stack']} bytes "
-            f"stack frame, {d['spill_stores']}/{d['spill_loads']} bytes "
-            "spill stores/loads")
+        what = d["symbol"] if d["n"] is None else \
+            f"{d['width']:10s} n={d['n']:2d} k={d['k']}"
+        log(f"  ptxas {d['family']} {what}: {d['registers']} registers, "
+            f"{d['stack']} bytes stack frame, {d['spill_stores']}/"
+            f"{d['spill_loads']} bytes spill stores/loads")
     for family, _, want in GROUP_FAMILIES:
         got = [d for d in ptx if d["family"] == family]
         no_local = len(got) == want and all(
             d["stack"] == 0 and d["spill_stores"] == 0
             and d["spill_loads"] == 0 for d in got)
-        log(f"  ptxas {family}: {len(got)} instantiations, no stack frame "
+        log(f"  ptxas {family}: {len(got)} kernels, no stack frame "
             f"and no spill in any: {no_local}")
         if not no_local:
             fail(f"the {family} kernels use local memory (stack frame or "
-                 f"spill) or not all {want} instantiations were reported")
+                 f"spill) or not all {want} kernels were reported")
+        if family == "K5" and not all(
+                (d["registers"] or 0) <= K5_MAX_REGISTERS for d in got):
+            fail(f"a K5 kernel uses more than {K5_MAX_REGISTERS} registers: "
+                 + ", ".join(f"{d['symbol']} {d['registers']}" for d in got))
     sass = group_sass(_build.BUILD_INFO["path"])
     for family, by_width in sass.items():
         for width, d in by_width.items():
-            shape = "n=6" if family == "K1/K3" else "n=12 k=6"
+            shape = {"K1/K3": "n=6", "K2/K4": "n=12 k=6"}.get(family, "")
             log(f"  SASS {family} {width:10s} {shape} (static): " + ", ".join(
                 f"{k} {v}" for k, v in d.items()))
     os.makedirs(OUT, exist_ok=True)
@@ -1256,7 +1383,8 @@ def main() -> int:
     def summary(label, key, replaces, source, lanes):
         # ms is the wall time of one wrapper call on the stream (CUDA
         # events around back-to-back calls, host launch cost included);
-        # device_ms is the kernel alone, from the profiler
+        # device_ms is the call's kernels alone (K5: its three summed),
+        # from the profiler
         timed = [r for r in rows[key] if "ms" in r]
         main = next(r for r in timed if r["lanes"] == lanes)
         by_path = {p: c[key] for p, c in PATH_LAUNCHES.items() if key in c}

@@ -176,8 +176,12 @@ def load():
             fn = getattr(lib, f"raft_gj_solve_mixed_{width}")
             fn.argtypes = [P, P, P, P, P, I, I, I, I, D, P]
             fn.restype = I
-        lib.raft_qtf_pair_f64.argtypes = [P] * 23 + [I, I, I, D, D, D, D, P]
-        lib.raft_qtf_pair_f64.restype = I
+        L = ctypes.c_longlong
+        lib.raft_qtf_k5_scratch.argtypes = [I, I, I]
+        lib.raft_qtf_k5_scratch.restype = L
+        lib.raft_qtf_k5_f64.argtypes = [P] * 24 + [L, P, I, I, I, I, I, D, D,
+                                                   D, D, P]
+        lib.raft_qtf_k5_f64.restype = I
         lib.raft_gj_error_string.argtypes = [I]
         lib.raft_gj_error_string.restype = ctypes.c_char_p
         _LIB = lib

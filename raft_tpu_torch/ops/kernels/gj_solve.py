@@ -238,7 +238,8 @@ def impedance_gj_solve_plain(w, M, B, C, F, refine: int = 1,
 # ---------------------------------------------------------------------------
 
 _IMP_N = range(1, 9)
-_GJ_N = (2, 4, 6, 8, 10, 12, 14, 16)
+#: the K2/K4 kernels instantiate even n up to this; odd n are padded
+_GJ_N_MAX = 16
 _REAL_OF = {torch.float64: torch.complex128, torch.float32: torch.complex64}
 
 
@@ -269,7 +270,10 @@ def gj_solve(A, b, refine: int = 1, precision: str = None, factor_dtype=None,
              promote_tol=None, return_stats: bool = False):
     """K2 (K4 under ``precision="mixed"``): batched real solve
     A (..., n, n) x = b (..., n, k).  Launches the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors, the plain version for CPU tensors.  On the card every n <= 16
+    and every k run: an odd n padded exactly (``pad_odd``), k beyond the
+    kernels' 1 and n/2 in column chunks, the ladder's chunks with one
+    promotion decision per lane (``ladder_in_chunks``)."""
     if A.device.type == "cpu":
         return gj_solve_plain(A, b, refine, precision, factor_dtype,
                               promote_tol, return_stats)
@@ -359,6 +363,73 @@ def _impedance_cuda(w, M, B, C, F, refine, precision, factor_dtype,
     return X, _stats(lanes, dt, dev, promoted[0], rn)
 
 
+def pad_odd(A, b):
+    """(A, b) with an odd n padded to n + 1, for the kernels, which take
+    even n only: A gets a decoupled identity row and column (1 on the new
+    diagonal, 0 elsewhere in them) and b a zero row; the solution's last
+    row is then exactly 0 and is dropped.  The padding is exact:
+    - the pad row and column are 0 off the diagonal, so no multiplier,
+      row maximum or equilibration scale of a real row changes, and the
+      pad row's own scale is 1;
+    - at a real column the pad row holds 0, so the pivot scan never
+      prefers it (a tie at 0 goes to the first, real, row), and it is
+      pivot only at the last step, where it is alone;
+    - the residual of a real row adds 0 * 0, and the pad row's residual
+      is 0 - 1 * 0.
+    An even n is returned as it is."""
+    n = A.shape[-1]
+    if n % 2 == 0:
+        return A, b
+    batch = tuple(A.shape[:-2])
+    Ap = A.new_zeros(batch + (n + 1, n + 1))
+    Ap[..., :n, :n] = A
+    Ap[..., n, n] = 1.0
+    bp = b.new_zeros(batch + (n + 1, b.shape[-1]))
+    bp[..., :n, :] = b
+    return Ap, bp
+
+
+def ladder_in_chunks(A, b, kc, solve_chunk, solve_full, promote_tol):
+    """The mixed ladder of A (..., n, n) x = b (..., n, k) run over column
+    chunks of ``kc`` right-hand sides (the last zero-padded), with the
+    reference's one promotion decision per lane over all its columns
+    (``raft_tpu/ops/pallas/gj_solve.py:_gj_mixed_kernel``).
+
+    ``solve_chunk(bc)`` runs the ladder on one chunk with no promotion but
+    of NaN lanes (tolerance inf) and returns (x, rn per lane);
+    ``solve_full(A, b)`` is the full-width solve.  A chunk's rn is its
+    max|r| over max|rhs| + eps on the equilibrated system, so max|r| is
+    rn (max|rhs| + eps); the lane's rn is the largest max|r| over the
+    largest max|rhs| + eps of all chunks: the unchunked rn up to
+    rounding.  Every lane with ``~(rn <= promote_tol)`` is then solved at
+    full width on all its k columns.  Returns (x, rn, promoted)."""
+    n, k = A.shape[-1], b.shape[-1]
+    batch = tuple(A.shape[:-2])
+    eps = equilibration_eps(A.dtype)
+    scale = 1.0 / torch.clamp(torch.amax(torch.abs(A), dim=-1), min=eps)
+    xs, rmax, bmax = [], None, None
+    for c0 in range(0, k, kc):
+        bc = b[..., c0:c0 + kc]
+        if bc.shape[-1] < kc:
+            bc = torch.cat([bc, bc.new_zeros(batch + (n, kc - bc.shape[-1]))],
+                           dim=-1)
+        x, rn = solve_chunk(bc.contiguous())
+        bm = torch.amax(torch.abs(bc * scale[..., None]), dim=(-2, -1))
+        rm = rn.reshape(batch) * (bm + eps)
+        rmax = rm if rmax is None else torch.maximum(rmax, rm)
+        bmax = bm if bmax is None else torch.maximum(bmax, bm)
+        xs.append(x)
+    x = torch.cat(xs, dim=-1)[..., :k]
+    rn = (rmax / (bmax + eps)).reshape(-1)
+    mask, promoted = promotion_mask(rn, promote_tol)
+    if bool(torch.any(mask)):
+        idx = torch.nonzero(mask).flatten()
+        x = x.reshape(-1, n, k).clone()
+        x[idx] = solve_full(A.reshape(-1, n, n)[idx], b.reshape(-1, n, k)[idx])
+        x = x.reshape(batch + (n, k))
+    return x, rn, promoted
+
+
 def _gj_cuda(A, b, refine, precision, factor_dtype, promote_tol,
              return_stats):
     from raft_tpu_torch.ops.kernels import _build
@@ -370,56 +441,72 @@ def _gj_cuda(A, b, refine, precision, factor_dtype, promote_tol,
     batch = tuple(A.shape[:-2])
     lanes = math.prod(batch)
     suffix, key, fd = _variant("gj_solve", dt, precision, factor_dtype)
-    _require(n in _GJ_N, f"gj_solve kernel has no n={n} instantiation "
-             "(even n <= 16)", kernel=key, n=n)
+    _require(1 <= n <= _GJ_N_MAX, f"gj_solve kernel takes n <= "
+             f"{_GJ_N_MAX}, got n={n}", kernel=key, n=n)
     _require(A.shape[-2] == n and tuple(b.shape) == batch + (n, k),
              "gj_solve shape mismatch", kernel=key,
              A=tuple(A.shape), b=tuple(b.shape))
     _require(b.device == dev, f"b is on {b.device}, A on {dev}", kernel=key)
     _require(b.dtype == dt, f"b must be {dt}, got {b.dtype}", kernel=key)
-    Ac = A.contiguous()
+    # the kernels instantiate even n: an odd n is padded exactly
+    Ac, b = pad_odd(A.contiguous(), b)
+    ne = Ac.shape[-1]
     # instantiated right-hand-side counts: 1 and n/2; other k run as
     # column chunks of n/2, zero-padded (the elimination of each column is
     # independent of the others, so chunking changes no single-width
-    # result).  A mixed lane's residual and promotion are taken over all
-    # its columns at once, so the ladder takes at most n/2 columns.
-    kc = 1 if k == 1 else max(n // 2, 1)
-    nchunk = -(-k // kc)
-    _require(fd is None or nchunk == 1, "the mixed ladder kernel takes at "
-             f"most n/2 = {kc} right-hand sides, got {k}", kernel=key, k=k)
-    outs, rns = [], []
-    promoted = None
-    if fd is not None:
-        promoted = torch.zeros(1, dtype=torch.int32, device=dev)
+    # result).  The ladder over several chunks takes one promotion
+    # decision per lane over all its columns (ladder_in_chunks).
+    kc = 1 if k == 1 else ne // 2
     tol = DEFAULT_PROMOTE_TOL if promote_tol is None else float(promote_tol)
-    for c in range(nchunk):
-        bc = b[..., c * kc:(c + 1) * kc]
-        if bc.shape[-1] < kc:
-            bc = torch.cat([bc, bc.new_zeros(batch + (n, kc - bc.shape[-1]))],
-                           dim=-1)
-        bc = bc.contiguous()
-        x = torch.empty(batch + (n, kc), dtype=dt, device=dev)
-        rn = torch.zeros(lanes, dtype=dt, device=dev) if fd is not None \
-            else None
+
+    def launch(bc, fn_suffix, launch_key, chunk_tol):
+        """One launch on a chunk of exactly kc columns: (x, rn, promoted)."""
+        x = torch.empty(batch + (ne, kc), dtype=dt, device=dev)
+        mixed = fn_suffix.startswith("mixed")
+        rn = torch.zeros(lanes, dtype=dt, device=dev) if mixed else None
+        promoted = torch.zeros(1, dtype=torch.int32, device=dev) \
+            if mixed else None
         if lanes:
             lib = _build.load()
             stream = torch.cuda.current_stream(dev).cuda_stream
-            fn = getattr(lib, f"raft_gj_solve_{suffix}")
-            if fd is None:
-                rc = fn(Ac.data_ptr(), bc.data_ptr(), x.data_ptr(), lanes, n,
+            fn = getattr(lib, f"raft_gj_solve_{fn_suffix}")
+            if not mixed:
+                rc = fn(Ac.data_ptr(), bc.data_ptr(), x.data_ptr(), lanes, ne,
                         kc, int(refine), stream)
             else:
                 rc = fn(Ac.data_ptr(), bc.data_ptr(), x.data_ptr(),
-                        rn.data_ptr(), promoted.data_ptr(), lanes, n, kc,
-                        int(refine), tol, stream)
-            _build.check(rc, key, n=n, k=kc, lanes=lanes)
-            LAUNCHES[key] += 1
+                        rn.data_ptr(), promoted.data_ptr(), lanes, ne, kc,
+                        int(refine), chunk_tol, stream)
+            _build.check(rc, launch_key, n=ne, k=kc, lanes=lanes)
+            LAUNCHES[launch_key] += 1
+        return x, rn, promoted
+
+    if fd is not None and k > kc:
+        def solve_chunk(bc):
+            x, rn, _ = launch(bc, suffix, key, math.inf)
+            return x, rn
+
+        def solve_full(Ap, bp):
+            return _gj_cuda(Ap, bp, refine, None, None, None, False)
+
+        x, rn, promoted = ladder_in_chunks(Ac, b, kc, solve_chunk,
+                                           solve_full, tol)
+        x = x[..., :n, :]
+        return (x, _stats(lanes, dt, dev, promoted, rn)) if return_stats \
+            else x
+    outs = []
+    rn = promoted = None
+    for c0 in range(0, k, kc):
+        bc = b[..., c0:c0 + kc]
+        if bc.shape[-1] < kc:
+            bc = torch.cat([bc, bc.new_zeros(batch + (ne, kc - bc.shape[-1]))],
+                           dim=-1)
+        x, rn, promoted = launch(bc.contiguous(), suffix, key, tol)
         outs.append(x)
-        rns.append(rn)
-    x = outs[0] if nchunk == 1 else torch.cat(outs, dim=-1)
-    x = x[..., :k]
+    x = outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
+    x = x[..., :n, :k]
     if not return_stats:
         return x
     if fd is None:
         return x, _stats(lanes, dt, dev)
-    return x, _stats(lanes, dt, dev, promoted[0], rns[0])
+    return x, _stats(lanes, dt, dev, promoted[0], rn)

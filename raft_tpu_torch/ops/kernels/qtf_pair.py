@@ -10,11 +10,14 @@ completion).  ``fields`` is the dict ``models.qtf.qtf_fields`` builds:
 the per-frequency node fields lane-last ((N, 3, nw2) etc.), as the TPU
 kernel takes them.
 
-Dispatch: a CUDA tensor launches the hand-written kernel of
+Dispatch: a CUDA tensor launches the hand-written kernels of
 ``csrc/qtf_k5_f64.cu`` (built at first use, see ``_build.py``) or raises
 :class:`~raft_tpu_torch.errors.KernelFailure`; a CPU tensor runs the
-plain version below.  There is no other route.  What bounds the kernel on
-the card and what its design does about it is written in
+plain version below.  There is no other route.  One call launches three
+kernels: a record pass over (frequency, submerged node), the pair pass
+over tiles of pairs and shares of the nodes, and a finishing pass that
+adds the shares in a fixed order with the per-pair terms.  What bounds
+them on the card and what the design does about it is written in
 ``csrc/qtf_pair.cuh``.
 
 The plain version is the JAX package's doubly-vmapped pair closure
@@ -26,6 +29,8 @@ against.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from raft_tpu_torch import errors
@@ -35,11 +40,11 @@ from raft_tpu_torch.ops.waves import wave_pot_2nd_order
 #: kernel launches, incremented only where the kernel launches
 LAUNCHES = {"qtf_pair": 0}
 
+COMPLEX_FIELDS = ("Xi", "F1st", "u", "dr", "nv", "nax", "gu", "gp")
+
 #: budget of one (rows, nw2, N, 3, 3) complex intermediate of the plain
 #: version
 _PLAIN_CHUNK_BYTES = 32 * 2**20
-
-COMPLEX_FIELDS = ("Xi", "F1st", "u", "dr", "nv", "nax", "gu", "gp")
 
 #: the fields with one row per strip node
 NODE_FIELDS = ("u", "dr", "nv", "nax", "gu", "gp", "q", "offsets", "pos",
@@ -214,8 +219,9 @@ def qtf_pair_grid_plain(fields: dict, beta, h, rho, g):
 
 def qtf_pair_grid(fields: dict, beta, h, rho, g):
     """K5: the raw slender-body QTF pair grid (nw2, nw2, 6) complex128.
-    Launches the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors."""
+    For CUDA tensors one call launches the three K5 kernels (records,
+    pairs, finish) and counts 1 in ``LAUNCHES["qtf_pair"]``; CPU tensors
+    run the plain version."""
     dev = fields["w2"].device
     if dev.type == "cpu":
         return qtf_pair_grid_plain(fields, beta, h, rho, g)
@@ -230,14 +236,23 @@ def check_dry_nodes(fields: dict) -> None:
     a node above water (``nodescal[:, 3] == 0``) is not finite.  The plain
     version, like the JAX package, multiplies such a node's wrench by 0,
     so a NaN there would make its QTF NaN; the kernel skips the node and
-    would return a finite QTF.  With finite fields the two agree."""
+    would return a finite QTF.  With finite fields the two agree.
+
+    In the same host sync it records the kernel's compacted node list:
+    ``fields["sub"]``, the submerged nodes' indices in order ((nsub,)
+    int32 on the fields' device), and ``fields["nsub"]``."""
     dry = fields["nodescal"][:, 3] == 0.0
     bad = torch.stack([~torch.all(torch.isfinite(fields[k][dry]))
                        for k in NODE_FIELDS])
-    if bool(torch.any(bad)):
-        names = [k for k, b in zip(NODE_FIELDS, bad.tolist()) if b]
+    *flags, nsub = torch.cat([bad.to(torch.int64),
+                              torch.sum(~dry).reshape(1)]).tolist()
+    if any(flags):
+        names = [k for k, b in zip(NODE_FIELDS, flags) if b]
         raise errors.NonFiniteResult(
             "non-finite QTF fields at a node above water", fields=names)
+    fields["sub"] = torch.argsort(dry.to(torch.int8), stable=True)[:nsub] \
+        .to(torch.int32)
+    fields["nsub"] = nsub
 
 
 def _check(cond, msg, **ctx):
@@ -245,9 +260,43 @@ def _check(cond, msg, **ctx):
         raise errors.KernelFailure(msg, kernel="qtf_pair", **ctx)
 
 
+#: the pair pass's tile edge (csrc/qtf_pair.cuh kT) and the blocks its
+#: node split aims at: one (16 warps) on each of the H100's 132 SMs
+PAIR_TILE = 16
+TARGET_BLOCKS = 132
+
+
+@functools.lru_cache(maxsize=None)
+def node_split(nw2: int, nsub: int) -> int:
+    """Submerged nodes per pair-pass block: the share that makes the
+    waves of blocks times (the nodes a block walks + 2, a block's own
+    start and end) least; ties: the fewest blocks.  It depends on the
+    shapes only, so the summation order, and Q, are the same on every
+    call."""
+    tiles = (-(-nw2 // PAIR_TILE)) ** 2
+    best = None
+    for per in range(1, max(nsub, 1) + 1):
+        splits = -(-nsub // per)
+        key = (-(-tiles * splits // TARGET_BLOCKS) * (per + 2), splits)
+        if best is None or key < best[0]:
+            best = (key, per)
+    return best[1]
+
+
+def _operand(t, name, shape, dtype, dev):
+    """``t`` contiguous (copied only if it is not), after the checks; the
+    message is built only for a failure."""
+    if t.shape != shape or t.dtype != dtype or t.device != dev:
+        raise errors.KernelFailure(
+            f"{name} must be {shape} {dtype} on {dev}, got "
+            f"{tuple(t.shape)} {t.dtype} {t.device}", kernel="qtf_pair")
+    return t if t.is_contiguous() else t.contiguous()
+
+
 def kernel_operands(fields: dict):
-    """The kernel's operands, frequency-major and contiguous, with the
-    shapes checked: a dict of tensors plus (nw2, N, nm)."""
+    """The kernel's operands, lane-last as ``qtf_fields`` builds them and
+    contiguous (a field that is not is copied), with the shapes checked:
+    a dict of tensors plus (nw2, N, nm)."""
     w2 = fields["w2"]
     dev = w2.device
     nw2 = int(w2.shape[0])
@@ -260,41 +309,38 @@ def kernel_operands(fields: dict):
               "q": (N, 3), "offsets": (N, 3), "pos": (N, 3),
               "Minert": (N, 3, 3), "CaMat": (N, 3, 3), "ptMat": (N, 3, 3),
               "qMat": (N, 3, 3), "nodescal": (N, 4)}
-    for name, shape in shapes.items():
-        t = fields[name]
-        want = torch.complex128 if name in COMPLEX_FIELDS else torch.float64
-        _check(tuple(t.shape) == shape, f"{name} must be {shape}, got "
-               f"{tuple(t.shape)}")
-        _check(t.dtype == want, f"{name} must be {want}, got {t.dtype}")
-        _check(t.device == dev, f"{name} is on {t.device}, w2 on {dev}")
-    ops = {}
-    for name in shapes:
-        t = fields[name]
-        if name in COMPLEX_FIELDS:
-            t = t.movedim(-1, 0)                      # frequency-major
-        ops[name] = t.contiguous()
+    ops = {name: _operand(fields[name], name, shape, torch.complex128
+                          if name in COMPLEX_FIELDS else torch.float64, dev)
+           for name, shape in shapes.items()}
     if nm:
-        for name, shape, want in (("c", (nm, 3, 3, nw2), torch.complex128),
-                                  ("eta", (nm, nw2), torch.complex128),
-                                  ("mats", (nm, 2, 3, 3), torch.float64),
-                                  ("geo", (nm, 4), torch.float64)):
-            t = wl[name]
-            _check(tuple(t.shape) == shape and t.dtype == want
-                   and t.device == dev, f"wl[{name!r}] must be {shape} "
-                   f"{want} on {dev}, got {tuple(t.shape)} {t.dtype} "
-                   f"{t.device}")
-        ops["wlc"] = wl["c"].movedim(-1, 0).contiguous()
-        ops["wleta"] = wl["eta"].movedim(-1, 0).contiguous()
-        ops["wlmats"] = wl["mats"].contiguous()
-        ops["wlgeo"] = wl["geo"].contiguous()
+        for name, shape, dtype in (("c", (nm, 3, 3, nw2), torch.complex128),
+                                   ("eta", (nm, nw2), torch.complex128),
+                                   ("mats", (nm, 2, 3, 3), torch.float64),
+                                   ("geo", (nm, 4), torch.float64)):
+            ops["wl" + name] = _operand(wl[name], f"wl[{name!r}]", shape,
+                                        dtype, dev)
     return ops, (nw2, N, nm)
 
 
+def submerged(fields: dict):
+    """(sub, nsub): the compacted node list ``check_dry_nodes`` recorded
+    in ``fields``, or built here (one host sync) for fields made
+    otherwise."""
+    if "sub" not in fields:
+        check_dry_nodes(fields)
+    sub, nsub = fields["sub"], int(fields["nsub"])
+    return _operand(sub, "fields['sub']", (nsub,), torch.int32,
+                    fields["w2"].device), nsub
+
+
 def _ptr(t):
-    if t is None:
-        return None
-    return torch.view_as_real(t).data_ptr() if t.is_complex() \
-        else t.data_ptr()
+    return None if t is None else t.data_ptr()
+
+
+#: the operands in the C entry point's order
+OPERAND_ORDER = ("w2", "k2", "Xi", "F1st", "u", "dr", "nv", "nax", "gu",
+                 "gp", "q", "offsets", "pos", "Minert", "CaMat", "ptMat",
+                 "qMat", "nodescal", "wlc", "wleta", "wlmats", "wlgeo")
 
 
 def _qtf_cuda(fields, beta, h, rho, g):
@@ -302,19 +348,19 @@ def _qtf_cuda(fields, beta, h, rho, g):
 
     ops, (nw2, N, nm) = kernel_operands(fields)
     dev = ops["w2"].device
-    _check(0 < nw2 <= 65535, f"nw2 = {nw2} outside the kernel's grid",
+    _check(0 < nw2 <= 32768, f"nw2 = {nw2} outside the kernel's grid",
            nw2=nw2)
-    Q = torch.empty((nw2, nw2, 6), dtype=torch.complex128, device=dev)
+    sub, nsub = submerged(fields)
+    per = node_split(nw2, nsub)
     lib = _build.load()
+    nscr = int(lib.raft_qtf_k5_scratch(nw2, nsub, per))
+    scratch = torch.empty(2 * nscr, dtype=torch.float64, device=dev)
+    Q = torch.empty((nw2, nw2, 6), dtype=torch.complex128, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    args = [ops[k] for k in ("w2", "k2", "Xi", "F1st", "u", "dr", "nv",
-                             "nax", "gu", "gp", "q", "offsets", "pos",
-                             "Minert", "CaMat", "ptMat", "qMat",
-                             "nodescal")]
-    args += [ops.get(k) for k in ("wlc", "wleta", "wlmats", "wlgeo")]
-    rc = lib.raft_qtf_pair_f64(*(_ptr(t) for t in args), _ptr(Q), nw2, N,
-                               nm, beta, h, rho, g, stream)
-    _build.check(rc, "qtf_pair", nw2=nw2, N=N, nm=nm)
+    rc = lib.raft_qtf_k5_f64(*(_ptr(ops.get(k)) for k in OPERAND_ORDER),
+                             sub.data_ptr(), scratch.data_ptr(), nscr,
+                             _ptr(Q), nw2, N, nm, nsub, per, beta, h, rho, g,
+                             stream)
+    _build.check(rc, "qtf_pair", nw2=nw2, N=N, nm=nm, nsub=nsub)
     LAUNCHES["qtf_pair"] += 1
     return Q
-

@@ -239,3 +239,105 @@ def test_gj_kernels_every_n_on_the_card(card, n, k):
     assert {kk: v for kk, v in G.LAUNCHES.items() if v} == {
         "gj_solve": 1, "gj_solve_f32": 1, "gj_solve_mixed": 1,
         "gj_solve_mixed_bf16": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_freq2nd,nw2", [(0.15, 30), (0.40, 80)])
+def test_qtf_kernels_oc4semi_grids_repeat_bitwise(card, max_freq2nd, nw2):
+    """K5's three kernels on the OC4semi fields at nw2 = 30 (the example's
+    grid: ragged 16 x 16 tiles) and 80 (the design's own resolution)
+    against the plain version at 1e-12 of max|Q|; a second call gives a
+    bitwise equal Q (fixed summation order, no atomics)."""
+    from raft_tpu_torch.models import qtf_cases as QC
+    from raft_tpu_torch.ops.kernels import qtf_pair as K
+
+    f, _, _, fields = QC.case_fields(QC.oc4semi_design(max_freq2nd),
+                                     QC.OC4SEMI_W, 0.0, pose=QC.OFFSET_POSE,
+                                     device=card)
+    assert fields["w2"].shape[0] == nw2
+    args = (fields, 0.0, f.depth, f.rho_water, f.g)
+    K.reset_launches()
+    Q = K.qtf_pair_grid(*args)
+    Q2 = K.qtf_pair_grid(*args)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["qtf_pair"] == 2
+    assert torch.equal(Q, Q2)
+    ref = K.qtf_pair_grid_plain(*args)
+    assert Q.shape == (nw2, nw2, 6) and _rel(Q, ref) <= 1e-12
+
+
+def _odd_systems(rng, lanes, n, ill_every=0):
+    A = rng.standard_normal((lanes, n, n)) + 5.0 * np.eye(n)
+    ill = np.arange(0, lanes, ill_every) if ill_every and n > 1 \
+        else np.zeros(0, dtype=int)
+    for i in ill:
+        U, _, Vt = np.linalg.svd(A[i])
+        A[i] = (U * np.geomspace(1.0, 1e-9, n)) @ Vt
+    return A, ill
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", list(range(1, 16, 2)))
+def test_gj_odd_n_on_the_card(card, n):
+    """gj_solve at an odd n, which the kernels (even n only) take padded
+    to n + 1 with a decoupled identity row and column: f64, f32 and the
+    ladder with f32 elimination against the plain version, k = 1 and 3,
+    with promoted counts equal and no KernelFailure."""
+    rng = np.random.default_rng(100 + n)
+    lanes = 21
+    A, ill = _odd_systems(rng, lanes, n, ill_every=4)
+    well = np.setdiff1d(np.arange(lanes), ill)
+    A = torch.tensor(A, device=card)
+    ill_tol = 1e9 * 2.2e-16 * 10
+    G.reset_launches()
+    for k in (1, 3):
+        b = torch.tensor(rng.standard_normal((lanes, n, k)), device=card)
+        x, xp = G.gj_solve(A, b), G.gj_solve_plain(A, b)
+        assert x.shape == (lanes, n, k)
+        assert _rel(x[well], xp[well]) < 1e-10
+        if len(ill):
+            assert _rel(x[ill], xp[ill]) < ill_tol
+        x32 = G.gj_solve(A.float(), b.float())
+        xp32 = G.gj_solve_plain(A.float(), b.float())
+        assert _rel(x32[well], xp32[well]) < 1e-4
+        kw = dict(refine=2, precision="mixed", factor_dtype=torch.float32,
+                  promote_tol=1e-9, return_stats=True)
+        x, st = G.gj_solve(A, b, **kw)
+        xp, stp = G.gj_solve_plain(A, b, **kw)
+        assert int(st["promoted"]) == int(stp["promoted"]) >= len(ill)
+        assert _rel(x[well], xp[well]) < 1e-10
+        if len(ill):
+            assert _rel(x[ill], xp[ill]) < ill_tol
+    # (k = 3 runs as column chunks where the padded n + 1 < 6)
+    assert {kk for kk, v in G.LAUNCHES.items() if v} == {
+        "gj_solve", "gj_solve_f32", "gj_solve_mixed"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(2, 3), (5, 4), (6, 7), (12, 12),
+                                 (16, 13)])
+def test_gj_ladder_k_above_half_n_on_the_card(card, n, k):
+    """The ladder with k > n/2 right-hand sides (the kernels take n/2 at
+    most): column chunks with one promotion decision per lane over all
+    its columns, then a float64 re-solve of the promoted lanes on all k.
+    x and the promoted count against the plain (unchunked) ladder, at the
+    f32 and bf16 elimination widths; one lane's last column is 1e6x the
+    rest."""
+    rng = np.random.default_rng(120 + n + k)
+    lanes = 21
+    A, ill = _odd_systems(rng, lanes, n, ill_every=4)
+    well = np.setdiff1d(np.arange(lanes), ill)
+    b = rng.standard_normal((lanes, n, k))
+    b[3, :, -1] *= 1e6
+    A, b = torch.tensor(A, device=card), torch.tensor(b, device=card)
+    ill_tol = 1e9 * 2.2e-16 * 10
+    for fd, tol in ((torch.float32, 1e-10), (torch.bfloat16, 1e-7)):
+        kw = dict(refine=2, precision="mixed", factor_dtype=fd,
+                  promote_tol=1e-9, return_stats=True)
+        x, st = G.gj_solve(A, b, **kw)
+        xp, stp = G.gj_solve_plain(A, b, **kw)
+        assert x.shape == (lanes, n, k)
+        assert int(st["promoted"]) == int(stp["promoted"]) >= len(ill)
+        assert torch.equal(~(st["rn"] <= 1e-9), ~(stp["rn"] <= 1e-9))
+        assert _rel(x[well], xp[well]) < tol
+        assert _rel(x[ill], xp[ill]) < ill_tol

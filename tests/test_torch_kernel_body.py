@@ -653,35 +653,107 @@ def test_gj_nan_lane_matches_plain(lib, width):
 QTF_TOL = 1e-12
 
 _QTF_HOST_SRC = r"""
+#include <vector>
 #include "qtf_pair.cuh"
-// every pair in turn: the kernel's per-pair set-up, its node body summed
-// over the nodes in order, and its per-pair terms
+// The three K5 kernels in order, as the card runs them: the record pass
+// over (frequency, submerged node), and over the pairs for their
+// constants and own terms; the pair pass block by block (tile of kT x kT
+// pairs, share of `per` nodes), each node staged into a block's
+// shared-memory layout by the kernel's own granule map and added to every
+// pair of the tile in node order, parts A and B apart, then A + B; the
+// pairs' own terms and the finishing pass, their lanes' sums met in the
+// shuffle tree's order.
 extern "C" void host_qtf(const double* w, const double* k, const double* Xi,
     const double* F1st, const double* u, const double* dr, const double* nv,
     const double* nax, const double* gu, const double* gp, const double* q,
     const double* off, const double* pos, const double* Minert,
     const double* CaMat, const double* ptMat, const double* qMat,
     const double* nsc, const double* wlc, const double* wleta,
-    const double* wlmats, const double* wlgeo, double* Q, int nw2, int N,
-    int nm, double beta, double h, double rho, double g) {
-  using qtf::cd;
-  qtf::Args a;
-  a.nw2 = nw2; a.N = N; a.nm = nm; a.cosb = cos(beta); a.sinb = sin(beta);
-  a.h = h; a.rho = rho; a.g = g; a.w = w; a.k = k;
+    const double* wlmats, const double* wlgeo, const int* sub, int nsub,
+    int per, double* Q, int nw2, int N, int nm, double beta, double h,
+    double rho, double g) {
+  using namespace qtf;
+  Fields a;
+  a.nw2 = nw2; a.N = N; a.nm = nm; a.nsub = nsub; a.cosb = cos(beta);
+  a.sinb = sin(beta); a.h = h; a.rho = rho; a.g = g; a.w = w; a.k = k;
   a.Xi = (const cd*)Xi; a.F1st = (const cd*)F1st; a.u = (const cd*)u;
   a.dr = (const cd*)dr; a.nv = (const cd*)nv; a.nax = (const cd*)nax;
   a.gu = (const cd*)gu; a.gp = (const cd*)gp; a.q = q; a.off = off;
   a.pos = pos; a.Minert = Minert; a.CaMat = CaMat; a.ptMat = ptMat;
   a.qMat = qMat; a.nsc = nsc; a.wlc = (const cd*)wlc;
   a.wleta = (const cd*)wleta; a.wlmats = wlmats; a.wlgeo = wlgeo;
-  a.Q = (cd*)Q;
-  for (int i1 = 0; i1 < nw2; ++i1)
-    for (int i2 = 0; i2 < nw2; ++i2) {
-      qtf::Pair P = qtf::pair_setup(a, i1, i2);
-      double acc[12] = {0};
-      for (int n = 0; n < N; ++n) qtf::node_wrench(a, P, i1, i2, n, acc);
-      qtf::pair_finish(a, P, i1, i2, acc);
+  a.sub = sub;
+  const int npair = nw2 * nw2;
+  const int splits = nsub > 0 ? (nsub + per - 1) / per : 0;
+  std::vector<cd> scr(scratch_len(nw2, nsub, splits));
+  for (int j = 0; j < nsub; ++j)
+    for (int f = 0; f < nw2; ++f) {
+      record_fill(a, f, j, scr.data() + record_offset(j, 0, f, nw2), nw2);
+      if (f == 0)
+        node_fill(a, j, (double*)(scr.data() + node_offset(j, nw2, nsub)));
     }
+  double* consts = (double*)(scr.data() + consts_offset(nw2, nsub));
+  for (int t = 0; t < npair; ++t) {
+    double c[kPairConsts];
+    pair_consts(a, t / nw2, t % nw2, c);
+    for (int i = 0; i < kPairConsts; ++i) consts[(size_t)i * npair + t] = c[i];
+  }
+  double* part = (double*)(scr.data() + part_offset(nw2, nsub));
+  std::vector<cd> st(kStage);
+  std::vector<double> accA(kPairThreads * 12), accB(kPairThreads * 12);
+  std::vector<Pair> P(kPairThreads);
+  const int ntc = (nw2 + kT - 1) / kT;
+  for (int bx = 0; bx < ntc * ntc; ++bx)
+    for (int s = 0; s < splits; ++s) {
+      const int r0 = (bx / ntc) * kT, c0 = (bx % ntc) * kT;
+      for (int th = 0; th < kPairThreads; ++th) {
+        int i1 = r0 + th / kT, i2 = c0 + th % kT;
+        i1 = i1 < nw2 ? i1 : nw2 - 1;
+        i2 = i2 < nw2 ? i2 : nw2 - 1;
+        P[th] = pair_from(consts + i1 * nw2 + i2, npair, w[i1], w[i2]);
+        for (int c = 0; c < 12; ++c)
+          accA[th * 12 + c] = accB[th * 12 + c] = 0.0;
+      }
+      const int j0 = s * per, j1 = j0 + per < nsub ? j0 + per : nsub;
+      for (int j = j0; j < j1; ++j) {
+        for (int idx = 0; idx < kGranules; ++idx) {
+          int src, step;
+          stage_granule(idx, r0, c0, nw2, nsub, &src, &step);
+          st[idx] = scr[src + (size_t)j * step];
+        }
+        const double* nr = (const double*)(st.data() + kRec * kSlots);
+        for (int th = 0; th < kPairThreads; ++th) {
+          const cd* R1 = st.data() + th / kT;
+          const cd* R2 = st.data() + kT + th % kT;
+          node_pair_a<kSlots>(R1, R2, nr, P[th], &accA[th * 12], 1);
+          node_pair_b<kSlots>(R1, R2, nr, -rho, &accB[th * 12], 1);
+        }
+      }
+      for (int th = 0; th < kPairThreads; ++th) {
+        const int i1 = r0 + th / kT, i2 = c0 + th % kT;
+        if (i1 >= nw2 || i2 >= nw2) continue;
+        for (int c = 0; c < 12; ++c)
+          part[((size_t)s * npair + (size_t)i1 * nw2 + i2) * 12 + c] =
+              accA[th * 12 + c] + accB[th * 12 + c];
+      }
+    }
+  double* terms = (double*)(scr.data() + terms_offset(nw2, nsub));
+  for (int t = 0; t < npair; ++t) {
+    double v[kLanes][12] = {};
+    for (int l = 0; l < kLanes; ++l)
+      pair_terms_lane(a, t / nw2, t % nw2, l, v[l]);
+    lane_tree(v, 12);
+    for (int c = 0; c < 12; ++c) terms[(size_t)t * 12 + c] = v[0][c];
+  }
+  for (int t = 0; t < npair; ++t) {
+    double v[kLanes][12] = {};
+    for (int l = 0; l < kLanes; ++l)
+      for (int s = l; s < splits; s += kLanes)
+        for (int c = 0; c < 12; ++c)
+          v[l][c] += part[((size_t)s * npair + t) * 12 + c];
+    lane_tree(v, 12);
+    finish_write(terms + (size_t)t * 12, v[0], (cd*)Q + (size_t)t * 6);
+  }
 }
 """
 
@@ -700,26 +772,21 @@ def qtf_lib(tmp_path_factory):
                     "-o", str(so), str(src)], check=True)
     L = ctypes.CDLL(str(so))
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    L.host_qtf.argtypes = [P] * 23 + [I, I, I, D, D, D, D]
+    L.host_qtf.argtypes = [P] * 23 + [I, I, P, I, I, I, D, D, D, D]
     return L
 
 
 def _qtf_body(lib, fields, beta, h, rho, g):
-    from raft_tpu_torch.ops.kernels.qtf_pair import kernel_operands
+    from raft_tpu_torch.ops.kernels import qtf_pair as K
 
-    ops, (nw2, N, nm) = kernel_operands(fields)
-    names = ("w2", "k2", "Xi", "F1st", "u", "dr", "nv", "nax", "gu", "gp",
-             "q", "offsets", "pos", "Minert", "CaMat", "ptMat", "qMat",
-             "nodescal", "wlc", "wleta", "wlmats", "wlgeo")
-    ptrs = []
-    for name in names:
-        t = ops.get(name)
-        ptrs.append(None if t is None else (
-            torch.view_as_real(t).data_ptr() if t.is_complex()
-            else t.data_ptr()))
+    ops, (nw2, N, nm) = K.kernel_operands(fields)
+    sub, nsub = K.submerged(fields)
+    ptrs = [None if ops.get(name) is None else K._ptr(ops[name])
+            for name in K.OPERAND_ORDER]
     Q = torch.zeros((nw2, nw2, 6), dtype=torch.complex128)
-    lib.host_qtf(*ptrs, torch.view_as_real(Q).data_ptr(), nw2, N, nm,
-                 float(beta), float(h), float(rho), float(g))
+    lib.host_qtf(*ptrs, sub.data_ptr(), nsub, K.node_split(nw2, nsub),
+                 torch.view_as_real(Q).data_ptr(), nw2, N, nm, float(beta),
+                 float(h), float(rho), float(g))
     return Q
 
 
@@ -776,3 +843,41 @@ def test_qtf_body_matches_plain_oc4semi(qtf_lib, beta):
     got = _qtf_body(qtf_lib, fields, beta, f.depth, f.rho_water, f.g)
     assert got.shape == (30, 30, 6)
     assert _rel(got.numpy(), ref.numpy()) <= QTF_TOL
+
+
+def test_qtf_body_matches_plain_oc4semi_80(qtf_lib):
+    """The design's own resolution, nw2 = 80 (0.005-0.40 Hz): 25 full
+    tiles and the node split of that grid (17 of the 82 submerged nodes
+    a block, the last block 14)."""
+    from raft_tpu_torch.ops.kernels.qtf_pair import (node_split,
+                                                     qtf_pair_grid_plain)
+
+    f, _, _, fields = QC.case_fields(QC.oc4semi_design(0.40), QC.OC4SEMI_W,
+                                     0.0, pose=QC.OFFSET_POSE)
+    assert fields["w2"].shape[0] == 80 and fields["nsub"] == 82
+    assert node_split(80, 82) == 17
+    ref = qtf_pair_grid_plain(fields, 0.0, f.depth, f.rho_water, f.g)
+    got = _qtf_body(qtf_lib, fields, 0.0, f.depth, f.rho_water, f.g)
+    assert _rel(got.numpy(), ref.numpy()) <= QTF_TOL
+
+
+@pytest.mark.parametrize("nw2,nsub", [(5, 5), (8, 20), (30, 80), (30, 82),
+                                      (80, 82), (200, 177), (1, 0)])
+def test_qtf_node_split_fills_the_card(nw2, nsub):
+    """The pair pass's node split: every submerged node in exactly one
+    share, no empty share, and the least waves of blocks (one block on
+    each of 132 SMs a wave) times the nodes a block walks plus 2."""
+    from raft_tpu_torch.ops.kernels.qtf_pair import (PAIR_TILE,
+                                                     TARGET_BLOCKS,
+                                                     node_split)
+
+    per = node_split(nw2, nsub)
+    splits = -(-nsub // per)
+    assert per >= 1 and (nsub == 0 or (splits - 1) * per < nsub <= splits
+                         * per)
+    tiles = (-(-nw2 // PAIR_TILE)) ** 2
+
+    def cost(p):
+        return -(-tiles * -(-nsub // p) // TARGET_BLOCKS) * (p + 2)
+
+    assert cost(per) == min(cost(p) for p in range(1, max(nsub, 1) + 1))

@@ -178,3 +178,27 @@ def test_failed_build_raises_kernel_failure(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(errors.KernelFailure, match="nvcc"):
         _build.build()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [1, 3, 5, 7, 9, 11, 13, 15])
+def test_odd_n_padding_is_exact(n, dtype):
+    """``pad_odd``, which the card's wrapper applies before the kernels
+    (they instantiate even n only): the plain version on the system padded
+    to n + 1 with a decoupled identity row and column gives the unpadded
+    system's x, and exactly 0 in the pad row, on random, pivoting and
+    row-scaled systems.  x agrees to rounding, not bitwise: the plain
+    version's refinement residual is a ``torch.sum`` over n + 1 terms in
+    place of n, which vectorises in another order at some lengths."""
+    rng = np.random.default_rng(90 + n)
+    A = torch.tensor(np.concatenate([_systems(rng, kind, 7, n) for kind in
+                                     ("random", "pivoting", "row_scales")]),
+                     dtype=dtype)
+    b = torch.tensor(rng.standard_normal((21, n, 3)), dtype=dtype)
+    Ap, bp = G.pad_odd(A, b)
+    assert Ap.shape == (21, n + 1, n + 1) and bp.shape == (21, n + 1, 3)
+    xp = G.gj_solve_plain(Ap, bp)
+    assert torch.all(xp[:, n] == 0)
+    assert _rel(xp[:, :n], G.gj_solve_plain(A, b)) <= \
+        10 * torch.finfo(dtype).eps
+    assert G.pad_odd(Ap, bp)[0] is Ap

@@ -271,3 +271,51 @@ def test_unknown_precision_raises_typed():
     b = torch.ones((1, 4, 1), dtype=torch.float64)
     with pytest.raises(errors.ModelConfigError):
         G.gj_solve(A, b, precision="f16")
+
+
+@pytest.mark.parametrize("width", ["f32", "bf16"])
+@pytest.mark.parametrize("n,k", [(2, 3), (6, 7), (12, 7), (12, 12),
+                                 (16, 13)])
+def test_ladder_in_column_chunks_matches_unchunked(width, n, k):
+    """``ladder_in_chunks``, the card wrapper's rule for the ladder with
+    k > n/2 right-hand sides (the kernels take at most n/2): run on the
+    plain version in column chunks of n/2, with one promotion decision per
+    lane from the rn of all chunks, it gives the unchunked plain ladder's
+    x (to rounding) and promoted count.  Every 4th lane is conditioned to
+    1e9 (it promotes), one has a NaN, and one lane's last column is 1e6x the
+    others (a chunk's own rn would misjudge it)."""
+    t_fd = WIDTHS[width][0]
+    rng = np.random.default_rng(60 + n + k)
+    lanes = 23
+    A = rng.standard_normal((lanes, n, n)) + 5.0 * np.eye(n)
+    for i in range(0, lanes, 4):
+        U, _, Vt = np.linalg.svd(A[i])
+        A[i] = (U * np.geomspace(1.0, 1e-9, n)) @ Vt
+    A[5, 0, 1] = np.nan
+    b = rng.standard_normal((lanes, n, k))
+    b[7, :, -1] *= 1e6
+    A, b = torch.tensor(A), torch.tensor(b)
+    kw = dict(refine=2, precision="mixed", factor_dtype=t_fd)
+    x0, st0 = G.gj_solve_plain(A, b, promote_tol=1e-9, return_stats=True,
+                               **kw)
+
+    def solve_chunk(bc):
+        x, st = G.gj_solve_plain(A, bc, promote_tol=float("inf"),
+                                 return_stats=True, **kw)
+        return x, st["rn"]
+
+    x, rn, promoted = G.ladder_in_chunks(
+        A, b, n // 2, solve_chunk, lambda Ap, bp: G.gj_solve_plain(
+            Ap, bp, refine=2), 1e-9)
+    assert int(promoted) == int(st0["promoted"]) >= 6
+    np.testing.assert_array_equal((rn <= 1e-9).numpy(),
+                                  (st0["rn"] <= 1e-9).numpy())
+    # the residual sums vectorise in another order at another column
+    # count, so x after refinement agrees to rounding (and the rn of a
+    # diverging cond-1e9 lane by far less than its distance from tol)
+    bad = torch.isnan(x0)
+    assert torch.equal(torch.isnan(x), bad) and bool(bad[5].all())
+    ill = torch.arange(0, lanes, 4)
+    well = torch.tensor([i for i in range(lanes) if i % 4 and i != 5])
+    assert _rel(x[ill], x0[ill]) < ILL_TOL
+    assert _rel(x[well], x0[well]) < WIDTHS[width][2]

@@ -169,7 +169,8 @@ def test_qtf_matches_jax_vmapped_and_pallas(variant):
 
 def test_pair_grid_wrapper_on_the_cpu_is_the_plain_version():
     """On a CPU tensor the wrapper runs the plain version and counts no
-    launch; the kernel's operands are frequency-major and checked."""
+    launch; the kernel's operands are lane-last, as ``qtf_fields`` builds
+    them, contiguous and checked."""
     jf, jp, kw = spar_inputs(10.0, True)
     tf = state_from_numpy(jf, "cpu")
     tp = TF.fowt_pose(tf, np.zeros(6))
@@ -181,8 +182,8 @@ def test_pair_grid_wrapper_on_the_cpu_is_the_plain_version():
                                                 9.81))
     ops, (nw2, N, nm) = K.kernel_operands(fields)
     assert (nw2, nm) == (5, 1) and N == fields["q"].shape[0]
-    assert ops["gu"].shape == (5, N, 3, 3) and ops["gu"].is_contiguous()
-    assert ops["wlc"].shape == (5, 1, 3, 3)
+    assert ops["gu"].shape == (N, 3, 3, 5) and ops["gu"].is_contiguous()
+    assert ops["wlc"].shape == (1, 3, 3, 5)
     bad = dict(fields, u=fields["u"].to(torch.complex64))
     with pytest.raises(errors.KernelFailure):
         K.kernel_operands(bad)
