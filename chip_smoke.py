@@ -57,8 +57,30 @@ Phases (any failure exits non-zero; no phase's failure is turned into a
               in phase 7, with exactly 1 K5 launch; then Vertical_cylinder
               with two JONSWAP headings (0 and 30 deg) on the coarse grid,
               exactly 2 K5 launches; K1 and K2 launch in both;
- 9. prints the kernels JSON line, the card line, and the final JSON line.
-Each path of phases 4-8 runs with the launch counters set to 0 just
+ 9. potflow — first-order potential flow on OC4semi at full width (the
+              YAML's dz_BEM 3.0, da_BEM 2.0, min_freq_BEM 0.03 Hz, 80 bins,
+              its first case), its coefficients from the committed WAMIT
+              cache of the JAX package's native-BEM solve
+              (tests/golden/oc4semi_bem/, read from a copy; a cache miss
+              fails instead of solving): (e) Model.preprocess_BEM on the
+              spar of tests/test_bem_native.py at that file's custom grid,
+              solved on the host through the port's own BEM build, its
+              files against the JAX package's (1e-9, equal cache key);
+              (a) potModMaster 2 against tests/golden/
+              oc4semi_bem.ledger.json as in phase 7; (b) potModMaster 3
+              from the cache's files, equal to (a) at 1e-12; (c) (a) plus
+              potSecOrder 1 on examples/example_qtf.py's second-order
+              grid against tests/golden/oc4semi_bem_qtf.metrics.json
+              (1e-6, iteration counts exact; its statics_residual, at the
+              rounding floor, printed beside the JAX package's two), with
+              exactly 1 K5 launch; (d) sweep_cases on (a)'s FOWT, 1024
+              seeded cases in f64 and mixed, 4 lanes against the serial
+              solve, mixed against f64 as in phase 5; then K1 against its
+              plain version at the BEM sweep's operands (M(w) and B(w)
+              shared by the cases, the variation in w asserted), timed
+              like the phase 3 rows;
+10. prints the kernels JSON line, the card line, and the final JSON line.
+Each path of phases 4-9 runs with the launch counters set to 0 just
 before it and read just after; every kernel of a path must launch in it.
 
 Options: --only-kernels stops after phase 3 (the short call after a
@@ -69,9 +91,11 @@ Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -101,6 +125,9 @@ SWEEP_RTOL = 1e-9
 MIXED_STD_RTOL = 1e-6
 VARIANT_SERIAL = 4
 QTF_TOL = 1e-12       # K5 vs plain, relative to max|Q| (node-sum order)
+BEM_FILES_TOL = 1e-9  # the port's preprocess_BEM files vs the JAX package's
+WAMIT_RERUN_TOL = 1e-12   # (b) from the cache's files vs (a)
+BEM_SERIAL_LANES = 4  # BEM sweep lanes held against the serial solve
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 #: where the full record (ptxas report, per-shape kernel rows, main-path
@@ -238,11 +265,14 @@ def _rel(a, b) -> float:
 
 
 def _normwise_residual(A, x, b) -> float:
-    """max over systems of |b - A x|_inf / (|A|_inf |x|_inf + |b|_inf)."""
+    """max over systems of |b - A x|_inf / (|A|_inf |x|_inf + |b|_inf); a
+    system with b = 0 and x = 0 (a frequency a sea state leaves empty)
+    has r = 0 and counts 0."""
     r = b - A @ x
     inf = lambda t: torch.amax(torch.abs(t), dim=(-2, -1))  # noqa: E731
     nA = torch.amax(torch.sum(torch.abs(A), dim=-1), dim=-1)
-    return float(torch.max(inf(r) / (nA * inf(x) + inf(b))))
+    den = nA * inf(x) + inf(b)
+    return float(torch.max(torch.where(den > 0, inf(r) / den, inf(r))))
 
 
 def _pivot_stack(g, lanes, n, dev):
@@ -1284,6 +1314,277 @@ def run_qtf(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: first-order potential flow
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def no_bem_solve(what):
+    """Inside: a native BEM solve fails the run instead of running (a
+    build that should hit the committed cache, where a miss would mean
+    minutes of host solve)."""
+    from raft_tpu_torch import errors
+    from raft_tpu_torch.io import bem_native
+
+    real = bem_native.solve_radiation_diffraction
+
+    def refuse(*a, **k):
+        raise errors.KernelFailure(f"{what}: the committed WAMIT cache "
+                                   "missed (mesher or cache key drift)",
+                                   kernel="bem_native")
+    bem_native.solve_radiation_diffraction = refuse
+    try:
+        yield
+    finally:
+        bem_native.solve_radiation_diffraction = real
+
+
+def _iters(led):
+    return {(e["key"], it): e["metrics"][it] for e in led["entries"]
+            for it in ("statics_iters", "drag_iters", "drag_converged")
+            if it in e["metrics"]}
+
+
+def check_impedance_bem(G, fowt):
+    """K1 at the BEM sweep's operands: M(w) = M_struc + A_morison +
+    A_BEM(w) and B(w) = B_BEM(w), both (6, 6, 80) and shared by 1024
+    cases, C shared, F (1024, 6, 80) the cases' wave excitation, from the
+    sweep's own set-up."""
+    from raft_tpu_torch._config import as_real
+    from raft_tpu_torch.parallel.sweep import make_case_solver
+
+    rng = np.random.default_rng(7)
+    nc, n = SWEEP_CASES, 6
+    w = as_real(fowt.w)
+    st = make_case_solver(fowt).setup(
+        as_real(1.0 + 11.0 * rng.random(nc), w.device),
+        as_real(4.0 + 14.0 * rng.random(nc), w.device),
+        as_real(np.deg2rad(360.0 * rng.random(nc)), w.device))
+    M, B, C, F = st["M_lin"], st["B_BEM"], st["C_lin"], st["F_lin"]
+    varies = float(torch.max(torch.abs(M - M[..., :1])))
+    X = G.impedance_gj_solve(w, M, B, C, F)
+    Xp = G.impedance_gj_solve_plain(w, M, B, C, F)
+    torch.cuda.synchronize()
+    rel = _rel(X, Xp)
+    lanes = nc * fowt.nw
+    row = dict(lanes=lanes, case="bem_operands", rel_vs_plain=rel,
+               rel_ill=None, max_abs_err=float(torch.max(torch.abs(X - Xp))),
+               M_variation=varies, shapes=dict(M=list(M.shape),
+                                               B=list(B.shape),
+                                               C=list(C.shape),
+                                               F=list(F.shape)))
+    Z = (-(w ** 2) * M + 1j * w * B + C[..., None]).movedim(-1, -3)
+    Fz = F.movedim(-1, -2)[..., None]
+    row["normwise_residual"] = _normwise_residual(
+        Z, X.movedim(-1, -2)[..., None], Fz)
+    if not (rel <= X_TOL and row["normwise_residual"] <= RESID_TOL
+            and varies > 0 and bool(torch.all(torch.isfinite(X)))):
+        fail(f"impedance_gj bem_operands lanes={lanes}: rel={rel:.3e}, "
+             f"residual {row['normwise_residual']:.2e}, max|M - M[..., :1]|"
+             f" {varies}")
+    Zb = torch.broadcast_to(Z, (nc,) + tuple(Z.shape[-3:]))
+    _time_row(row, lambda: G.impedance_gj_solve(w, M, B, C, F),
+              lambda: G.impedance_gj_solve_plain(w, M, B, C, F),
+              lambda: torch.linalg.solve(Zb, Fz), KERNEL_NAMES["impedance_gj"])
+    # the same systems with M and B materialised once, outside the call:
+    # the kernel's device time without the wrapper's fresh 47 MB copy of
+    # them just ahead of it (ROADMAP B2)
+    Mc, Bc = (torch.broadcast_to(t, (nc,) + tuple(t.shape)).contiguous()
+              for t in (M, B))
+    row["device_ms_materialised"] = device_ms(
+        lambda: G.impedance_gj_solve(w, Mc, Bc, C, F),
+        KERNEL_NAMES["impedance_gj"])
+    row["bound_ms"], row["bound_by"] = bound(
+        nbytes(w, M, B, C, F, X), lanes * (gj_flops(2 * n, 1) + 8 * n * n))
+    ROWS["impedance_gj_bem"] = [row]
+    _log_row("impedance_gj", row)
+    log(f"  impedance_gj             bem_operands, M and B materialised "
+        f"outside the call: device {row['device_ms_materialised']} ms")
+    return row
+
+
+def run_potflow(dev):
+    """The potential-flow phase: (e) the spar's preprocess_BEM solved on
+    the host, then OC4semi at full width from the committed cache: (a)
+    the native-BEM model, (b) from its files, (c) with the QTF, (d) the
+    BEM sweep in f64 and mixed, and K1 at the sweep's operands."""
+    from raft_tpu_torch import Model, _config, ledger
+    from raft_tpu_torch.io import bem_native
+    from raft_tpu_torch.models import potflow_cases as PC
+    from raft_tpu_torch.ops.kernels import gj_solve as G
+    from raft_tpu_torch.parallel.sweep import make_case_solver, sweep_cases
+
+    golden = os.path.join(ROOT, "tests", "golden")
+    work = os.path.join(OUT, "potflow")
+    shutil.rmtree(work, ignore_errors=True)
+    cache = os.path.join(work, "oc4semi")
+    shutil.copytree(os.path.join(golden, "oc4semi_bem"), cache)
+    spar_ref = os.path.join(golden, "bem_spar_preprocess")
+    out = {}
+    expect = ("impedance_gj", "gj_solve")
+
+    # (e) the spar's custom-grid export, solved on the host; its build
+    # reads the JAX package's files for this call (potModMaster 3), so
+    # the only solve is the export's
+    shutil.copytree(spar_ref, os.path.join(work, "spar_in"))
+    export = os.path.join(work, "spar_export")
+    t0 = time.perf_counter()
+    bem_native.load()           # g++ builds the library here, not in the solve
+    out["bem_build"] = dict(seconds=time.perf_counter() - t0,
+                            **bem_native.BUILD_INFO)
+    log(f"  native BEM library: {out['bem_build']}")
+    with counted("potflow_preprocess", ()):
+        m = Model(PC.spar_design(hydro_path=os.path.join(work, "spar_in",
+                                                         "Output")),
+                  device=dev)
+        bem_native.LAST_SOLVE.clear()
+        t0 = time.perf_counter()
+        m.preprocess_BEM(mesh_dir=export, **PC.PREPROCESS)
+        wall = time.perf_counter() - t0
+    rel, key_ok = PC.wamit_deviation(spar_ref, export)
+    solve = dict(bem_native.LAST_SOLVE)
+    out["preprocess"] = dict(wall_s=wall, solve=solve, rel_vs_jax=rel,
+                             key_equal=key_ok)
+    log(f"  (e) spar preprocess_BEM: {wall:.2f} s ({solve}); files vs the "
+        f"JAX package's: worst rel {rel:.2e}, cache key equal {key_ok}")
+    if not solve or rel > BEM_FILES_TOL or not key_ok:
+        fail(f"(e) preprocess_BEM: rel {rel:.2e} vs the JAX package's "
+             f"files, key equal {key_ok}, solve {solve}")
+
+    def analyzed(path, design, kinds=expect):
+        with counted(path, kinds):
+            t0 = time.perf_counter()
+            with no_bem_solve(path):
+                m = Model(design, device=dev)
+            m.analyzeUnloaded()
+            m.analyzeCases()
+            torch.cuda.synchronize()
+        return m, time.perf_counter() - t0
+
+    def case_line(m):
+        c = m.results["case_metrics"][0][0]
+        return ", ".join(f"{ch} std {float(c[f'{ch}_std']):.6f}"
+                         for ch in ("surge", "heave", "pitch"))
+
+    # (a) the native-BEM model on the cache
+    ma, wall = analyzed("potflow_bem", PC.oc4semi_bem_design(cache))
+    out["oc4semi_bem"] = dict(
+        wall_s=wall, timings=dict(ma.timings),
+        launches=PATH_LAUNCHES["potflow_bem"],
+        golden=_golden_check("OC4semi BEM", ma.last_ledger,
+                             "oc4semi_bem.ledger.json"))
+    log(f"  (a) OC4semi native BEM, {ma.nw} bins: {wall:.2f} s; split "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in ma.timings.items())
+        + f"; {case_line(ma)}")
+
+    # (b) the same from the cache's files
+    mb, wall = analyzed("potflow_wamit",
+                        PC.oc4semi_wamit_design(os.path.join(cache,
+                                                             "Output")))
+    rep = ledger.diff(ma.last_ledger, mb.last_ledger,
+                      tol_rel=WAMIT_RERUN_TOL, per_metric={"*": WAMIT_RERUN_TOL})
+    same_iters = _iters(ma.last_ledger) == _iters(mb.last_ledger)
+    out["oc4semi_wamit"] = dict(wall_s=wall, timings=dict(mb.timings),
+                                launches=PATH_LAUNCHES["potflow_wamit"],
+                                identical=rep["identical"],
+                                n_compared=rep["n_compared"],
+                                regressions=len(rep["regressions"]),
+                                iters_equal=same_iters)
+    log(f"  (b) OC4semi from its WAMIT files (potModMaster 3): {wall:.2f} s; "
+        + ledger.format_diff(rep).replace("\n", ";")
+        + f"; iteration counts equal {same_iters}")
+    if not rep["ok"] or not same_iters:
+        fail("(b) OC4semi from its WAMIT files differs from (a)")
+
+    # (c) with the second-order QTF: held by its physics record
+    mc, wall = analyzed("potflow_qtf", PC.oc4semi_bem_qtf_design(cache),
+                        kinds=expect + ("qtf_pair",))
+    with open(os.path.join(golden, "oc4semi_bem_qtf.metrics.json")) as f:
+        ref = json.load(f)
+    live = PC.metrics_record(mc.results, mc.last_ledger)
+    rel, iters_ok = PC.metrics_deviation(ref, live)
+    res = dict(port=live["statics_residual"], jax_host=ref["statics_residual"],
+               jax_default=ref["statics_residual_default"])
+    # where the port's residual falls in the ledger's 0.5 residual band
+    # against each JAX backend's (reported, not held: ROADMAP C7)
+    for b in ("jax_host", "jax_default"):
+        res[f"band_rel_{b}"] = abs(res["port"] - res[b]) / max(res["port"],
+                                                               res[b])
+    out["oc4semi_bem_qtf"] = dict(
+        wall_s=wall, timings=dict(mc.timings), nw2=len(mc.fowtList[0].w1_2nd),
+        launches=PATH_LAUNCHES["potflow_qtf"], metrics_max_rel=rel,
+        iters=live["iters"], iters_equal=iters_ok, statics_residual=res)
+    log(f"  (c) OC4semi native BEM + potSecOrder 1: {wall:.2f} s; split "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in mc.timings.items())
+        + f"; {case_line(mc)}; metrics vs the JAX package worst rel "
+        f"{rel:.2e}, iters {live['iters']} equal {iters_ok}; "
+        f"statics_residual {res}")
+    if rel > PC.METRICS_TOL or not iters_ok:
+        fail(f"(c) OC4semi BEM + QTF: metrics rel {rel:.2e}, iteration "
+             f"counts equal {iters_ok}")
+    if PATH_LAUNCHES["potflow_qtf"].get("qtf_pair") != 1:
+        fail(f"(c): K5 launched {PATH_LAUNCHES['potflow_qtf'].get('qtf_pair')}"
+             " times, not 1")
+
+    # (d) the BEM sweep: A(w) and B(w) shared by the cases
+    fowt = ma.fowtList[0]
+    rng = np.random.default_rng(2026)
+    nc = SWEEP_CASES
+    Hs = 1.0 + 11.0 * rng.random(nc)
+    Tp = 4.0 + 14.0 * rng.random(nc)
+    beta = np.deg2rad(360.0 * rng.random(nc))
+    sweeps = {}
+    for mode, kind in (("f64", "impedance_gj"),
+                       ("mixed", "impedance_gj_mixed")):
+        _config.set_precision_mode(mode)
+        try:
+            with counted(f"potflow_sweep_{mode}", (kind,)):
+                t0 = time.perf_counter()
+                sw = sweep_cases(fowt, Hs, Tp, beta, nIter=10, tol=0.01,
+                                 device=dev)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            _config.set_precision_mode(None)
+        sweeps[mode] = sw
+        conv = int(sw["converged"].sum())
+        finite = bool(torch.all(torch.isfinite(sw["std"])))
+        out[f"sweep_{mode}"] = dict(
+            wall_s=wall, converged=conv, fp_chunks=sw["fp_chunks"],
+            launches=PATH_LAUNCHES[f"potflow_sweep_{mode}"])
+        log(f"  (d) BEM sweep {mode}: {nc} cases x {fowt.nw} bins in "
+            f"{wall:.3f} s; converged {conv}/{nc}")
+        if not finite:
+            fail(f"(d) BEM sweep {mode}: non-finite std")
+    solver = make_case_solver(fowt, nIter=10, tol=0.01)
+    worst = 0.0
+    for i in range(BEM_SERIAL_LANES):
+        ref_i = solver(float(Hs[i]), float(Tp[i]), float(beta[i]))
+        a, b = sweeps["f64"]["Xi"][i], ref_i["Xi"]
+        worst = max(worst, float(torch.max(torch.abs(a - b))
+                                 / torch.max(torch.abs(b))))
+        if not _allclose(a, b, SWEEP_RTOL,
+                         atol=1e-12 * float(torch.max(torch.abs(b)))):
+            fail(f"(d) BEM sweep lane {i} differs from the serial solve")
+    f, mx = sweeps["f64"], sweeps["mixed"]
+    std_rel = float(torch.max(torch.abs(mx["std"] - f["std"])
+                              / torch.abs(f["std"]).clamp(min=1e-300)))
+    same_iters = bool(torch.equal(mx["iters"], f["iters"]))
+    same_conv = bool(torch.equal(mx["converged"], f["converged"]))
+    out["sweep_checks"] = dict(serial_worst_rel=worst, mixed_std_rel=std_rel,
+                               mixed_iters_equal=same_iters,
+                               mixed_converged_equal=same_conv)
+    log(f"  (d) checks: {BEM_SERIAL_LANES} lanes vs serial worst rel "
+        f"{worst:.2e}; mixed vs f64 std rel {std_rel:.2e}, iters equal "
+        f"{same_iters}, converged equal {same_conv}")
+    if std_rel > MIXED_STD_RTOL or not same_iters or not same_conv:
+        fail(f"(d) BEM sweep mixed vs f64: std rel {std_rel:.2e}, iters "
+             f"equal {same_iters}, converged equal {same_conv}")
+
+    out["k1_bem_row"] = check_impedance_bem(G, fowt)
+    return out
+
+
 # kernel line: (JSON name, launch key, TPU kernel it replaces, CUDA source,
 # the main-path shape its times are taken at)
 KERNELS = (
@@ -1374,7 +1675,8 @@ def main() -> int:
                      ("variants", lambda: run_variants(dev)),
                      ("golden", lambda: run_goldens(dev, "f64")),
                      ("golden_mixed", lambda: run_goldens(dev, "mixed")),
-                     ("qtf", lambda: run_qtf(dev))):
+                     ("qtf", lambda: run_qtf(dev)),
+                     ("potflow", lambda: run_potflow(dev))):
         log(f"{name}: on the card")
         t0 = time.perf_counter()
         phases[name] = fn()

@@ -30,17 +30,21 @@ HOST_FIELDS = {
                    "r_thick_interp", "aoa_grid"},
     # a QTF read from a .12d file: host numpy, interpolated per case
     "QTFData": {"heads_rad", "w", "qtf"},
+    # the BEM headings are searched on the host (io/wamit.bem_excitation)
+    "BEMData": {"headings"},
 }
 
 
 def _port_classes():
+    from raft_tpu_torch.io.wamit import BEMData
     from raft_tpu_torch.models.fowt import FOWTModel, NodeSet
     from raft_tpu_torch.models.member import MemberGeometry
     from raft_tpu_torch.models.mooring import MooringSystem
     from raft_tpu_torch.models.qtf import QTFData
     from raft_tpu_torch.models.rotor import RotorModel
-    return {c.__name__: c for c in (FOWTModel, NodeSet, MemberGeometry,
-                                    MooringSystem, QTFData, RotorModel)}
+    return {c.__name__: c for c in (BEMData, FOWTModel, NodeSet,
+                                    MemberGeometry, MooringSystem, QTFData,
+                                    RotorModel)}
 
 
 def _array(x, device):

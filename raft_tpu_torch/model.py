@@ -20,14 +20,19 @@ raft/raft_model.py) on PyTorch:
   factored impedance (the other headings), and re-solves the statics with
   the mean drift included.  ``outFolderQTF`` drops ``.4`` / ``.12d``
   snapshots and reloads a content-keyed QTF.
+- First-order potential flow: the BEM added mass A(w) and damping B(w)
+  enter the impedance (so K1 sees an M and a B that vary from bin to
+  bin) and the BEM excitation the right-hand side; `preprocess_BEM`
+  re-solves the native BEM on a custom grid and writes WAMIT files.
 - `solveEigen` (reference :391-476), host NumPy.
 - `analyzeCases` / `saveTurbineOutputs` / `calcOutputs` / `run_raft`.
 
-Everything runs on ``Model.device`` (the card unless ``device="cpu"``).
-Not part of the port yet: farms/arrays, potential flow, ballast trim,
-the Kim & Yue correction, and the JAX package's observability, probes,
-journal/resume, quarantine and recovery ladder — failures raise typed
-errors, as the JAX package does with ``RAFT_TPU_RECOVERY=0``.
+Everything runs on ``Model.device`` (the card unless ``device="cpu"``);
+the native BEM solve and the WAMIT parsing are host work at build time.
+Not part of the port yet: farms/arrays, ballast trim, MacCamy-Fuchs
+members, the Kim & Yue correction, and the JAX package's observability,
+probes, journal/resume, quarantine and recovery ladder — failures raise
+typed errors, as the JAX package does with ``RAFT_TPU_RECOVERY=0``.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ import torch
 
 from raft_tpu_torch import errors, ledger as _ledger
 from raft_tpu_torch._config import COMPLEX, REAL, as_real, resolve_device
+from raft_tpu_torch.io.bem_native import solve_bem_fowt
 from raft_tpu_torch.io.wamit import bem_coeffs
 from raft_tpu_torch.models import mooring as mr
 from raft_tpu_torch.models.fowt import (
@@ -865,6 +871,25 @@ class Model:
         props["C support structure"] = _np(stat["C_struc_sub"] + stat["C_hydro"]) \
             + C_moor0
         return self.results
+
+    def preprocess_BEM(self, dw=0.05, wMax=3.0, mesh_dir=None,
+                       headings=None, dz=None, da=None):
+        """Re-run the native BEM core on the grid ``dw`` to ``wMax``
+        [rad/s] and write WAMIT-format .1/.3 coefficient files plus the
+        panel mesh (reference: raft_model.py:1310-1330 preprocess_HAMS).
+        One output directory per FOWT (``mesh_dir`` gets a ``_WT{i}``
+        suffix for i > 0).  The solve runs on the host; a library that
+        fails to build or load raises ``KernelFailure``.  Returns the
+        per-FOWT `BEMData` (numpy)."""
+        w_bem = np.arange(dw, wMax + 0.5 * dw, dw)
+        out = []
+        for i, fowt in enumerate(self.fowtList):
+            d = mesh_dir if (mesh_dir is None or i == 0) \
+                else f"{mesh_dir}_WT{i}"
+            out.append(solve_bem_fowt(fowt, headings=headings, dz=dz, da=da,
+                                      w_bem=w_bem, mesh_dir=d,
+                                      max_freqs=len(w_bem)))
+        return out
 
 
 def run_raft(design_or_path, ballast=False, device=None):

@@ -20,12 +20,19 @@ model's device): the `fowt_*` functions mirror the reference methods:
   calcCurrentLoads       -> fowt_current_loads      (raft_fowt.py:1297-1382)
   calcTurbineConstants   -> fowt_turbine_constants  (raft_fowt.py:773-845)
 
+First-order potential flow: ``potFirstOrder: 1`` / ``potModMaster: 3``
+read WAMIT ``.1``/``.3`` files at ``hydroPath`` (``io/wamit.py``);
+otherwise potential-flow members (``potMod``, or every member under
+``potModMaster: 2``) are meshed and solved by the native BEM core on the
+host (``io/bem_native.py``, cached in ``meshDir``).  The coefficients
+(`BEMData`) are host numpy at build time and tensors on the model's
+device afterwards.
+
 Second-order loads: ``potSecOrder: 1`` sets up the second-order grid
 (``w1_2nd`` / ``k1_2nd``) for the internal slender-body QTF
 (``models/qtf.py``), ``potSecOrder: 2`` reads ``hydroPath + ".12d"``
-into ``qtf_data``.  Potential-flow members, MacCamy-Fuchs members and
-submerged rotors are not part of the port yet: they raise
-``ModelConfigError``.
+into ``qtf_data``.  MacCamy-Fuchs members and submerged rotors are not
+part of the port yet: they raise ``ModelConfigError``.
 """
 from __future__ import annotations
 
@@ -39,6 +46,8 @@ import torch
 
 from raft_tpu_torch import errors
 from raft_tpu_torch._config import COMPLEX, REAL, as_real
+from raft_tpu_torch.io.bem_native import solve_bem_fowt
+from raft_tpu_torch.io.wamit import bem_excitation, load_bem
 from raft_tpu_torch.models.member import (
     MemberGeometry, build_member_geometry, member_pose, member_inertia,
     member_hydrostatics,
@@ -143,7 +152,8 @@ def build_fowt(design: dict, w, depth=600.0, x_ref=0.0, y_ref=0.0,
                heading_adjust=0.0, device=None,
                geometry_only=False) -> FOWTModel:
     """Parse a design dict into a FOWTModel (reference: raft_fowt.py:
-    22-257), strip-theory designs only.  With ``device`` the built arrays
+    22-257); potential-flow members read their WAMIT files or are solved
+    by the native BEM on the host here.  With ``device`` the built arrays
     are carried onto it.  ``geometry_only`` skips the potential-flow and
     second-order setup, for callers that only need the member geometry
     (the variant-sweep grid)."""
@@ -229,17 +239,19 @@ def build_fowt(design: dict, w, depth=600.0, x_ref=0.0, y_ref=0.0,
 
     nodes = _build_nodeset(members)
 
+    # potential-flow coefficient files (reference: raft_fowt.py:222-227 for
+    # potFirstOrder 1; :654-655 reuses the same path for potModMaster 3)
     potFirstOrder = int(get_from_dict(platform, "potFirstOrder", dtype=int, default=0))
+    bem = None
+    if not geometry_only and (potFirstOrder == 1 or potModMaster == 3):
+        if "hydroPath" not in platform:
+            raise ValueError("potFirstOrder==1/potModMaster==3 require "
+                             "'hydroPath' in the platform input")
+        bem = load_bem(platform["hydroPath"], w, rho=rho_water, g=g,
+                       freq=str(platform.get("hydroFreqType", "auto")))
     potSecOrder = int(get_from_dict(platform, "potSecOrder", dtype=int, default=0))
     if geometry_only:
         potSecOrder = 0
-    if not geometry_only and (
-            potFirstOrder == 1 or potModMaster in (2, 3)
-            or any(m.potMod for m in members)):
-        raise errors.ModelConfigError(
-            "potential-flow members are not part of the PyTorch port yet "
-            "(strip theory, potModMaster: 1, only)",
-            potModMaster=potModMaster, potFirstOrder=potFirstOrder)
     if any(m.MCF for m in members):
         raise errors.ModelConfigError(
             "MacCamy-Fuchs members are not part of the PyTorch port yet")
@@ -272,9 +284,20 @@ def build_fowt(design: dict, w, depth=600.0, x_ref=0.0, y_ref=0.0,
         heading_adjust=float(heading_adjust),
         nplatmems=nplatmems, ntowers=ntowers,
         platmem_groups=platmem_groups, potModMaster=potModMaster,
-        potSecOrder=potSecOrder, potFirstOrder=potFirstOrder, bem=None,
+        potSecOrder=potSecOrder, potFirstOrder=potFirstOrder, bem=bem,
         w1_2nd=w1_2nd, k1_2nd=k1_2nd, qtf_data=qtf_data,
     )
+    if not geometry_only and bem is None and fowt.potMod_any:
+        # potMod members get no strip-theory hydro: the native BEM core
+        # solves their panel mesh on the host (the reference's pyHAMS
+        # step, raft_fowt.py:568-650).  min_freq_BEM [Hz] is both the
+        # lowest BEM frequency and its step (raft_fowt.py:121-122)
+        mf_bem = get_from_dict(platform, "min_freq_BEM", default=0.0)
+        fowt.bem = solve_bem_fowt(
+            fowt, dz=float(get_from_dict(platform, "dz_BEM", default=3.0)),
+            da=float(get_from_dict(platform, "da_BEM", default=2.0)),
+            dw_bem=2.0 * np.pi * float(mf_bem) if mf_bem else None,
+            mesh_dir=platform.get("meshDir"))
     if device is not None:
         from raft_tpu_torch.convert import state_from_numpy
         fowt = state_from_numpy(fowt, device)
@@ -584,14 +607,21 @@ def _host(x):
 
 
 def fowt_bem_excitation(fowt: FOWTModel, seastate):
-    """Potential-flow wave excitation per heading, (nH,6,nw) complex:
-    zero for strip-theory designs (reference: raft_fowt.py:1034-1093
-    computes F_BEM only for potential-flow members / potModMaster 2-3)."""
-    nH = torch.atleast_1d(torch.as_tensor(seastate["beta"])).shape[0]
-    if fowt.bem is not None:
-        raise errors.ModelConfigError(
-            "potential-flow excitation is not part of the PyTorch port yet")
-    return torch.zeros((nH, 6, fowt.nw), dtype=COMPLEX, device=fowt.device)
+    """Potential-flow wave excitation per heading, (nH,6,nw) complex on
+    the model's device (reference: raft_fowt.py:1034-1093).  Zero when no
+    BEM data applies: the reference computes F_BEM only when a member is
+    potential-flow modelled or potModMaster is 2/3 (raft_fowt.py:1040).
+    The heading axis is a batch axis (a batch of cases' sea states)."""
+    dev = fowt.device
+    beta = as_real(seastate["beta"], dev).reshape(-1)
+    nH = beta.shape[0]
+    if fowt.bem is None or not (fowt.potMod_any
+                                or fowt.potModMaster in (2, 3)):
+        return torch.zeros((nH, 6, fowt.nw), dtype=COMPLEX, device=dev)
+    zeta = torch.as_tensor(seastate["zeta"], device=dev).reshape(nH, -1)
+    return bem_excitation(fowt.bem, beta, zeta, as_real(fowt.k, dev),
+                          x_ref=fowt.x_ref, y_ref=fowt.y_ref,
+                          heading_adjust=fowt.heading_adjust)
 
 
 def fowt_hydro_excitation(fowt: FOWTModel, pose, seastate, hydro_consts):

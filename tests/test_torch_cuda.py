@@ -341,3 +341,73 @@ def test_gj_ladder_k_above_half_n_on_the_card(card, n, k):
         assert torch.equal(~(st["rn"] <= 1e-9), ~(stp["rn"] <= 1e-9))
         assert _rel(x[well], xp[well]) < tol
         assert _rel(x[ill], xp[ill]) < ill_tol
+
+
+# ---------------------------------------------------------------------------
+# first-order potential flow
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_impedance_kernel_with_m_and_b_varying_in_w_on_the_card(card):
+    """K1 where M(w) and B(w) vary from bin to bin and are shared by a
+    case axis (the BEM sweep's operands), C shared, F per case: the
+    8-frequency tile staging and the broadcast path against the plain
+    version, on a bin count that leaves a ragged tile."""
+    rng = np.random.default_rng(31)
+    nb, n, nw = 37, 6, 83
+    w = torch.tensor(np.linspace(0.03, 2.5, nw), device=card)
+    M = torch.tensor(rng.standard_normal((n, n, nw))
+                     + 5.0 * np.eye(n)[:, :, None], device=card)
+    B = torch.tensor(0.1 * rng.standard_normal((n, n, nw)), device=card)
+    C = torch.tensor(_systems(rng, "random", 1, n)[0] * 10.0, device=card)
+    F = torch.tensor(rng.standard_normal((nb, n, nw))
+                     + 1j * rng.standard_normal((nb, n, nw)), device=card)
+    assert float(torch.max(torch.abs(M - M[..., :1]))) > 0
+    G.reset_launches()
+    X = G.impedance_gj_solve(w, M, B, C, F)
+    assert X.shape == (nb, n, nw) and G.LAUNCHES["impedance_gj"] == 1
+    assert _rel(X, G.impedance_gj_solve_plain(w, M, B, C, F)) < 1e-10
+
+
+@pytest.mark.cuda
+def test_bem_library_builds_and_loads_on_the_card_host(card):
+    """The port's own build of the native BEM core on the card's host:
+    every library it needs is found, and none is a system LAPACK."""
+    import subprocess
+
+    from raft_tpu_torch.io import bem_native as TB
+
+    lib = TB.build()
+    out = subprocess.run(["ldd", lib], capture_output=True, text=True)
+    assert out.returncode == 0, out.stderr
+    assert "not found" not in out.stdout, out.stdout
+    assert "liblapack" not in out.stdout and "libblas" not in out.stdout
+    assert TB.load() is TB.load()
+
+
+@pytest.mark.cuda
+def test_oc4semi_bem_model_on_the_card_matches_cpu(card, tmp_path):
+    """OC4semi on the native BEM from the committed cache: the card's
+    run against the port's CPU run at 1e-9."""
+    import os
+    import shutil
+
+    from raft_tpu_torch.model import Model
+    from raft_tpu_torch.models import potflow_cases as PC
+
+    cache = tmp_path / "cache"
+    shutil.copytree(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "golden", "oc4semi_bem"), cache)
+    runs = {}
+    for dev in ("cpu", card):
+        m = Model(PC.oc4semi_bem_design(cache), device=dev)
+        m.analyzeUnloaded()
+        m.analyzeCases()
+        runs[str(dev)] = m
+    a, b = runs["cpu"], runs[str(card)]
+    assert np.max(np.abs(b.Xi - a.Xi)) <= 1e-9 * np.max(np.abs(a.Xi))
+    ca, cb = a.results["case_metrics"][0][0], b.results["case_metrics"][0][0]
+    for ch in ("surge", "sway", "heave", "roll", "pitch", "yaw"):
+        for stat in ("avg", "std"):
+            key = f"{ch}_{stat}"
+            assert abs(cb[key] - ca[key]) <= 1e-9 * abs(ca[key]) + 1e-15, key

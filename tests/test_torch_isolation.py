@@ -58,6 +58,16 @@ def test_probe_covers_the_sweep_modules(probed_modules):
         assert name in probed_modules, name
 
 
+def test_probe_covers_the_potential_flow_modules(probed_modules):
+    """The WAMIT I/O, the panel mesher, the native BEM wrapper and the
+    shared potential-flow cases are among the probed modules."""
+    for name in ("raft_tpu_torch.io.wamit",
+                 "raft_tpu_torch.io.mesh",
+                 "raft_tpu_torch.io.bem_native",
+                 "raft_tpu_torch.models.potflow_cases"):
+        assert name in probed_modules, name
+
+
 def _sources():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "raft_tpu_torch")):
