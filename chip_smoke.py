@@ -79,8 +79,28 @@ Phases (any failure exits non-zero; no phase's failure is turned into a
               plain version at the BEM sweep's operands (M(w) and B(w)
               shared by the cases, the variation in w asserted), timed
               like the phase 3 rows;
-10. prints the kernels JSON line, the card line, and the final JSON line.
-Each path of phases 4-9 runs with the launch counters set to 0 just
+10. mhk    — submerged rotors and the general single-body mooring
+              (models/mhk_cases.py, goldens of tests/golden/mhk_golden.py):
+              run_raft on RM1_Floating at its own 400 bins (its shipped
+              still-water case and a JONSWAP case) and on FOCTT_example's
+              converging case (m2b), each against its full-width physics
+              record (every case's metrics at 1e-6, iteration counts
+              exact; the statics residual, at the rounding floor, at most
+              4x the larger JAX backend's, its 0.5 band printed) and RM1
+              against its ledger golden (every other metric at the golden
+              bars), the per-case cavitation arrays at 1e-9; FOCTT's
+              build and shipped-case constants on the card against
+              foctt_build.json at 1e-9 (m2a); FOCTT's shipped case run to
+              its end (statics at the iteration cap, ROADMAP C8: printed,
+              compared with nothing); OC3spar with a clump weight on each
+              line (m3, free points) against its record and its ledger
+              golden, as RM1; K1 exactly once
+              per drag pass and K2 once per case on every path; then
+              sweep_cases on RM1's FOWT, 256 seeded cases x 400 bins
+              (102,400 lanes per K1 launch), 4 lanes against the serial
+              solve (rtol 1e-9);
+11. prints the kernels JSON line, the card line, and the final JSON line.
+Each path of phases 4-10 runs with the launch counters set to 0 just
 before it and read just after; every kernel of a path must launch in it.
 
 Options: --only-kernels stops after phase 3 (the short call after a
@@ -176,40 +196,57 @@ def time_ms(fn, reps=30, warmup=3) -> float:
     return start.elapsed_time(end) / reps
 
 
+#: what each device_ms call saw, in call order: the kernel names asked
+#: for, and whether its profiler session raised (and what), how many
+#: device events it held and how many matched
+DEVICE_MS_LOG: list = []
+
+
 def device_ms(fn, kernel_substr, reps=20, by_kernel=None):
     """Device time per call of ``fn``: the summed device time of every
     CUDA kernel whose name contains ``kernel_substr`` (or any of a tuple
     of substrings: the demangled and the mangled spelling) over ``reps``
     calls, from torch.profiler's CUDA activity, divided by ``reps`` (so a
     call that launches several kernels counts them all); None when the
-    profiler sees no device time.  ``by_kernel``, a dict, gets each
-    matching kernel's ms per call by name."""
+    profiler sees no device time.  Each call's session is logged in
+    DEVICE_MS_LOG.  ``by_kernel``, a dict, gets each matching kernel's ms
+    per call by name."""
     subs = (kernel_substr,) if isinstance(kernel_substr, str) \
         else tuple(kernel_substr)
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    note = dict(kernels=subs[0])
+    DEVICE_MS_LOG.append(note)
     try:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-    except (RuntimeError, AttributeError):
+        events = prof.key_averages()
+    except (RuntimeError, AttributeError) as e:
+        note["error"] = f"{type(e).__name__}: {e}"
+        log(f"  device_ms: no device time for {subs[0]}: {note}")
         return None
-    tot = 0.0
-    for ev in prof.key_averages():
+    tot, hits = 0.0, 0
+    for ev in events:
         if any(sub in ev.key for sub in subs):
             t = getattr(ev, "device_time_total", None)
             if t is None:
                 t = getattr(ev, "cuda_time_total", 0.0)
             tot += t
+            hits += 1
             if by_kernel is not None:
                 words = ev.key.replace("(", " ").split()
                 name = next((w.split("::")[-1] for w in words
                              if any(sub in w for sub in subs)), ev.key[:60])
                 by_kernel[name] = by_kernel.get(name, 0.0) + t / reps / 1e3
-    return tot / reps / 1e3 if tot > 0 else None
+    note.update(events=len(events), matched=hits, device_us=tot)
+    if tot > 0:
+        return tot / reps / 1e3
+    log(f"  device_ms: no device time for {subs[0]}: {note}")
+    return None
 
 
 def launch_floor_ms() -> float:
@@ -954,7 +991,7 @@ def check_qtf(dev):
 
 
 # ---------------------------------------------------------------------------
-# phases 4-8: the paths, each with its own launch counts
+# phases 4-10: the paths, each with its own launch counts
 # ---------------------------------------------------------------------------
 
 #: launches per path, read just after it ran (counters set to 0 just
@@ -1585,6 +1622,239 @@ def run_potflow(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: submerged rotors (MHK) and the general single-body mooring
+# ---------------------------------------------------------------------------
+
+MHK_SWEEP_CASES = 256   # x 400 bins = 102,400 lanes per K1 launch
+MHK_SERIAL_LANES = 4
+
+
+def _held_golden(name, m, stem):
+    """A phase 10 model against its full-width goldens: the physics record
+    (every case's metrics at 1e-6, the iteration counts exact), the
+    statics residual one-sided (at most ``mhk_cases.RESIDUAL_FACTOR``
+    times the larger JAX backend's), and where the model has one
+    (``mhk_cases.LEDGER_STEMS``) the ledger golden at the golden bars.
+    The residual sits at the rounding floor, where the ledger's 0.5 band
+    decides by rounding (ROADMAP C7): its band verdict is printed."""
+    from raft_tpu_torch import ledger
+    from raft_tpu_torch.models import mhk_cases as MC
+
+    gdir = os.path.join(ROOT, "tests", "golden")
+    with open(MC.golden_file(gdir, stem, coarse=False)) as f:
+        ref = json.load(f)
+    live = MC.case_records(m.results, m.last_ledger)
+    rel, same = MC.case_records_deviation(ref, live)
+    ratio, held = MC.residual_held(ref, live)
+    res = dict(port=[c["statics_residual"] for c in live["cases"]],
+               jax_host=[c["statics_residual"] for c in ref["cases"]],
+               jax_default=ref["statics_residual_default"],
+               ratio_to_larger_jax=ratio)
+    log(f"  [{name}] physics record vs the JAX package: worst rel "
+        f"{rel:.2e}, iteration counts equal {same}; statics_residual {res}")
+    rec = dict(worst_rel=rel, iters_equal=same, statics_residual=res)
+    if rel > GOLDEN_TOL or not same:
+        fail(f"{name}: physics record rel {rel:.2e}, iteration counts "
+             f"equal {same}")
+    if not held:
+        fail(f"{name}: statics_residual {ratio:.3g} x the JAX package's, "
+             f"above {MC.RESIDUAL_FACTOR}")
+    if stem in MC.LEDGER_STEMS:
+        chk = MC.ledger_golden_check(
+            ledger.load_ledger(MC.ledger_golden_file(gdir, stem, False)),
+            m.last_ledger, tol=GOLDEN_TOL, resid_tol=GOLDEN_RESID_TOL)
+        log(f"  [{name}] ledger golden: "
+            + ledger.format_diff(chk["report"]))
+        rec["ledger"] = dict(
+            n_compared=chk["report"]["n_compared"],
+            iters_equal=chk["iters_ok"],
+            statics_residual_band=[dict(entry=r["entry"], rel=r["rel"])
+                                   for r in chk["floor"]])
+        if chk["blocking"] or not chk["iters_ok"]:
+            fail(f"{name}: ledger golden regressed: {chk['blocking']}, "
+                 f"iteration counts equal {chk['iters_ok']}")
+    return rec
+
+
+def _within(name, live, ref):
+    """max|live - ref| within the build record's 1e-9 of max|ref|
+    (arrays)."""
+    from raft_tpu_torch.models.mhk_cases import RECORD_TOL as tol
+
+    live, ref = np.asarray(live, float), np.asarray(ref, float)
+    rel = float(np.max(np.abs(live - ref)) / max(np.max(np.abs(ref)),
+                                                 1e-300))
+    if live.shape != ref.shape or not rel <= tol:
+        fail(f"{name}: rel {rel:.2e} (shapes {live.shape} {ref.shape})")
+    return rel
+
+
+def run_mhk(dev):
+    """Phase 10: RM1_Floating (m1) and FOCTT_example's converging case
+    (m2b) through run_raft at full width, FOCTT's build and shipped-case
+    constants (m2a), its shipped case run to the end, OC3spar with clump
+    weights on its lines (m3), and a 256-case sweep on RM1's FOWT."""
+    import warnings
+
+    from raft_tpu_torch import run_raft
+    from raft_tpu_torch.models import fowt as TF
+    from raft_tpu_torch.models import mhk_cases as MC
+    from raft_tpu_torch.models import rotor as TR
+    from raft_tpu_torch.parallel.sweep import make_case_solver, sweep_cases
+
+    warnings.filterwarnings("ignore", message="Cavitation")
+    golden = os.path.join(ROOT, "tests", "golden")
+
+    def gold(name):
+        with open(os.path.join(golden, name)) as f:
+            return json.load(f)
+
+    out = {}
+    expect = ("impedance_gj", "gj_solve")
+
+    def raft(path, design):
+        """run_raft on the card, its K1/K2 launches exact: K1 once per
+        drag pass of every case, K2 once per case."""
+        with counted(path, expect):
+            t0 = time.perf_counter()
+            m = run_raft(design, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        recs = m._case_records
+        ncases = len(m.results["case_metrics"])
+        k1 = sum(recs[str(i)]["fowt0"]["drag_iters"] for i in range(ncases))
+        got = PATH_LAUNCHES[path]
+        if got.get("impedance_gj") != k1 or got.get("gj_solve") != ncases:
+            fail(f"{path}: launches {got}, expected K1 {k1} (one per drag "
+                 f"pass), K2 {ncases} (one per case)")
+        stats = [dict(statics_iters=recs[str(i)]["statics_iters"],
+                      statics_residual=recs[str(i)]["statics_residual"],
+                      drag_iters=recs[str(i)]["fowt0"]["drag_iters"])
+                 for i in range(ncases)]
+        finite = all(np.isfinite(c[0][f"{ch}_std"])
+                     for c in m.results["case_metrics"].values()
+                     for ch in ("surge", "sway", "heave", "roll", "pitch",
+                                "yaw")) and bool(np.all(np.isfinite(m.Xi)))
+        if not finite:
+            fail(f"{path}: non-finite outputs")
+        # the rest of run_raft's wall: the build, analyzeUnloaded and
+        # calcOutputs (Model.timings covers analyzeCases)
+        rest = wall - sum(m.timings.values())
+        log(f"  {path}: {ncases} case(s) x {m.nw} bins in {wall:.2f} s; "
+            "split " + ", ".join(f"{k} {v:.3f} s"
+                                 for k, v in m.timings.items())
+            + f", build + unloaded statics + calcOutputs {rest:.3f} s; "
+            f"per case {stats}")
+        out[path] = dict(wall_s=wall, timings=dict(m.timings), nw=m.nw,
+                         build_unloaded_outputs_s=rest, ncases=ncases,
+                         launches=got, cases=stats)
+        return m
+
+    # (m1) RM1 as shipped plus its JONSWAP case
+    m1 = raft("mhk_rm1", MC.rm1_design())
+    out["mhk_rm1"]["golden"] = _held_golden("RM1_Floating", m1,
+                                            "rm1_floating")
+    cav_ref = gold("rm1_cavitation.json")["default"]
+    for ic in range(2):
+        out["mhk_rm1"][f"cavitation_rel_case{ic}"] = _within(
+            f"m1 cavitation case {ic}",
+            m1.results["case_metrics"][ic][0]["cavitation"][0], cav_ref)
+    wave = m1.results["case_metrics"][1][0]
+    stds = {ch: float(wave[f"{ch}_std"]) for ch in ("surge", "heave",
+                                                     "pitch")}
+    out["mhk_rm1"]["wave_case_std"] = stds
+    log(f"  m1 wave case std {stds}; cavitation vs the JAX package "
+        f"{out['mhk_rm1']['cavitation_rel_case0']:.2e}")
+    if not all(v > 0 for v in stds.values()):
+        fail(f"m1: the wave case has a zero std: {stds}")
+
+    # (m2a) FOCTT's build and its shipped case's constants, on the card
+    d = MC.foctt_design()
+    s = d["settings"]
+    w = np.arange(s["min_freq"], s["max_freq"] + 0.5 * s["min_freq"],
+                  s["min_freq"]) * 2 * np.pi
+    t0 = time.perf_counter()
+    fowt = TF.build_fowt(d, w, depth=float(d["site"]["water_depth"]),
+                         device=dev)
+    case = dict(zip(d["cases"]["keys"], d["cases"]["data"][0]))
+    cav = TR.calc_cavitation(fowt.rotors[0], case)
+    rec = MC.build_record(fowt, TF, TR, case, cav)
+    rel, bad = MC.record_deviation(gold("foctt_build.json"), rec)
+    out["mhk_foctt_build"] = dict(wall_s=time.perf_counter() - t0,
+                                  worst_rel=rel, differing=bad,
+                                  members=len(rec["member_names"]),
+                                  blades=rec["member_names"].count("blade"))
+    log(f"  m2a FOCTT build + shipped-case constants ({len(w)} bins): "
+        f"worst rel {rel:.2e} vs the JAX package, differing {bad}")
+    if bad or not rel <= MC.RECORD_TOL:
+        fail(f"m2a: build record rel {rel:.2e}, differing {bad}")
+    cav_gold = gold("foctt_cavitation.json")
+    for which, c in (("shipped", case), ("m2b", dict(
+            case, **MC.M2B_CASE))):
+        for key, kw in (("default", {}), ("Pvap_3e5", {"Pvap": 3e5})):
+            out["mhk_foctt_build"][f"cavitation_{which}_{key}"] = _within(
+                f"FOCTT cavitation {which} {key}",
+                TR.calc_cavitation(fowt.rotors[0], c, **kw),
+                cav_gold[which][key])
+
+    # (m2b) FOCTT's converging case at full width
+    m2 = raft("mhk_foctt", MC.foctt_design(**MC.M2B_CASE))
+    out["mhk_foctt"]["golden"] = _held_golden("FOCTT m2b", m2,
+                                              "foctt_current")
+    c0 = m2.results["case_metrics"][0][0]
+    out["mhk_foctt"]["omega_avg"] = float(c0["omega_avg"][0])
+    if not c0["omega_avg"][0] > 0:
+        fail("m2b: the current-driven rotor reports no speed")
+
+    # FOCTT's shipped case: to the end, compared with nothing (C8)
+    ms = raft("mhk_foctt_shipped", MC.foctt_design())
+    log(f"  FOCTT shipped case (ROADMAP C8): statics_iters "
+        f"{out['mhk_foctt_shipped']['cases'][0]['statics_iters']}, "
+        f"statics_residual "
+        f"{out['mhk_foctt_shipped']['cases'][0]['statics_residual']:.4e} N, "
+        f"mean offsets {np.round(ms.results['mean_offsets'][0], 4).tolist()}")
+
+    # (m3) OC3spar with clump weights on its lines
+    m3 = raft("mhk_clump", MC.clump_design(ncases=1))
+    out["mhk_clump"]["golden"] = _held_golden("OC3spar clump", m3,
+                                              "oc3spar_clump")
+
+    # the 256-case sweep on RM1's FOWT: 102,400 lanes per K1 launch
+    fowt1 = m1.fowtList[0]
+    rng = np.random.default_rng(2027)
+    nc = MHK_SWEEP_CASES
+    Hs = 0.5 + 3.5 * rng.random(nc)
+    Tp = 4.0 + 10.0 * rng.random(nc)
+    beta = np.deg2rad(360.0 * rng.random(nc))
+    with counted("mhk_sweep", ("impedance_gj",)):
+        t0 = time.perf_counter()
+        sw = sweep_cases(fowt1, Hs, Tp, beta, nIter=10, tol=0.01, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    solver = make_case_solver(fowt1, nIter=10, tol=0.01)
+    worst = 0.0
+    for i in range(MHK_SERIAL_LANES):
+        ref_i = solver(float(Hs[i]), float(Tp[i]), float(beta[i]))
+        a, b = sw["Xi"][i], ref_i["Xi"]
+        worst = max(worst, float(torch.max(torch.abs(a - b))
+                                 / torch.max(torch.abs(b))))
+        if not _allclose(a, b, SWEEP_RTOL,
+                         atol=1e-12 * float(torch.max(torch.abs(b)))):
+            fail(f"m1 sweep lane {i} differs from the serial solve")
+    conv = int(sw["converged"].sum())
+    out["mhk_sweep"] = dict(wall_s=wall, cases=nc, nw=fowt1.nw,
+                            lanes=nc * fowt1.nw, converged=conv,
+                            fp_chunks=sw["fp_chunks"], serial_worst_rel=worst,
+                            launches=PATH_LAUNCHES["mhk_sweep"])
+    log(f"  m1 sweep: {nc} cases x {fowt1.nw} bins ({nc * fowt1.nw} lanes "
+        f"per K1 launch) in {wall:.3f} s; converged {conv}/{nc}; "
+        f"{MHK_SERIAL_LANES} lanes vs serial worst rel {worst:.2e}")
+    if not bool(torch.all(torch.isfinite(sw["std"]))):
+        fail("m1 sweep: non-finite std")
+    return out
+
+
 # kernel line: (JSON name, launch key, TPU kernel it replaces, CUDA source,
 # the main-path shape its times are taken at)
 KERNELS = (
@@ -1676,7 +1946,8 @@ def main() -> int:
                      ("golden", lambda: run_goldens(dev, "f64")),
                      ("golden_mixed", lambda: run_goldens(dev, "mixed")),
                      ("qtf", lambda: run_qtf(dev)),
-                     ("potflow", lambda: run_potflow(dev))):
+                     ("potflow", lambda: run_potflow(dev)),
+                     ("mhk", lambda: run_mhk(dev))):
         log(f"{name}: on the card")
         t0 = time.perf_counter()
         phases[name] = fn()
@@ -1715,6 +1986,7 @@ def main() -> int:
         json.dump({"card": card, "kernels": kernels, "rows": rows,
                    "ptxas": ptx, "sass": sass,
                    "paths": PATH_LAUNCHES, "phases": phases,
+                   "device_ms_log": DEVICE_MS_LOG,
                    "wall_s": time.perf_counter() - t_start}, f, indent=1)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
         "device check")

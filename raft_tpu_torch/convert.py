@@ -32,6 +32,8 @@ HOST_FIELDS = {
     "QTFData": {"heads_rad", "w", "qtf"},
     # the BEM headings are searched on the host (io/wamit.bem_excitation)
     "BEMData": {"headings"},
+    # the topology of a free-point mooring indexes on the host
+    "ArrayMooring": {"attach", "free_idx", "iA", "iB", "contact_ok"},
 }
 
 
@@ -40,11 +42,12 @@ def _port_classes():
     from raft_tpu_torch.models.fowt import FOWTModel, NodeSet
     from raft_tpu_torch.models.member import MemberGeometry
     from raft_tpu_torch.models.mooring import MooringSystem
+    from raft_tpu_torch.models.mooring_array import ArrayMooring
     from raft_tpu_torch.models.qtf import QTFData
     from raft_tpu_torch.models.rotor import RotorModel
-    return {c.__name__: c for c in (BEMData, FOWTModel, NodeSet,
-                                    MemberGeometry, MooringSystem, QTFData,
-                                    RotorModel)}
+    return {c.__name__: c for c in (ArrayMooring, BEMData, FOWTModel,
+                                    NodeSet, MemberGeometry, MooringSystem,
+                                    QTFData, RotorModel)}
 
 
 def _array(x, device):

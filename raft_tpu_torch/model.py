@@ -29,6 +29,9 @@ raft/raft_model.py) on PyTorch:
 
 Everything runs on ``Model.device`` (the card unless ``device="cpu"``);
 the native BEM solve and the WAMIT parsing are host work at build time.
+Submerged (MHK) rotors carry blade members and a per-case cavitation
+check (``results["cavitation"]``); a mooring with free points or
+multi-segment lines solves its free points once per statics pose.
 Not part of the port yet: farms/arrays, ballast trim, MacCamy-Fuchs
 members, the Kim & Yue correction, and the JAX package's observability,
 probes, journal/resume, quarantine and recovery ladder — failures raise
@@ -56,7 +59,7 @@ from raft_tpu_torch.models.fowt import (
 )
 from raft_tpu_torch.models import qtf as qt
 from raft_tpu_torch.models.member import member_inertia
-from raft_tpu_torch.models.rotor import calc_aero
+from raft_tpu_torch.models.rotor import calc_aero, calc_cavitation
 from raft_tpu_torch.ops.linalg import impedance_solve, inv_complex
 from raft_tpu_torch.ops.spectra import get_psd, get_rao, get_rms
 from raft_tpu_torch.ops.transforms import transform_force, translate_matrix_6to6
@@ -195,6 +198,17 @@ class Model:
                         else "wind_heading", shape=0, default=0.0)))
             state["_stored_heading"] = new_heads
             state["turbine"] = tc
+            # cavitation check of operating submerged rotors at a current
+            # (reference: raft_fowt.py:826-827 -> raft_rotor.py:639-696);
+            # host numpy, one transfer per rotor and case
+            cav = [calc_cavitation(rot, case) for rot in fowt.rotors
+                   if rot.hubHt < 0 and status == "operating"
+                   and float(get_from_dict(case, "current_speed", shape=0,
+                                           default=0.0)) > 0]
+            if cav:
+                state["cavitation"] = cav
+            else:
+                state.pop("cavitation", None)
             hc = fowt_hydro_constants(fowt, pose0)
             state["hydro0"] = hc
             cur_speed = float(get_from_dict(case, "current_speed", shape=0, default=0.0))
@@ -202,14 +216,20 @@ class Model:
             D_hydro = fowt_current_loads(fowt, pose0, cur_speed, cur_head)
             state["D_hydro"] = D_hydro
             F_env = torch.sum(tc["f_aero0"], dim=1) + D_hydro
-            # current on the (simple-topology) mooring lines: the
-            # current-loaded line profiles (reference raft_model.py:559-578)
+            # current on the mooring lines (reference raft_model.py:
+            # 559-578): the simple topology takes the current-loaded line
+            # profiles; a general (free-point) topology keeps the lumped
+            # chord drag on F_env, as the JAX Model does
             state["moor_current"] = None
             if (self.mooring_currentMod > 0 and cur_speed > 0
                     and fowt.mooring is not None):
-                state["moor_current"] = cur_speed * np.array(
-                    [np.cos(np.deg2rad(cur_head)),
-                     np.sin(np.deg2rad(cur_head)), 0.0])
+                U = cur_speed * np.array([np.cos(np.deg2rad(cur_head)),
+                                          np.sin(np.deg2rad(cur_head)), 0.0])
+                if mr._is_general(fowt.mooring):
+                    F_env = F_env + mr.current_wrench(
+                        fowt.mooring, self._t(X0), self._t(U))
+                else:
+                    state["moor_current"] = U
             # the mean wave drift of this case's dynamics, for the statics
             # re-solve (reference raft_model.py:548-554)
             if "F_meandrift" in state:
@@ -225,17 +245,22 @@ class Model:
         """(net force, tangent stiffness) at one pose X (6,), written for
         ``torch.func.vmap`` over the line-search alphas.  As in the JAX
         Model, the mooring wrench always takes the current-loaded line
-        profiles with the case current (zero without one)."""
+        profiles with the case current (zero without one); a general
+        topology solves its free points once per pose and shares them
+        between the wrench and the stiffness."""
         fowt = self.fowtList[0]
         moor = fowt.mooring
+        general = moor is not None and mr._is_general(moor)
         ref = self._t([fowt.x_ref, fowt.y_ref, 0, 0, 0, 0])
 
         def eval_FK(X):
             F = F0 - K_hs @ (X - ref)
             K = K_hs
             if moor is not None:
-                F = F + mr.body_wrench(moor, X, current=Ucur)
-                K = K + mr.coupled_stiffness(moor, X, current=Ucur)
+                xf = mr.free_points(moor, X) if general else None
+                cur = None if general else Ucur
+                F = F + mr.body_wrench(moor, X, xf=xf, current=cur)
+                K = K + mr.coupled_stiffness(moor, X, xf=xf, current=cur)
             return F, K
 
         return eval_FK
@@ -297,10 +322,11 @@ class Model:
             # pose for dynamics/eigen (see the JAX Model)
             cur = state.get("moor_current")
             cur_t = None if cur is None else self._t(cur)
+            xf = mr.free_points(fowt.mooring, self._t(X))
             state["C_moor"] = mr.coupled_stiffness_rotvec(
-                fowt.mooring, self._t(X), current=cur_t)
+                fowt.mooring, self._t(X), xf=xf, current=cur_t)
             state["F_moor0"] = mr.body_wrench(fowt.mooring, self._t(X),
-                                              current=cur_t)
+                                              xf=xf, current=cur_t)
         else:
             state["C_moor"] = torch.zeros((6, 6), dtype=REAL, device=self.device)
             state["F_moor0"] = torch.zeros(6, dtype=REAL, device=self.device)
@@ -706,6 +732,8 @@ class Model:
             r6 = self._t(state["r6"])
             cur = state.get("moor_current")
             cur_t = None if cur is None else self._t(cur)
+            # (a general topology re-solves its free points at each of
+            # the 12 perturbed poses; Tmoor then covers every segment end)
             J = _np(mr.tension_jacobian_fd(moor, r6, current=cur_t))
             T0 = _np(mr.tensions(moor, r6, current=cur_t))
             nT = len(T0)
@@ -777,6 +805,11 @@ class Model:
                 results["Mbase_min"][ir] = results["Mbase_avg"][ir] - 3 * results["Mbase_std"][ir]
 
         results["wave_PSD"] = psd(state["seastate"]["zeta"])
+
+        # cavitation check of submerged rotors (reference:
+        # raft_fowt.py:2047-2049)
+        if "cavitation" in state:
+            results["cavitation"] = state["cavitation"]
 
         # rotor control channels (reference :1976-2045)
         for key in ("omega", "torque", "power", "bPitch"):

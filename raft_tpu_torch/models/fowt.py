@@ -31,8 +31,15 @@ device afterwards.
 Second-order loads: ``potSecOrder: 1`` sets up the second-order grid
 (``w1_2nd`` / ``k1_2nd``) for the internal slender-body QTF
 (``models/qtf.py``), ``potSecOrder: 2`` reads ``hydroPath + ".12d"``
-into ``qtf_data``.  MacCamy-Fuchs members and submerged rotors are not
-part of the port yet: they raise ``ModelConfigError``.
+into ``qtf_data``.
+
+Submerged (MHK) rotors: a rotor whose blade tips stay below the surface
+(``hubHt + R_rot < 0``) adds one rectangular type-3 member per blade
+element at each blade's build azimuth (``rotor.blade_member_dicts``),
+named ``"blade"``, after every other member; their buoyancy counts in
+the statics, their structural mass does not (it is in the RNA mass).
+MacCamy-Fuchs members are not part of the port yet: they raise
+``ModelConfigError``.
 """
 from __future__ import annotations
 
@@ -52,7 +59,9 @@ from raft_tpu_torch.models.member import (
     MemberGeometry, build_member_geometry, member_pose, member_inertia,
     member_hydrostatics,
 )
-from raft_tpu_torch.models.rotor import RotorModel, build_rotor, calc_aero, rotor_pose
+from raft_tpu_torch.models.rotor import (
+    RotorModel, blade_member_dicts, build_rotor, calc_aero, rotor_pose,
+)
 from raft_tpu_torch.models import mooring as mr
 from raft_tpu_torch.models.qtf import read_qtf_12d
 from raft_tpu_torch.ops.transforms import (
@@ -221,11 +230,17 @@ def build_fowt(design: dict, w, depth=600.0, x_ref=0.0, y_ref=0.0,
                 member_names.append("nacelle")
         for ir in range(nrotors):
             rotors.append(build_rotor(turbine, w, ir))
+        # fully submerged rotors get per-element blade members for added
+        # mass, buoyancy and inertial excitation (reference:
+        # raft_rotor.py:369-373, raft_fowt.py:384-444, 873-880), appended
+        # last so the platform and tower member indices are unchanged
         for rot in rotors:
             if rot.hubHt + rot.R_rot < 0:
-                raise errors.ModelConfigError(
-                    "fully submerged rotors (blade members) are not part of "
-                    "the PyTorch port yet")
+                for bm in blade_member_dicts(rot):
+                    bm.setdefault("dlsMax", dlsMax)
+                    members.append(build_member_geometry(bm))
+                    member_types.append(3)
+                    member_names.append("blade")
 
     moor = None
     if design.get("mooring"):

@@ -7,8 +7,11 @@ mooring system is a static `MooringSystem` of per-line arrays; each
 line's fairlead force comes from the two-branch elastic catenary
 (frictionless seabed) solved by a FIXED 40-step Newton loop, so the 6x6
 coupled stiffness and the tension Jacobian are exact
-``torch.func.jacfwd``s of the wrench.  Shared array moorings (free points,
-multi-segment lines) are not part of this slice.
+``torch.func.jacfwd``s of the wrench.  Topologies with free points or
+multi-segment lines build a single-body ``mooring_array.ArrayMooring``
+(the same catenary plus a free-point equilibrium); every body-level
+function below takes either system.  Multi-body shared moorings are not
+part of the port yet.
 
 Catenary equations (Jonkman 2007, MAP/MoorPy lineage), fairlead force
 (H, V), spans XF/ZF, unstretched length L, axial stiffness EA, submerged
@@ -29,7 +32,6 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from raft_tpu_torch import errors
 from raft_tpu_torch._config import as_real
 from raft_tpu_torch.ops.transforms import rotation_matrix, translate_force_3to6
 
@@ -62,10 +64,15 @@ class MooringSystem:
 
 def parse_mooring(moor: dict, rho: float = _RHO, g: float = _G,
                   trans=(0.0, 0.0), rot: float = 0.0):
-    """Build a simple-topology mooring system from the design['mooring']
-    YAML dict (points fixed|vessel, lines endA/endB, line_types).
-    ``trans``/``rot`` apply the reference's array-placement transform:
-    rotate about z by ``rot`` degrees, then translate anchors in x, y."""
+    """Build a mooring system from the design['mooring'] YAML dict (points
+    fixed|vessel|free, lines endA/endB, line_types).  Simple
+    anchor->fairlead topologies give a `MooringSystem`; topologies with
+    free points or multi-segment lines give a single-body
+    ``mooring_array.ArrayMooring`` (the reference's MoorPy System.parseYAML,
+    raft_fowt.py:166-189).  ``trans``/``rot`` apply the reference's
+    array-placement transform: rotate about z by ``rot`` degrees, then
+    translate the fixed and free points in x, y (body points stay in the
+    body frame)."""
     depth = float(moor["water_depth"])
     types = {lt["name"]: lt for lt in moor["line_types"]}
     points = {p["name"]: p for p in moor["points"]}
@@ -86,11 +93,19 @@ def parse_mooring(moor: dict, rho: float = _RHO, g: float = _G,
         {ptype(points[ln["endA"]]), ptype(points[ln["endB"]])}
         == {"fixed", "vessel"}
         for ln in moor["lines"])
+
+    def line_props(ln):
+        lt = types[ln["type"]]
+        d = float(lt["diameter"])
+        m = float(lt["mass_density"])
+        return dict(L=float(ln["length"]), EA=float(lt["stiffness"]),
+                    w=(m - rho * np.pi / 4 * d**2) * g, d=d, m=m,
+                    Cd_t=float(lt.get("transverse_drag", 0.0)),
+                    Cd_a=float(lt.get("tangential_drag", 0.0)))
+
     if not simple:
-        raise errors.ModelConfigError(
-            "mooring systems with free points or multi-segment lines are "
-            "not part of the PyTorch port yet (simple anchor->fairlead "
-            "topologies only)")
+        return _parse_general(moor, points, ptype, line_props, depth, Rz,
+                              trans, rho, g)
 
     rAnchor, rFair0 = [], []
     L, EA, w, d_vol, m_lin, Cd_t, Cd_a = [], [], [], [], [], [], []
@@ -104,16 +119,14 @@ def parse_mooring(moor: dict, rho: float = _RHO, g: float = _G,
         fair = Rz @ np.array(pB["location"], float)
         rAnchor.append(anchor)
         rFair0.append(fair)
-        lt = types[ln["type"]]
-        d = float(lt["diameter"])
-        m = float(lt["mass_density"])
-        L.append(float(ln["length"]))
-        EA.append(float(lt["stiffness"]))
-        w.append((m - rho * np.pi / 4 * d**2) * g)
-        d_vol.append(d)
-        m_lin.append(m)
-        Cd_t.append(float(lt.get("transverse_drag", 0.0)))
-        Cd_a.append(float(lt.get("tangential_drag", 0.0)))
+        lp = line_props(ln)
+        L.append(lp["L"])
+        EA.append(lp["EA"])
+        w.append(lp["w"])
+        d_vol.append(lp["d"])
+        m_lin.append(lp["m"])
+        Cd_t.append(lp["Cd_t"])
+        Cd_a.append(lp["Cd_a"])
 
     return MooringSystem(
         depth=depth,
@@ -124,9 +137,72 @@ def parse_mooring(moor: dict, rho: float = _RHO, g: float = _G,
     )
 
 
+def _parse_general(moor, points, ptype, line_props, depth, Rz, trans, rho,
+                   g):
+    """The single-body ``ArrayMooring`` of a topology with free points or
+    multi-segment lines (``raft_tpu/models/mooring.py:145-200``)."""
+    from raft_tpu_torch.models import mooring_array as ma
+
+    names = list(points.keys())
+    attach, r0, pmass, pvol = [], [], [], []
+    for name in names:
+        p = points[name]
+        t = ptype(p)
+        loc = np.array(p["location"], float)
+        if t == "vessel":
+            attach.append(0)
+            r0.append(Rz @ loc)          # body frame (placement on body)
+        else:
+            attach.append(ma.ATTACH_FIXED if t == "fixed" else ma.ATTACH_FREE)
+            loc = Rz @ loc
+            loc[0] += trans[0]
+            loc[1] += trans[1]
+            r0.append(loc)
+        pmass.append(float(p.get("mass", 0.0)))
+        pvol.append(float(p.get("volume", 0.0)))
+    attach = np.array(attach)
+    r0 = np.array(r0)
+    free_idx = np.full(len(names), -1)
+    free_idx[attach == ma.ATTACH_FREE] = np.arange(
+        (attach == ma.ATTACH_FREE).sum())
+    name2row = {n: i for i, n in enumerate(names)}
+
+    iA, iB = [], []
+    props = {k: [] for k in ("L", "EA", "w", "d", "Cd_t", "Cd_a")}
+    for ln in moor["lines"]:
+        lp = line_props(ln)
+        iA.append(name2row[ln["endA"]])
+        iB.append(name2row[ln["endB"]])
+        for k in props:
+            props[k].append(lp[k])
+    iA, iB = np.array(iA), np.array(iB)
+
+    def on_seabed(ipt):
+        return (attach[ipt] == ma.ATTACH_FIXED) & (r0[ipt, 2] <= -depth + 1.0)
+
+    return ma.ArrayMooring(
+        depth=depth, nbodies=1,
+        attach=attach, r0=r0, pmass=np.array(pmass), pvol=np.array(pvol),
+        free_idx=free_idx, iA=iA, iB=iB, L=np.array(props["L"]),
+        EA=np.array(props["EA"]), w=np.array(props["w"]),
+        contact_ok=on_seabed(iA) | on_seabed(iB), g=g, rho=rho,
+        d_vol=np.array(props["d"]), Cd_t=np.array(props["Cd_t"]),
+        Cd_a=np.array(props["Cd_a"]),
+    )
+
+
 # --------------------------------------------------------------------------
 # catenary kernel
 # --------------------------------------------------------------------------
+
+def _contact(V, w, L, contact_allowed):
+    """Lines on the seabed-contact branch: V < wL where contact is allowed
+    (a bool, or a per-line bool tensor)."""
+    contact = V < w * L
+    if isinstance(contact_allowed, torch.Tensor):
+        return contact & contact_allowed
+    return contact if contact_allowed else torch.zeros_like(contact)
+
 
 def _profile_spans(H, V, L, EA, w, contact_allowed=True):
     """(XF, ZF) reached by a line with fairlead force (H, V) and their
@@ -155,9 +231,7 @@ def _profile_spans(H, V, L, EA, w, contact_allowed=True):
     dXc_dV = -1.0 / w + (1.0 / s1) / w
     dZc_dH = (s1 - 1.0) / w - (vh ** 2 / s1) / w
     dZc_dV = (vh / s1) / w + V / (EA * w)
-    contact = V < w * L
-    if not contact_allowed:
-        contact = torch.zeros_like(contact)
+    contact = _contact(V, w, L, contact_allowed)
     Hf = Hm.to(H.dtype)          # d clamp(H)/dH
     sel = lambda c, s: torch.where(contact, c, s)  # noqa: E731
     return (sel(XF_c, XF_s), sel(ZF_c, ZF_s),
@@ -165,38 +239,57 @@ def _profile_spans(H, V, L, EA, w, contact_allowed=True):
             sel(dZc_dH, dZs_dH) * Hf, sel(dZc_dV, dZs_dV))
 
 
-def catenary_solve(XF, ZF, L, EA, w, contact_allowed=True):
+def _newton_step(H, V, XF, ZF, L, EA, w, contact_allowed):
+    """One damped Newton step of the catenary spans (2x2 in closed form,
+    H kept positive)."""
+    Xc, Zc, dXdH, dXdV, dZdH, dZdV = _profile_spans(
+        H, V, L, EA, w, contact_allowed)
+    r0, r1 = Xc - XF, Zc - ZF
+    det = dXdH * dZdV - dXdV * dZdH
+    det = torch.where(torch.abs(det) < 1e-30, 1e-30, det)
+    dH = (-r0 * dZdV + r1 * dXdV) / det
+    dV = (-dXdH * r1 + dZdH * r0) / det
+    Hn = H + dH
+    return torch.where(Hn <= 0.0, 0.1 * H, Hn), V + dV
+
+
+def catenary_solve(XF, ZF, L, EA, w, contact_allowed=True,
+                   grad_steps=_NEWTON_ITERS):
     """Solve the fairlead force (H, V) of each line from its spans,
     elementwise over any batch shape, by a fixed ``_NEWTON_ITERS``-step
-    damped Newton (the 2x2 Jacobian in closed form).  Differentiable by
-    unrolled iteration.  Returns dict(H, V, Ha, Va, TA, TB)."""
+    damped Newton (the 2x2 Jacobian in closed form).  Returns dict(H, V,
+    Ha, Va, TA, TB).
+
+    Derivatives flow through the last ``grad_steps`` steps: all of them
+    by default (the JAX package's unrolled differentiation).  With fewer,
+    the earlier steps (and the initial guess) run on detached inputs: the
+    values are the same bit for bit, and at a converged solution the
+    derivatives are the implicit-function ones that the unrolled loop
+    gives too (the Newton map's own derivative in H, V vanishes there),
+    up to rounding — at a small fraction of the forward-mode cost.  The
+    free-point mooring takes ``grad_steps=1``: its equilibrium Newton
+    differentiates the catenary 40 times per solve."""
+    args = (XF, ZF, L, EA, w)
+    n_detached = _NEWTON_ITERS - int(grad_steps)
+    src = tuple(a.detach() if isinstance(a, torch.Tensor) else a
+                for a in args) if n_detached > 0 else args
+    XF0, ZF0, L0, EA0, w0 = src
     # standard initial guess (Jonkman 2007 quasi-static lineage)
-    slack = L**2 - ZF**2
-    XF_safe = torch.where(XF > 0, XF, 1.0)
+    slack = L0**2 - ZF0**2
+    XF_safe = torch.where(XF0 > 0, XF0, 1.0)
     lam = torch.where(
-        L**2 > XF**2 + ZF**2,
+        L0**2 > XF0**2 + ZF0**2,
         torch.sqrt(torch.clamp(3.0 * (slack / XF_safe**2 - 1.0), min=1e-8)),
         0.2,
     )
-    H = torch.clamp(torch.abs(0.5 * w * XF / lam), min=1e3)
-    V = 0.5 * w * (ZF / torch.tanh(lam) + L)
-
-    for _ in range(_NEWTON_ITERS):
-        Xc, Zc, dXdH, dXdV, dZdH, dZdV = _profile_spans(
-            H, V, L, EA, w, contact_allowed)
-        r0, r1 = Xc - XF, Zc - ZF
-        det = dXdH * dZdV - dXdV * dZdH
-        det = torch.where(torch.abs(det) < 1e-30, 1e-30, det)
-        dH = (-r0 * dZdV + r1 * dXdV) / det
-        dV = (-dXdH * r1 + dZdH * r0) / det
-        Hn = H + dH
-        H = torch.where(Hn <= 0.0, 0.1 * H, Hn)
-        V = V + dV
+    H = torch.clamp(torch.abs(0.5 * w0 * XF0 / lam), min=1e3)
+    V = 0.5 * w0 * (ZF0 / torch.tanh(lam) + L0)
+    for i in range(_NEWTON_ITERS):
+        H, V = _newton_step(H, V, *(src if i < n_detached else args),
+                            contact_allowed)
 
     H = torch.clamp(H, min=1e-8)
-    contact = V < w * L
-    if not contact_allowed:
-        contact = torch.zeros_like(contact)
+    contact = _contact(V, w, L, contact_allowed)
     Va = torch.where(contact, 0.0, V - w * L)
     Ha = H   # frictionless seabed: H unchanged
     TB = torch.sqrt(H**2 + V**2)
@@ -293,22 +386,52 @@ def line_forces(sys_: MooringSystem, r6, current=None, rF=None):
     return F, rF, sol
 
 
+def _is_general(sys_) -> bool:
+    """True for the general (free-point / multi-segment) single-body
+    system `parse_mooring` builds on non-simple topologies."""
+    return hasattr(sys_, "attach")
+
+
+def _general_xf(sys_, r6, xf):
+    """(the body poses (1, 6), the free points: ``xf`` or solved there)."""
+    from raft_tpu_torch.models import mooring_array as ma
+    Xb = as_real(r6)[None, :]
+    return Xb, (ma.solve_free_points(sys_, Xb) if xf is None else xf)
+
+
 def free_points(sys_, r6, xf0=None):
-    """Free-point positions of a general topology; None for the simple
-    topology this port supports."""
-    return None
+    """Equilibrium free-point positions of a general system (None for the
+    simple topology).  Callers evaluating several mooring quantities at
+    one pose solve this ONCE and pass it through the ``xf=`` arguments
+    below."""
+    if not _is_general(sys_):
+        return None
+    from raft_tpu_torch.models import mooring_array as ma
+    return ma.solve_free_points(sys_, as_real(r6)[None, :], xf0=xf0)
 
 
 def body_wrench(sys_, r6, xf=None, current=None):
     """Net 6-DOF mooring wrench on the body about its reference point
-    (Body.getForces(lines_only=True))."""
+    (Body.getForces(lines_only=True)).  ``current`` engages the
+    current-loaded line profiles on the simple path; general topologies
+    take current through the lumped `current_wrench` instead."""
+    if _is_general(sys_):
+        from raft_tpu_torch.models import mooring_array as ma
+        Xb, xf = _general_xf(sys_, r6, xf)
+        return ma.body_wrenches(sys_, Xb, xf)[0]
     F, rF, _ = line_forces(sys_, r6, current=current)
     return torch.sum(translate_force_3to6(F, rF - r6[:3]), dim=0)
 
 
 def coupled_stiffness(sys_, r6, xf=None, current=None):
     """6x6 mooring stiffness -dF/dx as the exact EULER-ANGLE jacobian of
-    the wrench, by forward-mode autodiff through the catenary Newton."""
+    the wrench, by forward-mode autodiff through the catenary Newton (the
+    free points eliminated by the implicit-function theorem on the
+    general path)."""
+    if _is_general(sys_):
+        from raft_tpu_torch.models import mooring_array as ma
+        Xb, xf = _general_xf(sys_, r6, xf)
+        return ma.coupled_stiffness(sys_, Xb, xf)
     return -torch.func.jacfwd(
         lambda x: body_wrench(sys_, x, current=current))(as_real(r6))
 
@@ -317,7 +440,22 @@ def coupled_stiffness_rotvec(sys_, r6, xf=None, current=None):
     """MoorPy-parity analytic coupled stiffness: the exact ROTATION-VECTOR
     linearization of the wrench about the pose (the reference's
     dynamics/eigen C_moor, getCoupledStiffnessA), by autodiffing the
-    wrench under the parameterization R(delta) @ R0."""
+    wrench under the parameterization R(delta) @ R0.  The general
+    topology has no current-loaded line profiles: a ``current`` given
+    there is ignored with a warning (current reaches it through the
+    lumped `current_wrench`)."""
+    if _is_general(sys_):
+        if current is not None:
+            import warnings
+            warnings.warn(
+                "coupled_stiffness_rotvec: 'current' is ignored on "
+                "general (free-point) mooring topologies — the stiffness "
+                "is evaluated with unloaded line profiles (current only "
+                "enters general topologies through the lumped "
+                "current_wrench on F_env)", stacklevel=2)
+        from raft_tpu_torch.models import mooring_array as ma
+        Xb, xf = _general_xf(sys_, r6, xf)
+        return ma.coupled_stiffness_rotvec(sys_, Xb, xf)
     r6 = as_real(r6)
     R0 = rotation_matrix(r6[3], r6[4], r6[5])
     rfair_rel0 = as_real(sys_.rFair0, r6.device) @ R0.T
@@ -334,8 +472,13 @@ def coupled_stiffness_rotvec(sys_, r6, xf=None, current=None):
 
 
 def tensions(sys_, r6, xf=None, current=None):
-    """Line end tensions (2*nl,): all anchor-end tensions first, then all
-    fairlead-end tensions (MoorPy's getTensions order)."""
+    """Line end tensions (2*nl,): all anchor-end (end A) tensions first,
+    then all fairlead-end (end B) tensions (MoorPy's getTensions
+    order)."""
+    if _is_general(sys_):
+        from raft_tpu_torch.models import mooring_array as ma
+        Xb, xf = _general_xf(sys_, r6, xf)
+        return ma.tensions(sys_, Xb, xf)
     _, _, sol = line_forces(sys_, r6, current=current)
     return torch.cat([sol["TA"], sol["TB"]])
 
@@ -343,7 +486,11 @@ def tensions(sys_, r6, xf=None, current=None):
 def current_wrench(sys_, r6, U, rho: float = _RHO, xf=None):
     """Uniform-current drag on the mooring lines lumped to the body (the
     chord-direction approximation of MoorPy's currentMod=1): half of each
-    line's drag loads the fairlead."""
+    line's drag loads each end."""
+    if _is_general(sys_):
+        from raft_tpu_torch.models import mooring_array as ma
+        Xb, xf = _general_xf(sys_, r6, xf)
+        return ma.current_wrenches(sys_, Xb, xf, U)[0]
     r6 = as_real(r6)
     rF = fairlead_positions(sys_, r6)
     F_line = chord_drag(sys_.rAnchor, rF, U, sys_.L, sys_.d_vol,
@@ -352,19 +499,45 @@ def current_wrench(sys_, r6, U, rho: float = _RHO, xf=None):
 
 
 def tension_jacobian(sys_, r6, xf=None):
-    """d(tensions)/d(pose): (2*nl, 6), by forward-mode autodiff."""
+    """d(tensions)/d(pose): (2*nl, 6), by forward-mode autodiff (with the
+    implicit free-point correction on the general path)."""
+    if _is_general(sys_):
+        from raft_tpu_torch.models import mooring_array as ma
+        Xb, xf = _general_xf(sys_, r6, xf)
+        return ma.tension_jacobian(sys_, Xb, xf)
     return torch.func.jacfwd(lambda x: tensions(sys_, x))(as_real(r6))
+
+
+def _fd_poses(r6, dx, dth):
+    """The 12 centrally perturbed poses (+ then -) and the steps."""
+    r6 = as_real(r6)
+    dX = torch.tensor([dx, dx, dx, dth, dth, dth], dtype=torch.float64,
+                      device=r6.device)
+    E = torch.diag(dX)
+    return torch.cat([r6[None] + E, r6[None] - E]), dX
+
+
+def coupled_stiffness_fd(sys_, r6, dx=0.1, dth=0.1, tensions_too=False):
+    """MoorPy-parity coupled stiffness (and with ``tensions_too`` the
+    tension Jacobian) by CENTRAL finite differences with MoorPy's default
+    perturbations (System.getCoupledStiffness: dx 0.1 m, dth 0.1 rad),
+    the free points re-solved at every perturbed pose.  The 12 poses are
+    solved as one batch."""
+    X, dX = _fd_poses(r6, dx, dth)
+    F = torch.func.vmap(lambda x: body_wrench(sys_, x))(X)
+    K = (-0.5 * (F[:6] - F[6:]) / dX[:, None]).T
+    if not tensions_too:
+        return K
+    T = torch.func.vmap(lambda x: tensions(sys_, x))(X)
+    return K, (0.5 * (T[:6] - T[6:]) / dX[:, None]).T
 
 
 def tension_jacobian_fd(sys_, r6, dx=0.1, dth=0.1, current=None):
     """MoorPy-parity tension Jacobian by CENTRAL finite differences with
     MoorPy's default perturbations (getCoupledStiffness(tensions=True)
-    J_moor; the reference's Tmoor statistics use it).  The 12 perturbed
+    J_moor; the reference's Tmoor statistics use it), one free-point
+    solve per perturbed pose on the general path.  The 12 perturbed
     poses are solved as one batch."""
-    r6 = as_real(r6)
-    dX = torch.tensor([dx, dx, dx, dth, dth, dth], dtype=torch.float64,
-                      device=r6.device)
-    E = torch.diag(dX)
-    X = torch.cat([r6[None] + E, r6[None] - E])          # (12, 6)
+    X, dX = _fd_poses(r6, dx, dth)
     T = torch.func.vmap(lambda x: tensions(sys_, x, current=current))(X)
     return (0.5 * (T[:6] - T[6:]) / dX[:, None]).T

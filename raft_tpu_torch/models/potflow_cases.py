@@ -138,20 +138,21 @@ DOFS = ("surge", "sway", "heave", "roll", "pitch", "yaw")
 METRICS_TOL = 1e-6
 
 
-def metrics_record(results: dict, led: dict) -> dict:
-    """The record of case 0 of a finished run, from a Model's ``results``
-    and ``last_ledger`` (the JAX package's or the port's: the same
-    keys)."""
-    c0 = results["case_metrics"][0][0]
+def metrics_record(results: dict, led: dict, icase: int = 0) -> dict:
+    """The record of case ``icase`` of a finished run, from a Model's
+    ``results`` and ``last_ledger`` (the JAX package's or the port's: the
+    same keys)."""
+    c0 = results["case_metrics"][icase][0]
     metrics = {f"{ch}_{stat}": float(c0[f"{ch}_{stat}"])
                for ch in DOFS for stat in ("avg", "std", "max")}
-    metrics["mean_offset"] = [float(x) for x in results["mean_offsets"][0]]
+    metrics["mean_offset"] = [float(x)
+                              for x in results["mean_offsets"][icase]]
     ent = {e["key"]: e["metrics"] for e in led["entries"]}
-    iters = dict(statics_iters=int(ent["case0/system"]["statics_iters"]),
-                 drag_iters=int(ent["case0/fowt0"]["drag_iters"]))
+    sysm, fm = ent[f"case{icase}/system"], ent[f"case{icase}/fowt0"]
+    iters = dict(statics_iters=int(sysm["statics_iters"]),
+                 drag_iters=int(fm["drag_iters"]))
     return dict(metrics=metrics, iters=iters,
-                statics_residual=float(ent["case0/system"]
-                                       ["statics_residual"]))
+                statics_residual=float(sysm["statics_residual"]))
 
 
 def metrics_deviation(ref: dict, live: dict) -> tuple:

@@ -828,3 +828,118 @@ def calc_aero(rot: RotorModel, w, case: dict, r6=None, current=False):
                                      pitch_deg=pitch_deg),
                 derivs=dict(dT_dU=dT_dU, dT_dOm=dT_dOm, dT_dPi=dT_dPi,
                             dQ_dU=dQ_dU, dQ_dOm=dQ_dOm, dQ_dPi=dQ_dPi))
+
+
+# --------------------------------------------------------------------------
+# underwater rotors (MHK): blade members + cavitation
+# --------------------------------------------------------------------------
+
+def _rodrigues_np(az_deg, axis):
+    """Rotation matrix about ``axis`` by the blade azimuth angle
+    (reference: raft_rotor.py:565-583 getBladeMemberPositions)."""
+    c = np.cos(np.deg2rad(az_deg))
+    s = np.sin(np.deg2rad(az_deg))
+    a = np.asarray(axis, float)
+    return np.array([
+        [c + a[0]**2*(1-c), a[0]*a[1]*(1-c) - a[2]*s, a[0]*a[2]*(1-c) + a[1]*s],
+        [a[1]*a[0]*(1-c) + a[2]*s, c + a[1]**2*(1-c), a[1]*a[2]*(1-c) - a[0]*s],
+        [a[2]*a[0]*(1-c) - a[1]*s, a[2]*a[1]*(1-c) + a[0]*s, c + a[2]**2*(1-c)]])
+
+
+def _host(x):
+    """A host numpy copy of a rotor table (numpy, or a tensor anywhere)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x, float)
+
+
+def _blade_dir0(rot: RotorModel):
+    """(rotor axis q, azimuth-zero blade direction): the axis turned 90
+    degrees about z (reference: raft_rotor.py:530 airfoil_zero_heading)."""
+    q = np.asarray(rot.q_rel0, float)
+    return q, np.array([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0],
+                        [0.0, 0.0, 1.0]]) @ q
+
+
+def blade_member_dicts(rot: RotorModel):
+    """Rectangular member dicts for each blade element of a submerged
+    rotor, one set per blade at its build azimuth, in the PLATFORM frame
+    (host numpy at build time, as in the JAX package; reference:
+    raft_rotor.py:522-562 bladeGeometry2Member, raft_fowt.py:384-444,
+    which rotate per azimuth at use time — here the rotation is baked in
+    so the members join the stacked strip-node set).
+
+    Each element is a rect member of chord x equivalent-area thickness
+    with the blade twist as gamma, the airfoil's added-mass pair and
+    Cd 0; the last element is skipped (the reference's
+    ``range(len(blade_r) - 1)``)."""
+    q, dir0 = _blade_dir0(rot)
+    r_hub_rel = np.asarray(rot.r_rel, float) + q * rot.overhang
+    # (the rotor's tables may already be tensors on a device)
+    blade_r, chord_r, theta = (_host(getattr(rot, k)) for k in (
+        "blade_r", "chord", "theta_deg"))
+    dr = float(blade_r[1] - blade_r[0])
+    mems = []
+    for az in np.atleast_1d(rot.azimuths):
+        R = _rodrigues_np(float(az), q)
+        for i in range(len(blade_r) - 1):
+            chord = float(chord_r[i])
+            rect_thick = (np.pi / 4.0) * chord * float(rot.r_thick_interp[i])
+            rA = r_hub_rel + R @ (dir0 * (blade_r[i] - dr / 2.0))
+            rB = r_hub_rel + R @ (dir0 * (blade_r[i] + dr / 2.0))
+            mems.append(dict(
+                name="blade", type=3, rA=rA, rB=rB, shape="rect",
+                stations=[0, 1],
+                d=[[chord, rect_thick], [chord, rect_thick]],
+                gamma=float(theta[i]), potMod=False,
+                Cd=0.0, Ca=list(np.atleast_1d(rot.Ca_interp[i])),
+                CdEnd=0.0, CaEnd=0.0, t=0.01, rho_shell=1850.0))
+    return mems
+
+
+def calc_cavitation(rot: RotorModel, case: dict, clearance_margin=1.0,
+                    Patm=101325.0, Pvap=2500.0, error_on_cavitation=False):
+    """Cavitation check of a submerged rotor (reference: raft_rotor.py:
+    639-696 calcCavitation): for each blade (azimuth) and element, the BEM
+    at the case current gives the relative speed W and angle of attack;
+    the airfoil's minimum pressure coefficient is compared with the
+    critical cavitation number sigma_crit = (Patm + rho g |z| - Pvap) /
+    (0.5 rho W^2).  Float64 on the rotor's device, every azimuth in one
+    BEM call; returns host numpy (nBlades, nr): negative entries
+    cavitate.  Cavitation warns, or raises ``ValueError`` with
+    ``error_on_cavitation``."""
+    if rot.hubHt >= 0:
+        raise ValueError("Hub depth must be below the water surface to "
+                         "calculate cavitation")
+    dev = _device(rot)
+    f64 = dict(dtype=torch.float64, device=dev)
+    Uhub = float(get_from_dict(case, "current_speed", shape=0, default=0.0)) \
+        * rot.speed_gain
+    Omega_rpm = float(np.interp(Uhub, np.asarray(rot.Uhub_ops),
+                                np.asarray(rot.Omega_rpm_ops)))
+    pitch_deg = float(np.interp(Uhub, np.asarray(rot.Uhub_ops),
+                                np.asarray(rot.pitch_deg_ops)))
+    q, dir0 = _blade_dir0(rot)
+    azimuths = np.atleast_1d(np.asarray(rot.azimuths, float))
+    # tilt seen by the BEM is -shaft_tilt (q[2] = -sin(shaft_tilt))
+    _, _, W, alpha = _distributed_loads(
+        rot, torch.tensor(Uhub, **f64), torch.tensor(Omega_rpm, **f64),
+        torch.tensor(pitch_deg, **f64), torch.tensor(azimuths, **f64),
+        torch.tensor(-rot.shaft_tilt, **f64), torch.zeros((), **f64), dev)
+    cpmin = _ppoly_eval(_tab(rot, "cpmin_bp", dev), _tab(rot, "cpmin_c", dev),
+                        alpha)
+    # node depths at the zero-offset pose, per azimuth (nA, nr)
+    zdir = np.stack([(_rodrigues_np(float(az), q) @ dir0)[2]
+                     for az in azimuths])
+    z = rot.hubHt + torch.tensor(zdir, **f64)[:, None] \
+        * _tab(rot, "blade_r", dev)[None, :] * clearance_margin
+    sigma_crit = (Patm + rot.rho * 9.81 * torch.abs(z) - Pvap) \
+        / torch.clamp(0.5 * rot.rho * W**2, min=1e-9)
+    cav = (sigma_crit + cpmin).cpu().numpy()
+    if np.any(cav < 0.0):
+        if error_on_cavitation:
+            raise ValueError("Cavitation occurred at a blade node")
+        import warnings
+        warnings.warn("Cavitation check found a blade node with cavitation "
+                      "occurring", stacklevel=2)
+    return cav

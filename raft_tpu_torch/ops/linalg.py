@@ -34,7 +34,7 @@ Precision (``RAFT_TPU_PRECISION``, read at every dispatch, as
   instantiation), the result cast back up.
 
 Mixed or f32 with 2n > 16 would need the batch-first ladder around LU,
-which serves arrays (ROADMAP A12): it raises ``ModelConfigError`` rather
+which serves arrays (ROADMAP A7): it raises ``ModelConfigError`` rather
 than quietly solving at f64.
 
 Every decision is recorded for ``last_dispatch()``.
@@ -132,7 +132,7 @@ def _require_gj(n2, plan):
         raise errors.ModelConfigError(
             f"RAFT_TPU_PRECISION={plan['mode']} needs the batch-first "
             f"mixed ladder around LU for a {n2}x{n2} real-embedded system "
-            "(2n > 16): not part of the PyTorch port yet (ROADMAP A12)",
+            "(2n > 16): not part of the PyTorch port yet (ROADMAP A7)",
             n=n2, precision=plan["mode"])
 
 

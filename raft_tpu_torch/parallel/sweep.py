@@ -11,9 +11,9 @@ around the batched impedance solve (kernel K1, or K3 under
 That is the same math as the JAX package's ``vmap(setup)``.
 
 Not ported here (ROADMAP): the device mesh / partition rules and the
-executable cache (A13); the run manifest, quarantine ladder, fault seams
-and health telemetry (A10); the farm hooks ``r6_b``, ``C_moor_b``,
-``B_add``, ``F_add`` (A12).
+executable cache (A9); the run manifest, quarantine ladder, fault seams
+and health telemetry (A8); the farm hooks ``r6_b``, ``C_moor_b``,
+``B_add``, ``F_add`` (A7).
 """
 from __future__ import annotations
 

@@ -19,8 +19,8 @@ hand with an explicit variant axis, as in JAX.
 
 Strip node counts and station fractions stay those of the base design;
 lengths, positions, diameters, areas and volumes are tensors computed
-from θ.  Not ported here: ``implicit_diff`` (ROADMAP A13), the device
-mesh and the executable cache (A13).
+from θ.  Not ported here: ``implicit_diff`` (ROADMAP A9), the device
+mesh and the executable cache (A9).
 """
 from __future__ import annotations
 
@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from raft_tpu_torch._config import COMPLEX, REAL, as_real, resolve_device
+from raft_tpu_torch.errors import ModelConfigError
 from raft_tpu_torch.models import mooring as mr
 from raft_tpu_torch.models.fowt import (
     FOWTModel, build_fowt, fowt_drag_excitation, fowt_drag_precompute,
@@ -106,7 +107,14 @@ def variant_fowt(base: FOWTModel, theta: dict) -> FOWTModel:
       d_scale      (nmem, 2)  diameter / side-length scales
       l_fill, rho_fill        per-member lists
       moor_rFair0  (nl, 3), moor_rAnchor (nl, 3), moor_L (nl,),
-      moor_EA (nl,)
+      moor_EA (nl,)   (simple moorings only: a mooring with free
+                       points or multi-segment lines raises
+                       ModelConfigError, as the JAX package has no
+                       variants of one to hold the port to; ROADMAP A7)
+
+    A submerged rotor's blade members are members like any other: θ rows
+    index them too and move them as given, as in the JAX package; they
+    are not rebuilt from the rotor.
     """
     def get(key, i):
         v = theta.get(key)
@@ -131,6 +139,7 @@ def variant_fowt(base: FOWTModel, theta: dict) -> FOWTModel:
     moor = base.mooring
     keys = ("moor_rFair0", "moor_rAnchor", "moor_L", "moor_EA")
     if moor is not None and any(k in theta for k in keys):
+        _refuse_general(moor)
         moor = dataclasses.replace(
             moor,
             rFair0=as_real(theta.get("moor_rFair0", moor.rFair0)),
@@ -139,6 +148,13 @@ def variant_fowt(base: FOWTModel, theta: dict) -> FOWTModel:
             EA=as_real(theta.get("moor_EA", moor.EA)))
     return dataclasses.replace(base, members=members, nodes=nodes,
                                mooring=moor)
+
+
+def _refuse_general(moor):
+    if moor is not None and mr._is_general(moor):
+        raise ModelConfigError(
+            "design variants of a mooring with free points or multi-segment "
+            "lines are not supported (ROADMAP A7); vary the members only")
 
 
 # --------------------------------------------------------------------------
@@ -403,6 +419,7 @@ def volturn_grid(design: dict, factors=(0.75, 1.0, 1.25)):
     groups = base.platmem_groups
 
     moor = base.mooring
+    _refuse_general(moor)
     rFair = np.tile(np.asarray(moor.rFair0), (nv, 1, 1)) if moor else None
 
     for iv, (a, b, c, d, e) in enumerate(grid):

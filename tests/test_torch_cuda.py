@@ -411,3 +411,38 @@ def test_oc4semi_bem_model_on_the_card_matches_cpu(card, tmp_path):
         for stat in ("avg", "std"):
             key = f"{ch}_{stat}"
             assert abs(cb[key] - ca[key]) <= 1e-9 * abs(ca[key]) + 1e-15, key
+
+
+@pytest.mark.cuda
+def test_foctt_current_case_on_the_card_matches_cpu(card):
+    """FOCTT's converging case (m2b: the rotor on the current under
+    aeroServoMod 2, blade members, cavitation) on the coarse grid: the
+    card's run against the port's CPU run at 1e-9, K1 once per drag pass
+    and K2 once per case."""
+    import warnings
+
+    from raft_tpu_torch.model import Model
+    from raft_tpu_torch.models import mhk_cases as MC
+
+    runs = {}
+    for dev in ("cpu", card):
+        G.reset_launches()
+        m = Model(MC.foctt_design(MC.GRID, **MC.M2B_CASE), device=dev)
+        m.analyzeUnloaded()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            m.analyzeCases()
+        runs[str(dev)] = (m, {k: v for k, v in G.LAUNCHES.items() if v})
+    (a, _), (b, launches) = runs["cpu"], runs[str(card)]
+    rec = b._case_records["0"]
+    assert launches == {"impedance_gj": rec["fowt0"]["drag_iters"],
+                        "gj_solve": 1}
+    assert rec["statics_iters"] == a._case_records["0"]["statics_iters"]
+    assert np.max(np.abs(b.Xi - a.Xi)) <= 1e-9 * np.max(np.abs(a.Xi))
+    ca, cb = a.results["case_metrics"][0][0], b.results["case_metrics"][0][0]
+    for ch in ("surge", "sway", "heave", "roll", "pitch", "yaw"):
+        for stat in ("avg", "std"):
+            key = f"{ch}_{stat}"
+            assert abs(cb[key] - ca[key]) <= 1e-9 * abs(ca[key]) + 1e-15, key
+    cav_a, cav_b = (np.asarray(c["cavitation"][0]) for c in (ca, cb))
+    assert np.max(np.abs(cav_b - cav_a)) <= 1e-9 * np.max(np.abs(cav_a))

@@ -259,7 +259,7 @@ def test_mixed_or_f32_above_the_kernels_raises_typed(mode):
     Z = torch.tensor(rng.standard_normal((2, 9, 9)) + 9 * np.eye(9),
                      dtype=torch.complex128)
     _config.set_precision_mode(mode)
-    with pytest.raises(errors.ModelConfigError, match="A12"):
+    with pytest.raises(errors.ModelConfigError, match="A7"):
         TL.inv_complex(Z)
     _config.set_precision_mode("f64")
     TL.inv_complex(Z)
