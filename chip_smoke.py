@@ -99,8 +99,26 @@ Phases (any failure exits non-zero; no phase's failure is turned into a
               sweep_cases on RM1's FOWT, 256 seeded cases x 400 bins
               (102,400 lanes per K1 launch), 4 lanes against the serial
               solve (rtol 1e-9);
-11. prints the kernels JSON line, the card line, and the final JSON line.
-Each path of phases 4-10 runs with the launch counters set to 0 just
+11. farm    — arrays and farms (models/farm_cases.py, goldens of
+              tests/golden/farm_golden.py in tests/golden/farm/):
+              run_raft on VolturnUS-S_farm's four-turbine layout with
+              individual moorings (f1, 24 DOFs, its own 100 bins) against
+              its physics record and ledger golden (as phase 10), again
+              under RAFT_TPU_PRECISION=mixed (against the goldens and
+              f64 at 1e-6; the ladder around LU's promoted count equal to
+              the JAX ladder's); the shipped two-turbine rows on the
+              stand-in shared mooring (f2) against its record, its free
+              points and _K_array at 1e-9, and its Model.sweep_farm;
+              K1 (K3) exactly once per drag pass of each FOWT and no K2;
+              then sweep_farm of f1's first FOWT on four turbines in a
+              row x 256 seeded cases (102,400 lanes per K1 launch, at
+              most nIter launches), 4 lanes against single-lane solves
+              (rtol 1e-9), the wake outputs against the host fixed point
+              and against the JAX package's wake_equilibria_jnp (1e-12,
+              iterations exact); K1 at the farm sweep's operands, timed
+              like the phase 3 rows;
+12. prints the kernels JSON line, the card line, and the final JSON line.
+Each path of phases 4-11 runs with the launch counters set to 0 just
 before it and read just after; every kernel of a path must launch in it.
 
 Options: --only-kernels stops after phase 3 (the short call after a
@@ -991,7 +1009,7 @@ def check_qtf(dev):
 
 
 # ---------------------------------------------------------------------------
-# phases 4-10: the paths, each with its own launch counts
+# phases 4-11: the paths, each with its own launch counts
 # ---------------------------------------------------------------------------
 
 #: launches per path, read just after it ran (counters set to 0 just
@@ -1855,6 +1873,333 @@ def run_mhk(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: arrays and farms
+# ---------------------------------------------------------------------------
+
+FARM_SERIAL_LANES = 4
+WAKE_TOL = 1e-12
+ARRAY_TOL = 1e-9
+
+
+def _farm_golden(name, m, stem):
+    """A farm run against its full-width goldens (tests/golden/farm/,
+    written by tests/golden/farm_golden.py): the physics record (every
+    FOWT's metrics, the mean offsets, the array lines' tensions at 1e-6,
+    the counts exact), the statics residual one-sided as phase 10 holds
+    it, and the ledger golden where the JAX backends agree on one."""
+    from raft_tpu_torch import ledger
+    from raft_tpu_torch.models import farm_cases as FC
+    from raft_tpu_torch.models import mhk_cases as MC
+
+    gdir = os.path.join(ROOT, "tests", "golden", "farm")
+    with open(os.path.join(gdir, f"{stem}.metrics.json")) as f:
+        ref = json.load(f)
+    live = FC.farm_records(m.results, m.last_ledger)
+    rel, same = MC.case_records_deviation(ref, live)
+    ratio, held = MC.residual_held(ref, live)
+    res = dict(port=[c["statics_residual"] for c in live["cases"]],
+               jax_host=[c["statics_residual"] for c in ref["cases"]],
+               jax_default=ref["statics_residual_default"],
+               ratio_to_larger_jax=ratio)
+    log(f"  [{name}] physics record vs the JAX package: worst rel "
+        f"{rel:.2e}, counts equal {same}; statics_residual {res}")
+    rec = dict(worst_rel=rel, iters_equal=same, statics_residual=res,
+               record=live)
+    if rel > GOLDEN_TOL or not same:
+        fail(f"{name}: physics record rel {rel:.2e}, counts equal {same}")
+    if not held:
+        fail(f"{name}: statics_residual {ratio:.3g} x the JAX package's, "
+             f"above {MC.RESIDUAL_FACTOR}")
+    if ref["ledger_golden"]:
+        chk = MC.ledger_golden_check(
+            ledger.load_ledger(os.path.join(gdir, f"{stem}.ledger.json")),
+            m.last_ledger, tol=GOLDEN_TOL, resid_tol=GOLDEN_RESID_TOL)
+        log(f"  [{name}] ledger golden: " + ledger.format_diff(chk["report"]))
+        rec["ledger"] = dict(
+            n_compared=chk["report"]["n_compared"],
+            iters_equal=chk["iters_ok"],
+            statics_residual_band=[dict(entry=r["entry"], rel=r["rel"])
+                                   for r in chk["floor"]])
+        if chk["blocking"] or not chk["iters_ok"]:
+            fail(f"{name}: ledger golden regressed: {chk['blocking']}, "
+                 f"iteration counts equal {chk['iters_ok']}")
+    return rec
+
+
+def check_impedance_farm(G, solver, lanes_in, xi_start):
+    """K1 at the farm sweep's first drag pass (from Xi = ``xi_start``):
+    every operand per lane (M, the radiation plus aero damping and the
+    first drag term, C with each turbine's mooring stiffness, F), from
+    the sweep's own set-up."""
+    from raft_tpu_torch.models.fowt import (
+        fowt_drag_excitation, fowt_hydro_linearization_pre)
+    from raft_tpu_torch._config import COMPLEX
+
+    case = solver.case
+    fowt = solver.fowt
+    dev = fowt.device
+    w = torch.as_tensor(fowt.w, dtype=torch.float64, device=dev)
+    st = case.setup_lanes(*lanes_in["sea"], lanes_in["r6"], lanes_in["C"])
+    Xi0 = torch.zeros((st["F_lin"].shape[0], 6, fowt.nw), dtype=COMPLEX,
+                      device=dev) + xi_start
+    B6, Bmat = fowt_hydro_linearization_pre(fowt, st["pose"],
+                                            st["drag_pre"], Xi0)
+    M = st["M_lin"].contiguous()
+    B = (B6[..., None] + st["B_BEM"] + lanes_in["B_add"][..., None]
+         ).contiguous()
+    C = st["C_lin"].contiguous()
+    F = (st["F_lin"] + fowt_drag_excitation(fowt, st["pose"], Bmat,
+                                            st["u0"])).contiguous()
+    n = 6
+    X = G.impedance_gj_solve(w, M, B, C, F)
+    Xp = G.impedance_gj_solve_plain(w, M, B, C, F)
+    torch.cuda.synchronize()
+    rel = _rel(X, Xp)
+    lanes = F.shape[0] * fowt.nw
+    row = dict(lanes=lanes, case="farm_operands", rel_vs_plain=rel,
+               rel_ill=None, max_abs_err=float(torch.max(torch.abs(X - Xp))),
+               shapes=dict(M=list(M.shape), B=list(B.shape),
+                           C=list(C.shape), F=list(F.shape)))
+    Z = (-(w ** 2) * M + 1j * w * B + C[..., None]).movedim(-1, -3)
+    Fz = F.movedim(-1, -2)[..., None]
+    row["normwise_residual"] = _normwise_residual(
+        Z, X.movedim(-1, -2)[..., None], Fz)
+    if not (rel <= X_TOL and row["normwise_residual"] <= RESID_TOL
+            and bool(torch.all(torch.isfinite(X)))):
+        fail(f"impedance_gj farm_operands lanes={lanes}: rel={rel:.3e}, "
+             f"residual {row['normwise_residual']:.2e}")
+    _time_row(row, lambda: G.impedance_gj_solve(w, M, B, C, F),
+              lambda: G.impedance_gj_solve_plain(w, M, B, C, F),
+              lambda: torch.linalg.solve(Z, Fz), KERNEL_NAMES["impedance_gj"])
+    row["bound_ms"], row["bound_by"] = bound(
+        nbytes(w, M, B, C, F, X), lanes * (gj_flops(2 * n, 1) + 8 * n * n))
+    ROWS["impedance_gj_farm"] = [row]
+    _log_row("impedance_gj", row)
+    return row
+
+
+def run_farm(dev):
+    """Phase 11: (f1) VolturnUS-S_farm's four-turbine layout at full width
+    in f64 and under the mixed ladder, (f2) the shipped two-turbine rows
+    on the stand-in shared mooring with Model.sweep_farm, and (f3) the
+    farm sweep of (f1)'s first FOWT, 4 turbines x 256 cases x 100 bins
+    (102,400 lanes per K1 launch), against the JAX package's goldens."""
+    import warnings
+
+    from raft_tpu_torch import _config, run_raft
+    from raft_tpu_torch.models import farm_cases as FC
+    from raft_tpu_torch.models import wake as TW
+    from raft_tpu_torch.ops.kernels import gj_solve as G
+    from raft_tpu_torch.parallel import sweep as TS
+
+    warnings.filterwarnings("ignore", message="sweep_farm replicates")
+    gdir = os.path.join(ROOT, "tests", "golden", "farm")
+
+    def gold(name):
+        with open(os.path.join(gdir, name)) as f:
+            return json.load(f)
+
+    out = {}
+
+    def raft(path, design, k1):
+        """run_raft on the card: K1 (K3 under mixed) once per drag pass of
+        every FOWT, no K2 (the (nw, 6N, 6N) system goes to LU)."""
+        with counted(path, (k1,)):
+            t0 = time.perf_counter()
+            m = run_raft(design, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        got = PATH_LAUNCHES[path]
+        recs = m._case_records["0"]
+        passes = sum(recs[f"fowt{i}"]["drag_iters"] for i in range(m.nFOWT))
+        if got.get(k1) != passes or set(got) != {k1}:
+            fail(f"{path}: launches {got}, expected {k1} {passes} (one per "
+                 "drag pass of each FOWT) and nothing else")
+        finite = bool(np.all(np.isfinite(m.Xi))) and all(
+            np.isfinite(c[f"{ch}_std"])
+            for i, c in m.results["case_metrics"][0].items()
+            if isinstance(i, int) for ch in ("surge", "heave", "pitch"))
+        if not finite:
+            fail(f"{path}: non-finite outputs")
+        rest = wall - sum(m.timings.values())
+        log(f"  {path}: {m.nFOWT} FOWTs, {m.nDOF} DOFs x {m.nw} bins in "
+            f"{wall:.2f} s; split " + ", ".join(
+                f"{k} {v:.3f} s" for k, v in m.timings.items())
+            + f", build {rest:.3f} s; statics iters "
+            f"{recs['statics_iters']}, drag iters "
+            f"{[recs[f'fowt{i}']['drag_iters'] for i in range(m.nFOWT)]}; "
+            f"system solve {m.last_system_dispatch}")
+        out[path] = dict(wall_s=wall, timings=dict(m.timings),
+                         build_s=rest, launches=got, nw=m.nw,
+                         statics_iters=recs["statics_iters"])
+        return m
+
+    # (f1) four turbines on individual moorings, f64 then mixed
+    m1 = raft("farm_f1", FC.f1_design(), "impedance_gj")
+    out["farm_f1"]["golden"] = _farm_golden("f1", m1, "f1")
+    _config.set_precision_mode("mixed")
+    try:
+        m1x = raft("farm_f1_mixed", FC.f1_design(), "impedance_gj_mixed")
+    finally:
+        _config.set_precision_mode(None)
+    out["farm_f1_mixed"]["golden"] = _farm_golden("f1 mixed", m1x, "f1")
+    from raft_tpu_torch.models import mhk_cases as MC
+    rel, same = MC.case_records_deviation(
+        out["farm_f1"]["golden"]["record"],
+        out["farm_f1_mixed"]["golden"]["record"])
+    sysd = m1x.last_system_dispatch
+    ladder = gold("f1.ladder.json")
+    promoted = int(sysd.get("promoted", -1))
+    out["farm_f1_mixed"].update(
+        vs_f64_rel=rel, vs_f64_counts_equal=same, promoted=promoted,
+        lanes=sysd.get("lanes"), jax_promoted=ladder["f32"]["promoted"])
+    log(f"  f1 mixed vs f64: worst rel {rel:.2e}, counts equal {same}; the "
+        f"ladder around LU promoted {promoted}/{sysd.get('lanes')} lanes "
+        f"(the JAX package's ladder on its f64 run's systems: "
+        f"{ladder['f32']['promoted']})")
+    if rel > GOLDEN_TOL or not same:
+        fail(f"f1 mixed vs f64: rel {rel:.2e}, counts equal {same}")
+    if sysd.get("backend") != "lu" or sysd.get("precision") != "mixed" \
+            or promoted != ladder["f32"]["promoted"]:
+        fail(f"f1 mixed: system solve {sysd}, the JAX ladder promoted "
+             f"{ladder['f32']['promoted']}")
+
+    # (f2) two turbines on the stand-in shared mooring
+    m2 = raft("farm_f2", FC.f2_design(), "impedance_gj")
+    out["farm_f2"]["golden"] = _farm_golden("f2", m2, "f2")
+    arel = FC.array_deviation(gold("f2.array.json"), FC.array_record(m2))
+    out["farm_f2"]["array_rel"] = arel
+    log(f"  f2 free points and _K_array vs the JAX package: worst rel "
+        f"{arel:.2e}; free points {np.round(FC.array_record(m2)['xf'], 3)}")
+    if not arel <= ARRAY_TOL:
+        fail(f"f2: free points / _K_array rel {arel:.2e}")
+    with counted("farm_f2_sweep", ("impedance_gj",)):
+        t0 = time.perf_counter()
+        sw2 = m2.sweep_farm(cases=FC.f3_cases(8, seed=1))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    srel, ssame = FC.sweep_deviation(gold("f2.sweep.json"),
+                                     FC.sweep_record(sw2))
+    out["farm_f2_sweep"] = dict(wall_s=wall, worst_rel=srel,
+                                counts_equal=ssame,
+                                launches=PATH_LAUNCHES["farm_f2_sweep"])
+    log(f"  f2 Model.sweep_farm, 2 x 8 cases: {wall:.2f} s, vs the JAX "
+        f"package worst rel {srel:.2e}, counts equal {ssame}")
+    if srel > GOLDEN_TOL or not ssame:
+        fail(f"f2 sweep_farm: rel {srel:.2e}, counts equal {ssame}")
+
+    # (f3) the farm sweep: 4 turbines x 256 cases x 100 bins
+    fowt = m1.fowtList[0]
+    f3 = gold("f3.json")
+    t0 = time.perf_counter()
+    curve = TW.power_thrust_curve(fowt)
+    t_curve = time.perf_counter() - t0
+    crel = max(_rel(torch.as_tensor(curve[k]),
+                    torch.as_tensor(np.asarray(f3["curve"][k])))
+               for k in ("power", "thrust", "Ct"))
+    log(f"  f3 power/thrust curve ({len(curve['wind_speed'])} BEM points) "
+        f"in {t_curve:.2f} s, vs the JAX package worst rel {crel:.2e}")
+    if not crel <= ARRAY_TOL:
+        fail(f"f3 curve: rel {crel:.2e}")
+    c = FC.f3_cases()
+    nt, nc = len(FC.F3_LAYOUT), FC.F3_NCASES
+    solver = TS.make_farm_solver(fowt, FC.F3_LAYOUT, curve=curve,
+                                 nIter=m1.nIter, XiStart=m1.XiStart)
+    lane = lambda x: TS._farm_lane_tile(  # noqa: E731
+        torch.as_tensor(x, device=dev), nt)
+    args = (lane(c["Hs"]), lane(c["Tp"]), lane(c["beta"]), c["U_inf"],
+            c["wind_dir"])
+    with counted("farm_sweep", ("impedance_gj",)):
+        t0 = time.perf_counter()
+        sw = solver(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    k1 = PATH_LAUNCHES["farm_sweep"].get("impedance_gj", 0)
+    if not 0 < k1 <= m1.nIter:
+        fail(f"f3: {k1} K1 launches, expected 1..{m1.nIter}")
+    busy = device_busy(lambda: solver(*args))
+    # lanes against single-lane solves of the same lane
+    worst = 0.0
+    for lane_i in (0, nc + 17, 2 * nc + 101, 4 * nc - 1):
+        t, k = divmod(lane_i, nc)
+        B = TS._interp_along0(solver.curve_speed, solver.B_tab,
+                              sw["U_wake"][t, k:k + 1])
+        r6 = torch.zeros((1, 6), dtype=torch.float64, device=dev)
+        r6[0, :2] = torch.as_tensor(FC.F3_LAYOUT[t])
+        one = solver.case.batched(
+            args[0][lane_i:lane_i + 1], args[1][lane_i:lane_i + 1],
+            args[2][lane_i:lane_i + 1], r6_b=r6,
+            C_moor_b=solver.C_moor_t[t][None], B_add=B)
+        a, b = sw["Xi"][lane_i], one["Xi"][0]
+        worst = max(worst, _rel(a, b))
+        if not _allclose(a, b, SWEEP_RTOL,
+                         atol=1e-12 * float(torch.max(torch.abs(b)))):
+            fail(f"f3 lane {lane_i} differs from its single-lane solve")
+    # the wake outputs: the host fixed point on the same curve, and the
+    # batched equilibrium on the JAX package's curve against its own
+    U_w = sw["U_wake"].cpu().numpy()
+    host_worst, host_iters = 0.0, True
+    D = 2.0 * fowt.rotors[0].R_rot
+    its = sw["wake_iters"].cpu().numpy()
+    for k in range(nc):
+        U = np.full(nt, c["U_inf"][k])
+        Ct = TW._curve_interp(U, curve, "Ct")
+        for it in range(100):
+            U_new = TW.wake_velocities(FC.F3_LAYOUT, D, Ct, c["U_inf"][k],
+                                       c["wind_dir"][k])
+            if np.max(np.abs(U_new - U)) < 1e-4:
+                U = U_new
+                break
+            U = 0.5 * U + 0.5 * U_new
+            Ct = TW._curve_interp(U, curve, "Ct")
+        host_worst = max(host_worst, float(np.max(np.abs(U_w[:, k] - U))
+                                           / np.max(np.abs(U))))
+        host_iters = host_iters and int(its[k]) == it + 1
+    cs, cCt, cP = TW.curve_tensors(f3["curve"], dev)
+    eq = TW.wake_equilibria_torch(
+        torch.as_tensor(FC.F3_LAYOUT, device=dev),
+        torch.full((nt,), f3["D"], dtype=torch.float64, device=dev),
+        cs, cCt, cP, c["U_inf"], c["wind_dir"])
+    jrel = max(_rel(eq[k].cpu(), torch.as_tensor(np.asarray(f3["wake"][k])))
+               for k in ("U", "Ct", "power"))
+    jits = bool(np.array_equal(eq["iterations"].cpu().numpy(),
+                               np.asarray(f3["wake"]["iterations"])))
+    conv = int(sw["converged"].sum())
+    out["farm_sweep"] = dict(
+        wall_s=wall, turbines=nt, cases=nc, nw=fowt.nw,
+        lanes=nt * nc * fowt.nw, converged=conv, fp_chunks=sw["fp_chunks"],
+        serial_worst_rel=worst, wake_vs_host_rel=host_worst,
+        wake_vs_host_iters_equal=host_iters, wake_vs_jax_rel=jrel,
+        wake_vs_jax_iters_equal=jits, curve_vs_jax_rel=crel,
+        curve_s=t_curve, wake_iters=[int(its.min()), int(its.max())],
+        launches=PATH_LAUNCHES["farm_sweep"], device_busy=busy)
+    log(f"  f3 sweep: {nt} turbines x {nc} cases x {fowt.nw} bins "
+        f"({nt * nc * fowt.nw} lanes per K1 launch, {k1} launches) in "
+        f"{wall:.3f} s; converged {conv}/{nt * nc}; {FARM_SERIAL_LANES} "
+        f"lanes vs single-lane solves worst rel {worst:.2e}; wake vs host "
+        f"{host_worst:.2e} (iterations equal {host_iters}), vs the JAX "
+        f"package {jrel:.2e} (iterations equal {jits}), wake iterations "
+        f"{int(its.min())}-{int(its.max())}; device busy "
+        f"{None if busy is None else round(busy['busy_share'], 4)}")
+    if not (host_worst <= WAKE_TOL and host_iters and jrel <= WAKE_TOL
+            and jits):
+        fail(f"f3 wake outputs: vs host {host_worst:.2e} ({host_iters}), "
+             f"vs JAX {jrel:.2e} ({jits})")
+    if not bool(torch.all(torch.isfinite(sw["std"]))):
+        fail("f3 sweep: non-finite std")
+    lanes_in = dict(sea=tuple(a.clone() for a in args[:3]),
+                    r6=torch.repeat_interleave(
+                        torch.as_tensor(np.c_[FC.F3_LAYOUT, np.zeros((nt, 4))],
+                                        device=dev), nc, dim=0),
+                    C=torch.repeat_interleave(solver.C_moor_t, nc, dim=0),
+                    B_add=TS._interp_along0(solver.curve_speed, solver.B_tab,
+                                            sw["U_wake"].reshape(-1)))
+    out["farm_sweep"]["k1_row"] = check_impedance_farm(G, solver, lanes_in,
+                                                       m1.XiStart)
+    return out
+
+
 # kernel line: (JSON name, launch key, TPU kernel it replaces, CUDA source,
 # the main-path shape its times are taken at)
 KERNELS = (
@@ -1947,7 +2292,8 @@ def main() -> int:
                      ("golden_mixed", lambda: run_goldens(dev, "mixed")),
                      ("qtf", lambda: run_qtf(dev)),
                      ("potflow", lambda: run_potflow(dev)),
-                     ("mhk", lambda: run_mhk(dev))):
+                     ("mhk", lambda: run_mhk(dev)),
+                     ("farm", lambda: run_farm(dev))):
         log(f"{name}: on the card")
         t0 = time.perf_counter()
         phases[name] = fn()

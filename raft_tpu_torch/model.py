@@ -1,17 +1,25 @@
 """System-level model: statics equilibrium, eigen, dynamic RAO solve, cases.
 
-Port of the single-FOWT path of ``raft_tpu/model.py`` (reference:
-raft/raft_model.py) on PyTorch:
+Port of ``raft_tpu/model.py`` (reference: raft/raft_model.py) on PyTorch,
+for one FOWT or an array of N (``array`` in the design: the per-row
+``x_location``, ``y_location``, ``heading_adjust`` and turbine / platform
+/ mooring IDs, and an ``array_mooring`` MoorDyn file whose lines may be
+shared between FOWTs):
 
-- `solveStatics` (reference :479-849): damped Newton on the 6-DOF pose
+- `solveStatics` (reference :479-849): damped Newton on the 6N-DOF pose
   with the 5 line-search alphas evaluated as one batch
   (``torch.func.vmap``), first-sufficient selection, full clipped step
   when none improves, and the |dX| < tol stop on the undamped step; a
-  Python loop with one host check per iteration.
-- `solveDynamics` (reference :852-1146): the drag-linearization fixed
-  point around the fused impedance solve (kernel K1 on the card) in a
-  Python loop with the same iteration rule, then the factor-once system
-  solve ``inv_complex`` (kernel K2) applied to every heading.
+  Python loop with one host check per iteration.  The array mooring's
+  free points are re-solved at every evaluation (warm-started from the
+  accepted ones) and its coupled stiffness couples the FOWT blocks.
+- `solveDynamics` (reference :852-1146): each FOWT's drag-linearization
+  fixed point around the fused impedance solve (kernel K1 on the card)
+  in a Python loop with the same iteration rule, then the factor-once
+  system solve ``inv_complex`` applied to every heading: kernel K2 for
+  one FOWT, LU for an array's (nw, 6N, 6N) system plus the array
+  mooring's stiffness (the ladder around LU under
+  ``RAFT_TPU_PRECISION=mixed``).
 - Second-order loads (reference :901-904, :966-989, :1066-1083):
   ``potSecOrder: 2`` adds the difference-frequency force of a ``.12d``
   QTF; ``potSecOrder: 1`` computes the slender-body QTF (kernel K5 on the
@@ -24,16 +32,19 @@ raft/raft_model.py) on PyTorch:
   enter the impedance (so K1 sees an M and a B that vary from bin to
   bin) and the BEM excitation the right-hand side; `preprocess_BEM`
   re-solves the native BEM on a custom grid and writes WAMIT files.
-- `solveEigen` (reference :391-476), host NumPy.
-- `analyzeCases` / `saveTurbineOutputs` / `calcOutputs` / `run_raft`.
+- `solveEigen` (reference :391-476), host NumPy, at 6N DOFs.
+- `analyzeCases` / `saveTurbineOutputs` (per FOWT; an array's shared-line
+  tension statistics under ``case_metrics[i]["array_mooring"]``) /
+  `calcOutputs` / `run_raft`; `sweep_farm`, `powerThrustCurve`,
+  `findWakeEquilibrium` and `calcAEP` (``models/wake.py``).
 
 Everything runs on ``Model.device`` (the card unless ``device="cpu"``);
 the native BEM solve and the WAMIT parsing are host work at build time.
 Submerged (MHK) rotors carry blade members and a per-case cavitation
 check (``results["cavitation"]``); a mooring with free points or
 multi-segment lines solves its free points once per statics pose.
-Not part of the port yet: farms/arrays, ballast trim, MacCamy-Fuchs
-members, the Kim & Yue correction, and the JAX package's observability,
+Not part of the port yet: ballast trim, MacCamy-Fuchs members, the Kim &
+Yue correction, the FLORIS coupling, and the JAX package's observability,
 probes, journal/resume, quarantine and recovery ladder — failures raise
 typed errors, as the JAX package does with ``RAFT_TPU_RECOVERY=0``.
 """
@@ -51,6 +62,7 @@ from raft_tpu_torch._config import COMPLEX, REAL, as_real, resolve_device
 from raft_tpu_torch.io.bem_native import solve_bem_fowt
 from raft_tpu_torch.io.wamit import bem_coeffs
 from raft_tpu_torch.models import mooring as mr
+from raft_tpu_torch.models import mooring_array as ma
 from raft_tpu_torch.models.fowt import (
     FOWTModel, build_fowt, build_seastate, fowt_pose, fowt_statics,
     fowt_hydro_constants, fowt_hydro_excitation, fowt_drag_precompute,
@@ -60,7 +72,7 @@ from raft_tpu_torch.models.fowt import (
 from raft_tpu_torch.models import qtf as qt
 from raft_tpu_torch.models.member import member_inertia
 from raft_tpu_torch.models.rotor import calc_aero, calc_cavitation
-from raft_tpu_torch.ops.linalg import impedance_solve, inv_complex
+from raft_tpu_torch.ops.linalg import impedance_solve, inv_complex, last_dispatch
 from raft_tpu_torch.ops.spectra import get_psd, get_rao, get_rms
 from raft_tpu_torch.ops.transforms import transform_force, translate_matrix_6to6
 from raft_tpu_torch.utils.dicttools import get_from_dict
@@ -81,7 +93,7 @@ def _f(x) -> float:
 
 def _dyn_solve_core(Zinv, Z_sys, F_all):
     """Apply the factored inverse impedance to every heading's excitation
-    ((nw,6,6) x (nH,6,nw) -> (nH,6,nw)) and the per-heading relative
+    ((nw,6N,6N) x (nH,6N,nw) -> (nH,6N,nw)) and the per-heading relative
     residual |Z Xi - F| / |F| of that reuse."""
     Xi = torch.einsum("wij,hjw->hiw", Zinv, F_all)
     R = torch.einsum("wij,hjw->hiw", Z_sys, Xi) - F_all
@@ -90,9 +102,22 @@ def _dyn_solve_core(Zinv, Z_sys, F_all):
     return Xi, num / (den + 1e-300)
 
 
+def _block_diag(blocks):
+    """(..., 6N, 6N) from N (..., 6, 6) blocks (written for
+    ``torch.func.vmap``); one block is returned as it is."""
+    N = len(blocks)
+    if N == 1:
+        return blocks[0]
+    z = torch.zeros_like(blocks[0])
+    return torch.cat([torch.cat([blocks[i] if j == i else z
+                                 for j in range(N)], dim=-1)
+                      for i in range(N)], dim=-2)
+
+
 class Model:
-    """Single-FOWT frequency-domain model: Model(design) ->
-    analyzeUnloaded() -> analyzeCases() with results in `model.results`.
+    """Single-FOWT or array frequency-domain model: Model(design) ->
+    analyzeUnloaded() (one FOWT only) -> analyzeCases() with results in
+    `model.results`.
 
     ``device`` defaults to the card (``cuda``) and raises when there is
     none; pass ``device="cpu"`` to run on the host."""
@@ -113,19 +138,58 @@ class Model:
         self.w = np.arange(min_freq, max_freq + 0.5 * min_freq, min_freq) * 2 * np.pi
         self.nw = len(self.w)
         self.depth = float(get_from_dict(design["site"], "water_depth", dtype=float))
+
+        #: the array mooring (``array_mooring``), its free points at the
+        #: last statics pose and its coupled (6N, 6N) stiffness there
+        self.arr_ms = None
+        self._arr_xf = None
+        self._K_array = None
         if "array" in design:
-            raise errors.ModelConfigError(
-                "farm/array designs are not part of the PyTorch port yet")
-        self.fowtList = [build_fowt(design, self.w, depth=self.depth,
-                                    device=self.device)]
-        self.nFOWT = 1
-        self.nDOF = 6
+            # ----- array/farm mode (reference: raft_model.py:67-141) -----
+            if "turbine" in design and "turbines" not in design:
+                design["turbines"] = [design["turbine"]]
+            if "platform" in design and "platforms" not in design:
+                design["platforms"] = [design["platform"]]
+            if "mooring" in design and "moorings" not in design:
+                design["moorings"] = [design["mooring"]]
+            fowtInfo = [dict(zip(design["array"]["keys"], row))
+                        for row in design["array"]["data"]]
+            self.nFOWT = len(fowtInfo)
+            if "array_mooring" in design:
+                if not design["array_mooring"].get("file"):
+                    raise errors.ModelConfigError(
+                        "'array_mooring' requires a MoorDyn-style input "
+                        "file as 'file'")
+                from raft_tpu_torch.convert import state_from_numpy
+                self.arr_ms = state_from_numpy(ma.parse_moordyn(
+                    design["array_mooring"]["file"], nbodies=self.nFOWT,
+                    depth=self.depth), self.device)
+            self.fowtList = []
+            for info in fowtInfo:
+                design_i = {"site": design["site"]}
+                if info["turbineID"] != 0:
+                    design_i["turbine"] = design["turbines"][info["turbineID"] - 1]
+                design_i["platform"] = design["platforms"][info["platformID"] - 1]
+                if info["mooringID"] != 0:
+                    design_i["mooring"] = design["moorings"][info["mooringID"] - 1]
+                self.fowtList.append(build_fowt(
+                    design_i, self.w, depth=self.depth,
+                    x_ref=float(info["x_location"]),
+                    y_ref=float(info["y_location"]),
+                    heading_adjust=float(info["heading_adjust"]),
+                    device=self.device))
+        else:
+            self.fowtList = [build_fowt(design, self.w, depth=self.depth,
+                                        device=self.device)]
+            self.nFOWT = 1
+        self.nDOF = 6 * self.nFOWT
         self.mooring_currentMod = int(get_from_dict(
             design.get("mooring") or {}, "currentMod", dtype=int, default=0))
         # QTF output folder: internal-QTF runs drop .12d/.4 snapshots here
         # and reload them as a checkpoint cache (reference:
         # raft_fowt.py:255-257, 1420-1433, 1642-1648)
-        self.outFolderQTF = (design.get("platform") or {}).get("outFolderQTF")
+        plat = design.get("platform") or (design.get("platforms") or [{}])[0]
+        self.outFolderQTF = plat.get("outFolderQTF")
         self._iCase = None
         #: result ledger (raft_tpu.ledger/v1) of the most recent
         #: analyzeCases invocation
@@ -161,6 +225,31 @@ class Model:
 
     def _case_label(self) -> str:
         return "unloaded" if self._iCase is None else str(self._iCase)
+
+    @staticmethod
+    def _case_for_fowt(case, i):
+        """Per-FOWT view of a case row: farm cases may give per-turbine
+        lists for the wind parameters (reference: raft_model.py:515-519,
+        536-547)."""
+        if not case:
+            return case
+        case_i = dict(case)
+        for key in ("wind_speed", "wind_heading", "turbulence"):
+            v = case.get(key)
+            if isinstance(v, (list, tuple, np.ndarray)):
+                if i >= len(v):
+                    raise errors.ModelConfigError(
+                        f"case list for '{key}' has {len(v)} entries but "
+                        f"FOWT {i+1} exists — per-turbine lists must match "
+                        "the number of turbines (reference: "
+                        "raft_model.py:517-519)", key=key, fowt=i)
+                case_i[key] = v[i]
+        return case_i
+
+    def _refs(self):
+        """(6N,) reference poses [x_ref, y_ref, 0, 0, 0, 0] per FOWT."""
+        return np.concatenate([[f.x_ref, f.y_ref, 0, 0, 0, 0]
+                               for f in self.fowtList]).astype(float)
 
     # ------------------------------------------------------------------
     # statics
@@ -241,49 +330,81 @@ class Model:
             state["moor_current"] = None
         state["F_env_constant"] = F_env
 
-    def _statics_eval(self, F0, K_hs, Ucur):
-        """(net force, tangent stiffness) at one pose X (6,), written for
-        ``torch.func.vmap`` over the line-search alphas.  As in the JAX
-        Model, the mooring wrench always takes the current-loaded line
-        profiles with the case current (zero without one); a general
-        topology solves its free points once per pose and shares them
-        between the wrench and the stiffness."""
-        fowt = self.fowtList[0]
-        moor = fowt.mooring
-        general = moor is not None and mr._is_general(moor)
-        ref = self._t([fowt.x_ref, fowt.y_ref, 0, 0, 0, 0])
+    def _statics_eval(self, F0s, K_hss, Ucur):
+        """(net force (6N,), tangent stiffness (6N, 6N), array free
+        points) at one pose X (6N,) from the array free points' start
+        ``xf``, written for ``torch.func.vmap`` over the line-search
+        alphas.  As in the JAX Model, a simple mooring takes the
+        current-loaded line profiles with the case current (zero without
+        one); a general topology solves its free points once per pose and
+        shares them between the wrench and the stiffness; the array
+        mooring re-solves its free points from ``xf`` and adds its body
+        wrenches and coupled stiffness."""
+        N = self.nFOWT
+        refs = self._t(self._refs())
+        moors = [f.mooring for f in self.fowtList]
+        general = [m is not None and mr._is_general(m) for m in moors]
+        arr = self.arr_ms
 
-        def eval_FK(X):
-            F = F0 - K_hs @ (X - ref)
-            K = K_hs
-            if moor is not None:
-                xf = mr.free_points(moor, X) if general else None
-                cur = None if general else Ucur
-                F = F + mr.body_wrench(moor, X, xf=xf, current=cur)
-                K = K + mr.coupled_stiffness(moor, X, xf=xf, current=cur)
-            return F, K
+        def eval_FK(X, xf):
+            Fs, Ks = [], []
+            for i in range(N):
+                s = slice(6 * i, 6 * i + 6)
+                F = F0s[i] - K_hss[i] @ (X[s] - refs[s])
+                K = K_hss[i]
+                if moors[i] is not None:
+                    xf_i = mr.free_points(moors[i], X[s]) if general[i] \
+                        else None
+                    cur = None if general[i] else Ucur[i]
+                    F = F + mr.body_wrench(moors[i], X[s], xf=xf_i,
+                                           current=cur)
+                    K = K + mr.coupled_stiffness(moors[i], X[s], xf=xf_i,
+                                                 current=cur)
+                Fs.append(F)
+                Ks.append(K)
+            F = torch.cat(Fs) if N > 1 else Fs[0]
+            K = _block_diag(Ks)
+            if arr is not None:
+                Xb = X.reshape(N, 6)
+                xf = ma.solve_free_points(arr, Xb, xf0=xf)
+                F = F + ma.body_wrenches(arr, Xb, xf).reshape(-1)
+                K = K + ma.coupled_stiffness(arr, Xb, xf)
+            return F, K, xf
 
         return eval_FK
 
     def solveStatics(self, case, display=0):
-        """Mean-offset equilibrium (reference: raft_model.py:479-849)."""
-        fowt = self.fowtList[0]
-        state = self._state[0]
-        self._case_constants(fowt, case, state)
-        refs = np.array([fowt.x_ref, fowt.y_ref, 0, 0, 0, 0], float)
-
-        K_hs = state["K_hydrostatic"]
-        F0 = state["F_undisplaced"] + state["F_env_constant"]
-        db = self._t([30, 30, 5, 0.1, 0.1, 0.1])
-        tol = self._t(np.array([0.05, 0.05, 0.05, 5e-3, 5e-3, 5e-3]) * 1e-3)
-        Ucur = self._t(state["moor_current"] if state.get("moor_current")
-                       is not None else np.zeros(3))
-        eval_FK = self._statics_eval(F0, K_hs, Ucur)
-        eval_batch = torch.func.vmap(eval_FK)
+        """Mean-offset equilibrium over all 6N DOFs (reference:
+        raft_model.py:479-849)."""
+        N = self.nFOWT
+        for i, fowt in enumerate(self.fowtList):
+            self._case_constants(fowt, self._case_for_fowt(case, i),
+                                 self._state[i])
+        refs = self._refs()
+        F0s = [st["F_undisplaced"] + st["F_env_constant"]
+               for st in self._state]
+        K_hss = [st["K_hydrostatic"] for st in self._state]
+        db = self._t(np.tile([30, 30, 5, 0.1, 0.1, 0.1], N))
+        tol = self._t(np.tile(np.array([0.05, 0.05, 0.05, 5e-3, 5e-3, 5e-3])
+                              * 1e-3, N))
+        Ucur = [self._t(st["moor_current"] if st.get("moor_current")
+                        is not None else np.zeros(3)) for st in self._state]
+        arr = self.arr_ms
+        if arr is None:
+            xf = torch.zeros((0, 3), dtype=REAL, device=self.device)
+        elif self._arr_xf is not None:
+            # the previous statics solve's free points (as the JAX Model)
+            xf = self._arr_xf
+        else:
+            xf = self._t(arr.r0)[torch.as_tensor(
+                np.flatnonzero(np.asarray(arr.attach) == ma.ATTACH_FREE),
+                device=self.device)]
+        eval_FK = self._statics_eval(F0s, K_hss, Ucur)
+        eval_batch = torch.func.vmap(eval_FK, in_dims=(0, None))
         alphas = self._t(self._NEWTON_ALPHAS)
 
         X = self._t(refs)
-        F, K = eval_FK(X)
+        F, K, xf = eval_FK(X, xf)
         n_iters = 0
         while n_iters < self._NEWTON_MAX_ITERS:
             # guard zero-stiffness diagonals like the reference (:713-715)
@@ -292,7 +413,7 @@ class Model:
             Kg = K + torch.diag(kfix - kdiag)
             dX = torch.clamp(torch.linalg.solve(Kg, F), -db, db)
             merit0 = torch.sum(F ** 2)
-            Fa, Ka = eval_batch(X + alphas[:, None] * dX)
+            Fa, Ka, xfa = eval_batch(X + alphas[:, None] * dX, xf)
             merits = torch.sum(Fa ** 2, dim=1)
             # first sufficient candidate wins; none improving -> the full
             # clipped step (candidate 0, a = 1)
@@ -300,14 +421,14 @@ class Model:
             anys = torch.any(suff)
             idx = torch.where(anys, torch.argmax(suff.to(torch.int32)), 0)
             X = X + torch.where(anys, alphas[idx], 1.0) * dX
-            F, K = Fa[idx], Ka[idx]
+            F, K, xf = Fa[idx], Ka[idx], xfa[idx]
             n_iters += 1
             # convergence on the UNDAMPED Newton step of this iteration
             if bool(torch.all(torch.abs(dX) < tol)):
                 break
         residual = _f(torch.sqrt(torch.sum(F ** 2)))
-        X = _np(X)
-        if not np.all(np.isfinite(X)) or not np.isfinite(residual):
+        Xh = _np(X)
+        if not np.all(np.isfinite(Xh)) or not np.isfinite(residual):
             raise errors.StaticsDivergence(
                 "statics Newton produced a non-finite pose",
                 case=self._iCase, iters=n_iters, residual=residual)
@@ -315,24 +436,36 @@ class Model:
         rec["statics_iters"] = n_iters
         rec["statics_residual"] = residual
 
-        state["r6"] = X
-        state["Xi0"] = X - refs
-        if fowt.mooring is not None:
-            # MoorPy-parity ROTATION-VECTOR stiffness at the equilibrium
-            # pose for dynamics/eigen (see the JAX Model)
-            cur = state.get("moor_current")
-            cur_t = None if cur is None else self._t(cur)
-            xf = mr.free_points(fowt.mooring, self._t(X))
-            state["C_moor"] = mr.coupled_stiffness_rotvec(
-                fowt.mooring, self._t(X), xf=xf, current=cur_t)
-            state["F_moor0"] = mr.body_wrench(fowt.mooring, self._t(X),
-                                              xf=xf, current=cur_t)
-        else:
-            state["C_moor"] = torch.zeros((6, 6), dtype=REAL, device=self.device)
-            state["F_moor0"] = torch.zeros(6, dtype=REAL, device=self.device)
+        if arr is not None:
+            # the array mooring at the FINAL pose: one more free-point
+            # solve, and the MoorPy-parity rotation-vector stiffness
+            Xb = X.reshape(N, 6)
+            self._arr_xf = ma.solve_free_points(arr, Xb, xf0=xf)
+            self._K_array = ma.coupled_stiffness_rotvec(arr, Xb,
+                                                        self._arr_xf)
+        for i, fowt in enumerate(self.fowtList):
+            s = slice(6 * i, 6 * i + 6)
+            state = self._state[i]
+            state["r6"] = Xh[s]
+            state["Xi0"] = Xh[s] - refs[s]
+            if fowt.mooring is not None:
+                # MoorPy-parity ROTATION-VECTOR stiffness at the
+                # equilibrium pose for dynamics/eigen (see the JAX Model)
+                cur = state.get("moor_current")
+                cur_t = None if cur is None else self._t(cur)
+                xf_i = mr.free_points(fowt.mooring, X[s])
+                state["C_moor"] = mr.coupled_stiffness_rotvec(
+                    fowt.mooring, X[s], xf=xf_i, current=cur_t)
+                state["F_moor0"] = mr.body_wrench(fowt.mooring, X[s],
+                                                  xf=xf_i, current=cur_t)
+            else:
+                state["C_moor"] = torch.zeros((6, 6), dtype=REAL,
+                                              device=self.device)
+                state["F_moor0"] = torch.zeros(6, dtype=REAL,
+                                               device=self.device)
         if case and "iCase" in case:
-            self.results.setdefault("mean_offsets", []).append(X.copy())
-        return X
+            self.results.setdefault("mean_offsets", []).append(Xh.copy())
+        return Xh
 
     # ------------------------------------------------------------------
     # eigen
@@ -342,13 +475,20 @@ class Model:
         """Undamped natural frequencies and modes (reference:
         raft_model.py:391-476), host NumPy with the DOF-claiming sort."""
         nDOF = self.nDOF
-        fowt = self.fowtList[0]
-        state = self._state[0]
-        stat = state["statics"]
-        hc = state.get("hydro0") or fowt_hydro_constants(fowt, state["pose0"])
-        M_tot = _np(stat["M_struc"]) + _np(hc["A_hydro_morison"])
-        C_tot = _np(stat["C_struc"]) + _np(stat["C_hydro"]) + _np(state["C_moor"])
-        C_tot[5, 5] += fowt.yawstiff
+        M_tot = np.zeros((nDOF, nDOF))
+        C_tot = np.zeros((nDOF, nDOF))
+        for i, fowt in enumerate(self.fowtList):
+            s = slice(6 * i, 6 * i + 6)
+            state = self._state[i]
+            stat = state["statics"]
+            hc = state.get("hydro0") or fowt_hydro_constants(fowt,
+                                                             state["pose0"])
+            M_tot[s, s] = _np(stat["M_struc"]) + _np(hc["A_hydro_morison"])
+            C_tot[s, s] = (_np(stat["C_struc"]) + _np(stat["C_hydro"])
+                           + _np(state["C_moor"]))
+            C_tot[6 * i + 5, 6 * i + 5] += fowt.yawstiff
+        if self._K_array is not None:
+            C_tot += _np(self._K_array)
 
         for i in range(nDOF):
             if M_tot[i, i] < 1.0 or C_tot[i, i] < 1.0:
@@ -383,16 +523,28 @@ class Model:
     # ------------------------------------------------------------------
 
     def solveDynamics(self, case, tol=0.01, display=0):
-        """Drag-linearization fixed point + system RAO solve (reference:
-        raft_model.py:852-1146)."""
-        fowt = self.fowtList[0]
-        st = self._state[0]
-        self._fowt_linearize(case, tol=tol)
+        """Drag-linearization fixed point per FOWT + system RAO solve
+        (reference: raft_model.py:852-1146).  Each FOWT converges on its
+        own 6x6 impedance (the reference leaves the array mooring out of
+        the linearization); the block-diagonal (nw, 6N, 6N) system plus
+        the array mooring's stiffness then gives the coupled response of
+        every heading."""
+        N = self.nFOWT
+        nw = self.nw
+        for i in range(N):
+            self._fowt_linearize(i, self._case_for_fowt(case, i), tol=tol)
 
-        Z_sys = st["Z"].movedim(-1, 0)                     # (nw,6,6)
+        Z_sys = _block_diag([st["Z"].movedim(-1, 0)          # (nw,6N,6N)
+                             for st in self._state])
+        if self._K_array is not None:
+            Z_sys = Z_sys + self._K_array[None, :, :]
         # factor once, reuse across headings (the reference's Zinv,
-        # raft_model.py:1038-1040) — kernel K2 on the card
+        # raft_model.py:1038-1040) — kernel K2 on the card for one FOWT,
+        # LU for an array
         Zinv = inv_complex(Z_sys)
+        #: the system solve's dispatch facts (under the mixed ladder its
+        #: promoted lanes), for the last case
+        self.last_system_dispatch = last_dispatch()
 
         # conditioning telemetry of the impedance stack
         if bool(torch.all(torch.isfinite(Z_sys.real)
@@ -401,40 +553,50 @@ class Model:
             self._case_records.setdefault(self._case_label(), {})[
                 "cond_max"] = _f(torch.max(cond))
 
-        seastate = st["seastate"]
-        nWaves = seastate["nWaves"]
-        st["F_drag"] = fowt_drag_excitation(fowt, st["pose_eq"], st["Bmat"],
-                                            st["excitation"]["u"][:nWaves])
-        if fowt.potSecOrder == 2:
-            qd = fowt.qtf_data
-            for ih in range(1, nWaves):
-                st["Fhydro_2nd_mean"][ih], st["Fhydro_2nd"][ih] = \
-                    qt.hydro_force_2nd(qd.qtf, qd.heads_rad, qd.w,
-                                       seastate["beta"][ih],
-                                       seastate["S"][ih], self.w,
-                                       device=self.device)
+        nWaves = self._state[0]["seastate"]["nWaves"]
+        for fowt, st in zip(self.fowtList, self._state):
+            seastate = st["seastate"]
+            st["F_drag"] = fowt_drag_excitation(
+                fowt, st["pose_eq"], st["Bmat"],
+                st["excitation"]["u"][:nWaves])
+            if fowt.potSecOrder == 2:
+                qd = fowt.qtf_data
+                for ih in range(1, nWaves):
+                    st["Fhydro_2nd_mean"][ih], st["Fhydro_2nd"][ih] = \
+                        qt.hydro_force_2nd(qd.qtf, qd.heads_rad, qd.w,
+                                           seastate["beta"][ih],
+                                           seastate["S"][ih], self.w,
+                                           device=self.device)
 
         def assemble_F():
-            return (st["F_BEM"][:nWaves]
-                    + st["excitation"]["F_hydro_iner"][:nWaves]
-                    + st["F_drag"] + st["Fhydro_2nd"]).to(COMPLEX)
+            """(nWaves, 6N, nw) excitation stack."""
+            return torch.cat([
+                (st["F_BEM"][:nWaves] + st["excitation"]["F_hydro_iner"][:nWaves]
+                 + st["F_drag"] + st["Fhydro_2nd"]).to(COMPLEX)
+                for st in self._state], dim=1)
 
         Xi_d, rel_d = _dyn_solve_core(Zinv, Z_sys, assemble_F())
         rel2 = None
-        if nWaves > 1 and fowt.potSecOrder == 1:
+        if nWaves > 1 and any(f.potSecOrder == 1 for f in self.fowtList):
             # internal QTF of each secondary heading from its first-order
             # RAOs (one K5 launch each), then ONE re-solve of the headings
             # through the factored Zinv (reference: raft_model.py:1066-1083)
             t0 = time.perf_counter()
             for ih in range(1, nWaves):
-                beta = float(seastate["beta"][ih])
-                RAO_h = get_rao(Xi_d[ih], seastate["zeta"][ih])
-                qtf_h = qt.calc_qtf_slender_body(
-                    fowt, st["pose_eq"], beta, Xi0=RAO_h,
-                    M_struc=st["statics"]["M_struc"])[:, :, None, :]
-                st["Fhydro_2nd_mean"][ih], st["Fhydro_2nd"][ih] = \
-                    qt.hydro_force_2nd(qtf_h, [beta], fowt.w1_2nd, beta,
-                                       seastate["S"][ih], self.w)
+                for i, (fowt, st) in enumerate(zip(self.fowtList,
+                                                   self._state)):
+                    if fowt.potSecOrder != 1:
+                        continue
+                    seastate = st["seastate"]
+                    beta = float(seastate["beta"][ih])
+                    RAO_h = get_rao(Xi_d[ih, 6 * i:6 * i + 6],
+                                    seastate["zeta"][ih])
+                    qtf_h = qt.calc_qtf_slender_body(
+                        fowt, st["pose_eq"], beta, Xi0=RAO_h,
+                        M_struc=st["statics"]["M_struc"])[:, :, None, :]
+                    st["Fhydro_2nd_mean"][ih], st["Fhydro_2nd"][ih] = \
+                        qt.hydro_force_2nd(qtf_h, [beta], fowt.w1_2nd, beta,
+                                           seastate["S"][ih], self.w)
             t0 = self._lap("qtf", t0)
             Xi2_d, rel2 = _dyn_solve_core(Zinv, Z_sys, assemble_F())
             # heading 0 keeps its converged solution; the secondary
@@ -449,27 +611,28 @@ class Model:
             r for ih in range(nWaves)
             for r in ([rel_h[ih]] + ([rel2_h[ih]] if rel2_h and ih else []))]
 
-        Xi_sys = np.zeros((nWaves + 1, 6, self.nw), dtype=complex)
+        Xi_sys = np.zeros((nWaves + 1, 6 * N, nw), dtype=complex)
         Xi_sys[:nWaves] = _np(Xi_d)
-        st["Xi"] = Xi_sys
         bad = ~np.isfinite(Xi_sys)
         if bad.any():
             raise errors.NonFiniteResult(
                 f"solveDynamics produced {int(bad.sum())} non-finite "
                 "response value(s); check drag-linearization convergence",
                 case=self._iCase, n_bad=int(bad.sum()), nWaves=int(nWaves))
-        if fowt.potSecOrder > 0:
-            # mean drift feeds the statics re-solve (reference :548-554)
-            st["F_meandrift"] = torch.sum(st["Fhydro_2nd_mean"], dim=0)
+        for i, (fowt, st) in enumerate(zip(self.fowtList, self._state)):
+            st["Xi"] = Xi_sys[:, 6 * i:6 * i + 6, :]
+            if fowt.potSecOrder > 0:
+                # mean drift feeds the statics re-solve (reference :548-554)
+                st["F_meandrift"] = torch.sum(st["Fhydro_2nd_mean"], dim=0)
         self.Xi = Xi_sys
         self.results["response"] = {}
         return Xi_sys
 
-    def _fowt_linearize(self, case, tol=0.01):
-        """Drag-linearization fixed point producing the converged 6x6
-        impedance (reference: raft_model.py:877-1013)."""
-        fowt = self.fowtList[0]
-        state = self._state[0]
+    def _fowt_linearize(self, ifowt, case, tol=0.01):
+        """FOWT ``ifowt``'s drag-linearization fixed point producing its
+        converged 6x6 impedance (reference: raft_model.py:877-1013)."""
+        fowt = self.fowtList[ifowt]
+        state = self._state[ifowt]
         dev = self.device
         nIter = self.nIter + 1
         keep, relax = 0.2, 0.8
@@ -559,7 +722,7 @@ class Model:
             t0 = self._lap("first_order_fp", t0)
             beta0 = float(seastate["beta"][0])
             RAO = get_rao(Xi, seastate["zeta"][0])
-            qtf4 = self._internal_qtf(fowt, state, pose_eq, beta0, RAO)
+            qtf4 = self._internal_qtf(ifowt, state, pose_eq, beta0, RAO)
             F2_mean[0], F2[0] = qt.hydro_force_2nd(
                 qtf4, [beta0], fowt.w1_2nd, beta0, seastate["S"][0], self.w,
                 device=dev)
@@ -574,19 +737,20 @@ class Model:
         residual = float(np.max(np.abs(Xi_np - XiLast_np)
                                 / (np.abs(Xi_np) + tol)))
         rec = self._case_records.setdefault(self._case_label(), {})
-        rec["fowt0"] = {"drag_iters": ii, "drag_residual": residual,
-                        "drag_converged": converged}
+        rec[f"fowt{ifowt}"] = {"drag_iters": ii, "drag_residual": residual,
+                               "drag_converged": converged}
         state["Z"] = Z
         state["Bmat"] = Bmat
         state["Fhydro_2nd"] = F2
         state["Fhydro_2nd_mean"] = F2_mean
 
-    def _internal_qtf(self, fowt, state, pose_eq, beta0, RAO):
+    def _internal_qtf(self, ifowt, state, pose_eq, beta0, RAO):
         """The heading-0 QTF (nw2, nw2, 1, 6) from the RAOs ``RAO``: K5
         through ``calc_qtf_slender_body``, or with ``outFolderQTF`` the
         content-keyed .12d written by an earlier run (either package's),
         beside a .4 snapshot of the RAOs (reference: raft_fowt.py:
         1420-1433, 1642-1648)."""
+        fowt = self.fowtList[ifowt]
         M_struc = state["statics"]["M_struc"]
         cache_path = key = None
         if self.outFolderQTF is not None:
@@ -594,7 +758,7 @@ class Model:
             tag = f"Head{int(round(np.rad2deg(beta0)))}"
             if self._iCase is not None:
                 tag += f"_Case{self._iCase + 1}"
-            tag += "_WT0"
+            tag += f"_WT{ifowt}"
             RAO_np = _np(RAO)
             qt.write_rao_4(os.path.join(self.outFolderQTF,
                                         f"raos-slender_body_{tag}.4"),
@@ -628,8 +792,13 @@ class Model:
     # ------------------------------------------------------------------
 
     def analyzeUnloaded(self, ballast=0, heave_tol=1.0):
-        """Unloaded equilibrium (reference: raft_model.py:184-241); ballast
-        trim is not part of the port yet."""
+        """Unloaded equilibrium (reference: raft_model.py:184-241), one FOWT
+        only, as in the reference; ballast trim is not part of the port
+        yet."""
+        if self.nFOWT > 1:
+            raise errors.ModelConfigError(
+                "analyzeUnloaded only works for a single FOWT (reference: "
+                "raft_model.py:191-192)", nFOWT=self.nFOWT)
         if ballast:
             raise errors.ModelConfigError(
                 "ballast trim is not part of the PyTorch port yet")
@@ -665,17 +834,22 @@ class Model:
                 t2 = time.perf_counter()
                 self.timings["statics"] += t1 - t0
                 self.timings["dynamics"] += t2 - t1
-                if self.fowtList[0].potSecOrder > 0:
+                if any(f.potSecOrder > 0 for f in self.fowtList):
                     # re-solve the operating point with the mean wave drift
                     # included, then clear it so it cannot leak into the
                     # next case (reference: raft_model.py:296-303)
                     self.results["mean_offsets"].pop()   # superseded
                     self.solveStatics(case, display=display)
-                    self._state[0].pop("F_meandrift", None)
+                    for st in self._state:
+                        st.pop("F_meandrift", None)
                     t2 = self._lap("drift_statics", t2)
-                self.results["case_metrics"][iCase][0] = {}
-                self.saveTurbineOutputs(self.results["case_metrics"][iCase][0],
-                                        0, case)
+                for i in range(self.nFOWT):
+                    self.results["case_metrics"][iCase][i] = {}
+                    self.saveTurbineOutputs(
+                        self.results["case_metrics"][iCase][i], i, case)
+                if self.arr_ms is not None:
+                    self.results["case_metrics"][iCase]["array_mooring"] = \
+                        self._array_tension_stats(iCase)
                 self._sync()
                 t3 = time.perf_counter()
                 self.timings["outputs"] += t3 - t2
@@ -687,6 +861,30 @@ class Model:
     # ------------------------------------------------------------------
     # outputs
     # ------------------------------------------------------------------
+
+    def _array_tension_stats(self, iCase) -> dict:
+        """Tension statistics of every line of the array mooring through
+        its coupled tension Jacobian (reference: raft_model.py:345-388),
+        NaN channels when the Jacobian or the tensions are not finite, as
+        in the JAX Model."""
+        dw = self.w[1] - self.w[0]
+        Xb = self._t(np.stack([st["r6"] for st in self._state]))
+        J = _np(ma.tension_jacobian(self.arr_ms, Xb, self._arr_xf))
+        T0 = _np(ma.tensions(self.arr_ms, Xb, self._arr_xf))
+        nT = len(T0)
+        if not (np.all(np.isfinite(J)) and np.all(np.isfinite(T0))):
+            nan_t = np.full(nT, np.nan)
+            return {"Tmoor_avg": nan_t, "Tmoor_std": nan_t.copy(),
+                    "Tmoor_max": nan_t.copy(), "Tmoor_min": nan_t.copy(),
+                    "Tmoor_PSD": np.full((nT, self.nw), np.nan)}
+        T_amps = np.einsum("tj,hjw->htw", J, self.Xi)
+        TRMS = np.array([float(get_rms(T_amps[:, iT, :]))
+                         for iT in range(nT)])
+        return {"Tmoor_avg": T0, "Tmoor_std": TRMS,
+                "Tmoor_max": T0 + 3 * TRMS, "Tmoor_min": T0 - 3 * TRMS,
+                "Tmoor_PSD": np.stack([
+                    _np(get_psd(T_amps[:, iT, :], dw, source_axis=0))
+                    for iT in range(nT)])}
 
     def saveTurbineOutputs(self, results, ifowt, case):
         """Per-case response statistics (reference: raft_fowt.py:
@@ -860,7 +1058,11 @@ class Model:
                 results["wind_PSD"] = psd(V_w, None)
 
     def calcOutputs(self):
-        """Fill results['properties'] (reference: raft_model.py:1150-1189)."""
+        """Fill results['properties'] (reference: raft_model.py:1150-1189);
+        an array's are left empty, as the reference fills them for one
+        FOWT only (raft_model.py:1153)."""
+        if self.nFOWT > 1:
+            return self.results
         fowt = self.fowtList[0]
         state = self._state[0]
         stat = state["statics"]
@@ -905,6 +1107,116 @@ class Model:
             + C_moor0
         return self.results
 
+    # ------------------------------------------------------------------
+    # farms: the batched farm sweep and the wake module
+    # ------------------------------------------------------------------
+
+    def sweep_farm(self, cases=None, **kw):
+        """The batched farm sweep (``parallel/sweep.py:sweep_farm``): every
+        turbine x every case of this array in one batch on the model's
+        device, wake-coupled through the batched wake equilibrium.
+
+        ``cases``: optional dict of per-case arrays (``Hs``, ``Tp``,
+        ``beta`` [rad], ``U_inf``, ``wind_dir`` [deg]); by default this
+        design's ``cases`` table.  ``kw`` goes to the farm solver
+        (``k_w``, ``aero``, ``nIter``, ...).  The batch replicates
+        ``fowtList[0]`` at every layout position (a homogeneous farm; a
+        warning says when the array mixes designs or headings).  When
+        `solveStatics` has solved the array mooring, the 6x6 diagonal
+        blocks of its stiffness are added to the base platform's own
+        mooring stiffness (the lanes are independent solves, so the
+        off-diagonal coupling blocks are dropped), as the JAX Model does.
+        Returns the farm outputs, (n_turbines, ncases, ...) tensors, also
+        kept in ``results["farm"]`` as NumPy."""
+        import warnings
+
+        from raft_tpu_torch.parallel import sweep as _sweep
+
+        fowt = self.fowtList[0]
+        n = self.nFOWT
+        arr = self.design.get("array")
+        if arr:
+            rows = [dict(zip(arr["keys"], r)) for r in arr["data"]]
+            hetero = {(r.get("turbineID", 1), r.get("platformID", 1),
+                       r.get("mooringID", 1),
+                       float(r.get("heading_adjust", 0.0))) for r in rows}
+            if len(hetero) > 1:
+                warnings.warn(
+                    "sweep_farm replicates the first FOWT at every layout "
+                    "position — this array mixes platform/turbine/mooring "
+                    "IDs or heading adjustments, which only the serial "
+                    "analyzeCases path preserves", stacklevel=2)
+        xy = np.array([[f.x_ref, f.y_ref] for f in self.fowtList])
+        # own mooring at the BASE reference position (translation
+        # invariant) plus the array mooring's diagonal block
+        r6_ref = self._t([fowt.x_ref, fowt.y_ref, 0, 0, 0, 0])
+        C_base = (mr.coupled_stiffness_rotvec(fowt.mooring, r6_ref)
+                  if fowt.mooring is not None
+                  else torch.zeros((6, 6), dtype=REAL, device=self.device))
+        C_moor_t = C_base.expand(n, 6, 6).clone()
+        if self._K_array is not None:
+            Kb = self._K_array.reshape(n, 6, n, 6)
+            C_moor_t = C_moor_t + torch.stack([Kb[i, :, i, :]
+                                               for i in range(n)])
+        elif self.arr_ms is not None:
+            warnings.warn(
+                "array_mooring present but statics not solved — run "
+                "solveStatics first so sweep_farm can include the "
+                "shared-line stiffness blocks", stacklevel=2)
+        if cases is None:
+            ctab = self.design.get("cases")
+            if not ctab:
+                raise errors.ModelConfigError(
+                    "sweep_farm needs a cases= dict or a design 'cases' "
+                    "table")
+            rows = [dict(zip(ctab["keys"], r)) for r in ctab["data"]]
+
+            def _ws(r):
+                v = r.get("wind_speed", 10.0)
+                return float(np.max(v)) if np.ndim(v) > 0 else float(v)
+
+            def _wd(r):
+                v = r.get("wind_heading", 0.0)
+                return float(np.mean(v)) if np.ndim(v) > 0 else float(v)
+
+            cases = {
+                "Hs": [float(r.get("wave_height", 0.0)) for r in rows],
+                "Tp": [float(r.get("wave_period", 10.0)) for r in rows],
+                "beta": [np.deg2rad(float(r.get("wave_heading", 0.0)))
+                         for r in rows],
+                "U_inf": [_ws(r) for r in rows],
+                "wind_dir": [_wd(r) for r in rows]}
+        kw.setdefault("nIter", self.nIter)
+        kw.setdefault("XiStart", self.XiStart)
+        out = _sweep.sweep_farm(
+            fowt, xy, cases["Hs"], cases["Tp"], cases["beta"],
+            cases["U_inf"], cases.get("wind_dir"), C_moor_t=C_moor_t,
+            device=self.device, **kw)
+        self.results["farm"] = {
+            "n_turbines": n, "ncases": int(np.asarray(cases["Hs"]).size),
+            **{k: _np(out[k]) for k in ("std", "U_wake", "aero_power",
+                                        "wake_iters")}}
+        return out
+
+    def powerThrustCurve(self, speeds=None, ifowt=0):
+        """Cp / Ct / power / pitch tables against wind speed from the BEM
+        rotor (reference: raft_model.py:1674-1750)."""
+        from raft_tpu_torch.models.wake import power_thrust_curve
+        return power_thrust_curve(self, speeds=speeds, ifowt=ifowt)
+
+    def findWakeEquilibrium(self, case, k_w=0.05, **kw):
+        """Farm wake fixed point with the Gaussian-deficit model
+        (reference: raft_model.py:1852-1994 florisFindEquilibrium); the
+        returned case carries per-turbine wind speeds for analyzeCases."""
+        from raft_tpu_torch.models.wake import find_wake_equilibrium
+        return find_wake_equilibrium(self, case, k_w=k_w, **kw)
+
+    def calcAEP(self, wind_rose, **kw):
+        """Wind-rose AEP with wake losses (reference: raft_model.py:
+        1996-2022 florisCalcAEP)."""
+        from raft_tpu_torch.models.wake import calc_aep
+        return calc_aep(self, wind_rose, **kw)
+
     def preprocess_BEM(self, dw=0.05, wMax=3.0, mesh_dir=None,
                        headings=None, dz=None, da=None):
         """Re-run the native BEM core on the grid ``dw`` to ``wMax``
@@ -927,14 +1239,19 @@ class Model:
 
 def run_raft(design_or_path, ballast=False, device=None):
     """Convenience entry point (reference: raft_model.py:2024-2061):
-    Model -> analyzeUnloaded -> analyzeCases -> calcOutputs.  A design
-    dict, a path to a YAML file, or the name of a vendored design."""
+    Model -> analyzeUnloaded -> analyzeCases -> calcOutputs; a farm
+    (nFOWT > 1) runs Model -> analyzeCases, as the reference's
+    runRAFTFarm (raft_model.py:2065-2095).  A design dict, a path to a
+    YAML file, or the name of a vendored design."""
     if isinstance(design_or_path, str):
         from raft_tpu_torch.io.designs import load_design
         design = load_design(design_or_path)
     else:
         design = design_or_path
     model = Model(design, device=device)
+    if model.nFOWT > 1:
+        model.analyzeCases()
+        return model
     model.analyzeUnloaded(ballast=1 if ballast else 0)
     model.analyzeCases()
     model.calcOutputs()

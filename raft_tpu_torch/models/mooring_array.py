@@ -1,13 +1,17 @@
-"""Quasi-static mooring with free points and multi-segment lines.
+"""Quasi-static mooring with free points, multi-segment and shared lines.
 
-Port of the single-body part of ``raft_tpu/models/mooring_array.py``
-(reference: the MoorPy ``System`` the reference builds for general
-mooring topologies, raft/raft_fowt.py:166-189, and its equilibrium and
-stiffness calls, raft/raft_model.py:600-606 and :1029-1031).
+Port of ``raft_tpu/models/mooring_array.py`` (reference: the MoorPy
+``System`` the reference builds for general mooring topologies,
+raft/raft_fowt.py:166-189, and for farms, raft/raft_model.py:83-100, and
+its equilibrium, stiffness and tension calls, raft/raft_model.py:600-606,
+:1029-1031 and :345-388).  One system serves one FOWT (a design's
+``mooring`` with free points) or a whole array (``parse_moordyn``: the
+farm's MoorDyn file, lines shared between N bodies).
 
 - points: FIXED anchors (global coordinates), FREE points (clump weights,
-  junctions of multi-segment lines; their positions are solved to static
-  equilibrium) and points attached to a body (body-frame coordinates);
+  buoys, junctions of multi-segment lines; their positions are solved to
+  static equilibrium) and points attached to any of the N bodies
+  (body-frame coordinates);
 - lines: the elastic catenary of ``models.mooring`` between arbitrary
   end elevations, differentiated through its last Newton step only
   (``grad_steps=1``: the free-point Newton differentiates it 40 times a
@@ -23,19 +27,20 @@ Everything is tensor code, differentiable end to end and safe under
   (``torch.func.jacfwd`` Jacobian, a 1e-6 ridge, steps clipped to 30 m;
   the 3 n_free system goes to ``torch.linalg.solve``, as the JAX package
   uses ``jnp.linalg.solve`` outside any kernel);
-- the coupled body stiffness eliminates the free points by the
-  implicit-function theorem (a Schur complement), the exact counterpart
-  of MoorPy's ``getCoupledStiffnessA``:
+- the body wrenches are (N, 6); the coupled body stiffness, (6N, 6N),
+  eliminates the free points by the implicit-function theorem (a Schur
+  complement), the exact counterpart of MoorPy's
+  ``getCoupledStiffnessA``:
       K = -( dFb/dXb - dFb/dxf (dg/dxf)^-1 dg/dXb )     with g(xf; Xb) = 0
-- the tension Jacobian gets the same implicit correction.
+- the tension Jacobian, over all 6N body DOFs, gets the same implicit
+  correction.
 
 The point-to-line bookkeeping (which line ends load which point) is a
-pair of dense incidence matrices built from the static topology.  The
-MoorDyn-file reader and the multi-body array (``parse_moordyn``) are not
-part of the port yet.
+pair of dense incidence matrices built from the static topology.
 """
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
 
 import numpy as np
@@ -90,6 +95,116 @@ class ArrayMooring:
     @property
     def n_lines(self) -> int:
         return len(self.iA)
+
+
+# --------------------------------------------------------------------------
+# MoorDyn-format parsing (the reference loads the same file through MoorPy's
+# System.load)
+# --------------------------------------------------------------------------
+
+_BODY_RE = re.compile(r"^(?:turbine|body|vessel|coupled)(\d*)$", re.I)
+
+
+def parse_moordyn(path: str, nbodies: int, depth: float | None = None,
+                  rho: float = _RHO, g: float = _G) -> ArrayMooring:
+    """Parse the sections of a MoorDyn v2 input file that define a
+    quasi-static system: LINE TYPES, POINTS, LINES and the WtrDpth option
+    (``raft_tpu/models/mooring_array.py:parse_moordyn``, field for field).
+
+    Body attachments named ``Turbine<i>``/``Body<i>`` map to body ``i-1``;
+    their coordinates are body-frame (MoorPy attaches them relative to the
+    FOWT bodies, reference raft_model.py:93-97)."""
+    sections: dict[str, list[str]] = {}
+    current = None
+    with open(path) as f:
+        for raw in f:
+            line = raw.strip()
+            if not line:
+                continue
+            if line.startswith("---"):
+                current = line.strip("- ").upper()
+                sections[current] = []
+            elif current is not None:
+                sections[current].append(line)
+
+    def section(key, n_header=2):
+        for name, rows in sections.items():
+            if key in name:
+                return rows[n_header:]   # drop the names and units rows
+        return []
+
+    types = {}
+    for row in section("LINE TYPES"):
+        c = row.split()
+        d, m, EA = float(c[1]), float(c[2]), float(c[3])
+        w_wet = (m - rho * np.pi / 4.0 * d**2) * g
+        types[c[0]] = dict(d=d, m=m, EA=EA, w=w_wet,
+                           Cd=float(c[6]) if len(c) > 6 else 0.0,
+                           CdAx=float(c[8]) if len(c) > 8 else 0.0)
+
+    for row in section("OPTIONS", n_header=0):
+        c = row.split()
+        if len(c) >= 2 and c[1].lower() in ("wtrdpth", "depth", "wtrdepth"):
+            depth = float(c[0])
+    if depth is None:
+        raise ValueError("water depth not found in MoorDyn file or args")
+
+    ids, attach, r0, pmass, pvol = [], [], [], [], []
+    for row in section("POINTS"):
+        c = row.split()
+        ids.append(int(c[0]))
+        a = c[1].lower()
+        if a in ("fixed", "fix", "anchor"):
+            attach.append(ATTACH_FIXED)
+        elif a in ("free", "connect"):
+            attach.append(ATTACH_FREE)
+        else:
+            mm = _BODY_RE.match(a)
+            if not mm:
+                raise ValueError(f"unknown point attachment {c[1]!r}")
+            attach.append(int(mm.group(1) or 1) - 1)
+        r0.append([float(c[2]), float(c[3]), float(c[4])])
+        pmass.append(float(c[5]))
+        pvol.append(float(c[6]))
+    ids = np.array(ids)
+    attach = np.array(attach)
+    r0 = np.array(r0)
+    if attach.size and attach.max() >= nbodies:
+        raise ValueError(
+            f"MoorDyn file references body {attach.max()+1} but the array "
+            f"has only {nbodies} FOWTs")
+
+    id2row = {pid: i for i, pid in enumerate(ids)}
+    free_idx = np.full(len(ids), -1)
+    free_idx[attach == ATTACH_FREE] = np.arange((attach == ATTACH_FREE).sum())
+
+    iA, iB, L, EA, w = [], [], [], [], []
+    d_vol, Cd_t, Cd_a = [], [], []
+    for row in section("LINES"):
+        c = row.split()
+        lt = types[c[1]]
+        iA.append(id2row[int(c[2])])
+        iB.append(id2row[int(c[3])])
+        L.append(float(c[4]))
+        EA.append(lt["EA"])
+        w.append(lt["w"])
+        d_vol.append(lt["d"])
+        Cd_t.append(lt["Cd"])
+        Cd_a.append(lt["CdAx"])
+    iA, iB = np.array(iA), np.array(iB)
+
+    # seabed contact only for lines whose lower end is a fixed anchor on
+    # the seabed
+    def on_seabed(ipt):
+        return (attach[ipt] == ATTACH_FIXED) & (r0[ipt, 2] <= -depth + 1.0)
+
+    return ArrayMooring(
+        depth=float(depth), nbodies=nbodies,
+        attach=attach, r0=r0, pmass=np.array(pmass), pvol=np.array(pvol),
+        free_idx=free_idx,
+        iA=iA, iB=iB, L=np.array(L), EA=np.array(EA), w=np.array(w),
+        contact_ok=on_seabed(iA) | on_seabed(iB), g=g, rho=rho,
+        d_vol=np.array(d_vol), Cd_t=np.array(Cd_t), Cd_a=np.array(Cd_a))
 
 
 # --------------------------------------------------------------------------

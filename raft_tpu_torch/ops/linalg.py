@@ -17,7 +17,8 @@ Dispatch rule (written out here and in PERF.md):
   plain PyTorch versions.  The JAX package's batch >= 4096 threshold came
   from the TPU's LU custom call and has nothing behind it on the H100;
 - 2n > 16 goes to ``torch.linalg.solve`` (LU), as the JAX package runs
-  those sizes outside any Pallas kernel;
+  those sizes outside any Pallas kernel: the system solve of a farm,
+  (nw, 6N, 6N) complex, 24 or 48 real rows for 2 or 4 FOWTs;
 - there is no knob that sends a CUDA tensor to the plain version or to
   ``torch.linalg.solve``, and no fallback when a build or a launch fails:
   the wrapper raises ``KernelFailure``.
@@ -33,9 +34,13 @@ Precision (``RAFT_TPU_PRECISION``, read at every dispatch, as
 - ``f32``: the solve cast down to float32 (K1/K2's float32
   instantiation), the result cast back up.
 
-Mixed or f32 with 2n > 16 would need the batch-first ladder around LU,
-which serves arrays (ROADMAP A7): it raises ``ModelConfigError`` rather
-than quietly solving at f64.
+For 2n > 16 the same modes run around LU (``raft_tpu/ops/linalg.py:
+_solve_real_embedded``'s LU branch): ``f32`` casts down, solves with
+LU (``torch.linalg.solve_ex``) and casts back up; ``mixed`` runs the batch-first
+ladder `_mixed_ladder` with LU at the low width
+(LAPACK has no bfloat16 LU: a bf16 low rung eliminates with `_gj_core`,
+the JAX package's jnp Gauss-Jordan core, outside any kernel) and
+re-solves the promoted lanes in float64 by LU.
 
 Every decision is recorded for ``last_dispatch()``.
 """
@@ -45,7 +50,7 @@ import math
 
 import torch
 
-from raft_tpu_torch import _config, errors
+from raft_tpu_torch import _config
 from raft_tpu_torch._config import COMPLEX, as_real
 from raft_tpu_torch.ops import precision as _prec
 from raft_tpu_torch.ops.kernels.gj_solve import (
@@ -64,6 +69,101 @@ def gauss_jordan_solve(A, b, refine: int = 1):
     elimination with row equilibration, partial pivoting and ``refine``
     residual re-solves — the plain path, the algorithm of the kernels."""
     return gj_solve_plain(A, b, refine)
+
+
+def _gj_core(Af, bf, n, k):
+    """Gauss-Jordan elimination with partial pivoting of Af (B, n, n),
+    bf (B, n, k) at their own dtype, one batch-wide step per pivot: the
+    counterpart of ``raft_tpu/ops/linalg.py:_gj_core`` (a jnp function
+    outside any Pallas kernel), which the ladder around LU runs for a
+    bfloat16 low rung.  Af must be equilibrated."""
+    M = torch.cat([Af, bf], dim=-1).movedim(0, -1)       # (n, n+k, B)
+    rows = torch.arange(n, device=Af.device)
+    ninf = torch.tensor(-float("inf"), dtype=M.dtype, device=M.device)
+    for kk in range(n):
+        col = M[:, kk, :]                                  # (n, B)
+        mag = torch.where((rows >= kk)[:, None], torch.abs(col), ninf)
+        p = torch.argmax(mag, dim=0)                       # (B,)
+        sel = (rows[:, None] == p[None, :]).to(M.dtype)    # (n, B)
+        ek = (rows == kk).to(M.dtype)                      # (n,)
+        pivrow = torch.sum(sel[:, None, :] * M, dim=0)     # (n+k, B)
+        rowk = M[kk, :, :]
+        # swap rows kk <-> p (a no-op when p == kk)
+        M = (M + ek[:, None, None] * (pivrow - rowk)[None, :, :]
+             + sel[:, None, :] * (rowk - pivrow)[None, :, :])
+        piv = pivrow[kk, :]
+        rowk_n = pivrow / piv[None, :]
+        colk = M[:, kk, :] * (1.0 - ek)[:, None]          # not the pivot row
+        M = M - colk[:, None, :] * rowk_n[None, :, :]
+        M = torch.cat([M[:kk], rowk_n[None], M[kk + 1:]], dim=0)
+    return M[:, n:, :].movedim(-1, 0)                      # (B, n, k)
+
+
+def _mixed_ladder(A, b, core_low, core_hi, refine, factor_dtype, tol):
+    """The batch-first mixed-precision ladder around LU (``raft_tpu/ops/
+    linalg.py:_mixed_ladder``): equilibrate rows at the input width,
+    solve at ``factor_dtype`` through ``core_low(Af, rhs_f)``, take
+    ``refine`` residual corrections at the input width, then re-solve
+    every lane whose max relative residual is not within ``tol`` at the
+    input width through ``core_hi`` on masked identity systems — a pass
+    that is skipped when no lane promotes (one host read of the count).
+
+    A (B, n, n), b (B, n, k); returns (x, {"promoted", "lanes",
+    "resid_max"})."""
+    B, n, _ = A.shape
+    eps = _prec.equilibration_eps(A.dtype)
+    scale = 1.0 / torch.clamp(torch.amax(torch.abs(A), dim=-1, keepdim=True),
+                              min=eps)
+    As = A * scale
+    bs = b * scale
+    Af = As.to(factor_dtype)
+    x = core_low(Af, bs.to(factor_dtype)).to(A.dtype)
+    for _ in range(refine):
+        r = bs - torch.einsum("bij,bjk->bik", As, x)
+        x = x + core_low(Af, r.to(factor_dtype)).to(A.dtype)
+    r = bs - torch.einsum("bij,bjk->bik", As, x)
+    rn = (torch.amax(torch.abs(r), dim=(-2, -1))
+          / (torch.amax(torch.abs(bs), dim=(-2, -1)) + eps))   # (B,)
+    mask, promoted = _prec.promotion_mask(rn, tol)
+    if int(promoted) > 0:
+        m = mask[:, None, None]
+        eye = torch.eye(n, dtype=As.dtype, device=As.device).expand_as(As)
+        xh = core_hi(torch.where(m, As, eye),
+                     torch.where(m, bs, torch.zeros((), dtype=bs.dtype,
+                                                    device=bs.device)))
+        x = torch.where(m, xh, x)
+    return x, {"promoted": promoted, "lanes": B, "resid_max": torch.amax(rn)}
+
+
+def _solve_lu(M, rhs, n2, batch_elems, plan):
+    """The LU branch (2n > 16) under every precision mode."""
+    in_dtype = M.dtype
+    _record = lambda stats=None: _record_dispatch(  # noqa: E731
+        "lu", None, n2, batch_elems, False, M.device, plan, stats)
+    if plan["factor"] is not None:
+        k = rhs.shape[-1]
+        batch = M.shape[:-2]
+        Bn = math.prod(batch)
+        low = _solve_unchecked if plan["factor"] != torch.bfloat16 \
+            else (lambda a, r: _gj_core(a, r, n2, k))
+        x, stats = _mixed_ladder(
+            M.reshape(Bn, n2, n2), rhs.reshape(Bn, n2, k), low,
+            torch.linalg.solve, refine=2, factor_dtype=plan["factor"],
+            tol=plan["tol"])
+        _record(stats)
+        return x.reshape(*batch, n2, k)
+    _record()
+    if plan["cast"] is not None:
+        return _solve_unchecked(M.to(plan["cast"]),
+                                rhs.to(plan["cast"])).to(in_dtype)
+    return torch.linalg.solve(M, rhs)
+
+
+def _solve_unchecked(A, b):
+    """LU solve at a low width that, like ``jnp.linalg.solve``, returns
+    non-finite values for a lane that is singular at that width instead of
+    raising: the ladder then promotes the lane (its residual is NaN)."""
+    return torch.linalg.solve_ex(A, b)[0]
 
 
 def last_dispatch() -> dict:
@@ -125,26 +225,13 @@ def _kernel_name(base, plan):
     return f"{base}_f32" if plan["cast"] is not None else base
 
 
-def _require_gj(n2, plan):
-    """Mixed and f32 run only through the Gauss-Jordan kernels."""
-    if n2 > _GJ_MAX_N and (plan["factor"] is not None
-                           or plan["cast"] is not None):
-        raise errors.ModelConfigError(
-            f"RAFT_TPU_PRECISION={plan['mode']} needs the batch-first "
-            f"mixed ladder around LU for a {n2}x{n2} real-embedded system "
-            "(2n > 16): not part of the PyTorch port yet (ROADMAP A7)",
-            n=n2, precision=plan["mode"])
-
-
 def _solve_real_embedded(M, rhs, n2, batch_elems):
     """Solve the real-embedded M x = rhs under the active precision mode;
     returns x at the input width."""
     in_dtype = M.dtype
     plan = _precision_plan(in_dtype)
-    _require_gj(n2, plan)
     if n2 > _GJ_MAX_N:
-        _record_dispatch("lu", None, n2, batch_elems, False, M.device, plan)
-        return torch.linalg.solve(M, rhs)
+        return _solve_lu(M, rhs, n2, batch_elems, plan)
     backend = "cuda_gj" if M.device.type == "cuda" else "plain_gj"
     kernel = _kernel_name("gj_solve", plan)
     if plan["factor"] is not None:
@@ -194,7 +281,7 @@ def impedance_solve(w, M, B, C, F):
 
     2n <= 16 goes to the fused impedance kernel (K1; K3 under the mixed
     ladder), which assembles the embedding itself; larger systems
-    assemble Z and solve by LU."""
+    assemble Z and solve by LU (the ladder around LU under mixed)."""
     n = M.shape[-3]
     nw = M.shape[-1]
     batch_elems = math.prod(torch.broadcast_shapes(
@@ -202,7 +289,6 @@ def impedance_solve(w, M, B, C, F):
     w = as_real(w, M.device)
     in_dtype = M.dtype
     plan = _precision_plan(in_dtype)
-    _require_gj(2 * n, plan)
     if 2 * n > _GJ_MAX_N:
         Z = (-w ** 2 * M + 1j * w * B + C[..., None]).to(COMPLEX)
         Xin = solve_complex(Z.movedim(-1, -3), F.movedim(-1, -2))

@@ -10,16 +10,27 @@ around the batched impedance solve (kernel K1, or K3 under
 ``RAFT_TPU_PRECISION=mixed``) — carries an explicit leading case axis.
 That is the same math as the JAX package's ``vmap(setup)``.
 
+The farm axis (``make_farm_solver``, ``sweep_farm``): N turbines x M
+cases of one platform design as one batch of N*M lanes, turbine-major.
+A lane's reference position moves its wave phase and takes its own
+mooring stiffness (the ``r6_b`` / ``C_moor_b`` pair of
+``make_case_solver``'s ``batched``), the batched wake equilibrium of every
+case (``models/wake.py:wake_equilibria_torch``) gives each turbine its
+waked wind speed, and the rotor's linearized aero damping at that speed
+enters the lane's impedance (``B_add``): one K1 launch of N*M*nw lanes
+per drag pass.
+
 Not ported here (ROADMAP): the device mesh / partition rules and the
 executable cache (A9); the run manifest, quarantine ladder, fault seams
-and health telemetry (A8); the farm hooks ``r6_b``, ``C_moor_b``,
-``B_add``, ``F_add`` (A7).
+and health telemetry (A8); the farm runner of the service
+(``make_farm_runner``, ``normalize_farm_request``, A10).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from raft_tpu_torch import errors
 from raft_tpu_torch._config import COMPLEX, REAL, as_real, resolve_device
 from raft_tpu_torch.io.wamit import bem_coeffs
 from raft_tpu_torch.models import mooring as mr
@@ -106,28 +117,35 @@ def make_case_solver(fowt: FOWTModel, nIter: int = 10, tol: float = 0.01,
     dw = float(w[1] - w[0])
     cache = {}
 
+    def pose_constants(r6_at):
+        """The platform at reference pose ``r6_at``: pose, hydro constants,
+        the mass and radiation terms and the structural and hydrostatic
+        stiffness."""
+        pose = fowt_pose(fowt, r6_at)
+        stat = fowt_statics(fowt, pose)
+        hc = fowt_hydro_constants(fowt, pose)
+        A_BEM, B_BEM = bem_coeffs(fowt.bem, nw, device=dev)
+        return dict(
+            pose=pose, hc=hc, B_BEM=B_BEM,
+            M_lin=(stat["M_struc"] + hc["A_hydro_morison"])[:, :, None]
+            + A_BEM, C_sh=stat["C_struc"], C_hydro=stat["C_hydro"])
+
     def case_constants():
         """Everything that does not depend on the sea state, once."""
         if not cache:
-            pose = fowt_pose(fowt, r6)
-            stat = fowt_statics(fowt, pose)
-            hc = fowt_hydro_constants(fowt, pose)
+            pc = pose_constants(r6)
             # rotation-vector flavour for MoorPy parity, as Model uses
             C_moor = (mr.coupled_stiffness_rotvec(fowt.mooring, r6)
                       if fowt.mooring is not None
                       else torch.zeros((6, 6), dtype=REAL, device=dev))
-            A_BEM, B_BEM = bem_coeffs(fowt.bem, nw, device=dev)
-            cache.update(
-                pose=pose, hc=hc, B_BEM=B_BEM,
-                M_lin=(stat["M_struc"] + hc["A_hydro_morison"])[:, :, None]
-                + A_BEM,
-                C_lin=stat["C_struc"] + C_moor + stat["C_hydro"])
+            cache.update(pose=pc["pose"], hc=pc["hc"], B_BEM=pc["B_BEM"],
+                         M_lin=pc["M_lin"],
+                         C_lin=pc["C_sh"] + C_moor + pc["C_hydro"])
         return cache
 
-    def setup(Hs, Tp, beta):
-        """Case state: scalar Hs, Tp, beta for one case, or (nc,) each
-        for a batch (the excitation then carries a leading case axis)."""
-        cc = case_constants()
+    def sea_state(cc, Hs, Tp, beta, pose_lanes=None):
+        """The sea-state part of a case state on the constants ``cc``;
+        ``pose_lanes``, the pose with a lane axis, for the drag pass."""
         Hs = as_real(Hs, dev)
         single = Hs.ndim == 0
         S = jonswap(w, Hs, as_real(Tp, dev))
@@ -139,10 +157,53 @@ def make_case_solver(fowt: FOWTModel, nIter: int = 10, tol: float = 0.01,
         u0 = exc["u"]
         if single:
             F_lin, u0 = F_lin[0], u0[0]
-        drag_pre = fowt_drag_precompute(fowt, cc["pose"], u0)
-        return dict(pose=cc["pose"], drag_pre=drag_pre, u0=u0,
+        pose = cc["pose"] if pose_lanes is None else pose_lanes
+        drag_pre = fowt_drag_precompute(fowt, pose, u0)
+        return dict(pose=pose, drag_pre=drag_pre, u0=u0,
                     B_BEM=cc["B_BEM"], M_lin=cc["M_lin"], C_lin=cc["C_lin"],
                     F_lin=F_lin)
+
+    def setup(Hs, Tp, beta):
+        """Case state: scalar Hs, Tp, beta for one case, or (nc,) each
+        for a batch (the excitation then carries a leading case axis)."""
+        return sea_state(case_constants(), Hs, Tp, beta)
+
+    def setup_lanes(Hs, Tp, beta, r6_b, C_moor_b):
+        """Case state of a batch whose lanes each have their own reference
+        pose ``r6_b`` (nc, 6) and mooring stiffness ``C_moor_b`` (nc, 6,
+        6), the JAX package's ``vmap(setup)`` with the farm overrides: the
+        pose constants are computed once per distinct pose (one host read
+        of ``r6_b``), the sea state per lane, and every pose-dependent
+        entry carries the lane axis."""
+        r6_h = r6_b.detach().cpu().numpy()
+        uniq, inv = np.unique(r6_h, axis=0, return_inverse=True)
+        inv = inv.reshape(-1)
+        parts, order = [], []
+        for g in range(len(uniq)):
+            idx = np.flatnonzero(inv == g)
+            it = torch.as_tensor(idx, device=dev)
+            pc = pose_constants(r6_b[idx[0]])
+            cc = dict(pose=pc["pose"], hc=pc["hc"], B_BEM=pc["B_BEM"],
+                      M_lin=pc["M_lin"],
+                      C_lin=pc["C_sh"] + C_moor_b[it] + pc["C_hydro"])
+            nl = len(idx)
+            lane = lambda x: x.expand((nl,) + tuple(x.shape))  # noqa: E731
+            st = sea_state(cc, Hs[it], Tp[it], beta[it],
+                           {k: lane(cc["pose"][k]) for k in _LANE_POSE})
+            st["M_lin"] = lane(cc["M_lin"])
+            st["B_BEM"] = lane(cc["B_BEM"])
+            parts.append(st)
+            order.append(idx)
+        back = torch.as_tensor(np.argsort(np.concatenate(order)), device=dev)
+
+        def join(xs, key=None):
+            if isinstance(xs[0], dict):
+                return {k: join([x[k] for x in xs], k) for k in xs[0]}
+            if key in _NODE_CONSTANTS:       # no lane axis, the same in all
+                return xs[0]
+            return torch.cat(xs)[back]
+
+        return join(parts)
 
     def drag_step(st, Xi):
         """One drag pass + the impedance solve (K1 on the card);
@@ -170,12 +231,39 @@ def make_case_solver(fowt: FOWTModel, nIter: int = 10, tol: float = 0.01,
             XiLast = keep * XiLast + relax_w * Xin
         return dict(Xi=Xi, std=get_rms(Xi, axis=-1))
 
-    def solve_batched(Hs, Tp, beta, Xi0=None):
+    def solve_batched(Hs, Tp, beta, Xi0=None, r6_b=None, C_moor_b=None,
+                      B_add=None, F_add=None):
         """A batch of cases, Hs/Tp/beta (nc,).  ``Xi0`` (nc, 6, nw)
         complex seeds the fixed point per case (a warm start moves only
-        the starting point)."""
+        the starting point).
+
+        Farm hooks (the JAX package's): ``r6_b`` / ``C_moor_b`` ((nc, 6)
+        / (nc, 6, 6), both or neither), each lane's reference pose and
+        mooring stiffness — the farm evaluates the mooring stiffness at
+        the base position and passes it, never implicitly at a translated
+        pose; ``B_add`` (nc, 6, 6), linear damping added to the radiation
+        damping (the aero damping at a turbine's waked wind speed);
+        ``F_add`` (nc, 6, nw) complex, added excitation."""
+        if (r6_b is None) != (C_moor_b is None):
+            raise errors.ModelConfigError(
+                "solve_batched: r6_b and C_moor_b come as a pair — the "
+                "farm evaluates mooring stiffness at the base reference "
+                "position, never implicitly at a translated r6")
         Hs = as_real(Hs, dev).reshape(-1)
-        st = setup(Hs, Tp, beta)
+        if r6_b is None:
+            st = setup(Hs, Tp, beta)
+        else:
+            st = setup_lanes(Hs, as_real(Tp, dev).reshape(-1),
+                             as_real(beta, dev).reshape(-1),
+                             as_real(r6_b, dev).reshape(-1, 6),
+                             as_real(C_moor_b, dev).reshape(-1, 6, 6))
+        if B_add is not None:
+            st = dict(st)
+            st["B_BEM"] = st["B_BEM"] + as_real(B_add, dev)[..., None]
+        if F_add is not None:
+            st = dict(st)
+            st["F_lin"] = st["F_lin"] + torch.as_tensor(
+                F_add, device=dev).to(COMPLEX)
         nc = Hs.shape[0]
         if Xi0 is None:
             Xi0 = torch.zeros((nc, 6, nw), dtype=COMPLEX, device=dev) + XiStart
@@ -189,8 +277,15 @@ def make_case_solver(fowt: FOWTModel, nIter: int = 10, tol: float = 0.01,
 
     solve.batched = solve_batched
     solve.setup = setup
+    solve.setup_lanes = setup_lanes
     solve.drag_step = drag_step
     return solve
+
+
+#: the pose entries the drag pass reads, given a lane axis by setup_lanes
+_LANE_POSE = ("r6", "r", "q", "p1", "p2", "qMat", "p1Mat", "p2Mat")
+#: the drag constants of fowt_drag_precompute that are per node only
+_NODE_CONSTANTS = ("a_q_eff", "a_p1_eff", "a_p2_eff", "circ")
 
 
 def design_fowt(design_or_name, device) -> FOWTModel:
@@ -240,3 +335,193 @@ def sweep_cases(fowt_or_design, Hs, Tp, beta, nIter: int = 10,
                               r6=r6, fp_chunk=fp_chunk, relax=relax)
     return solver.batched(as_real(Hs, dev), as_real(Tp, dev),
                           as_real(beta, dev), Xi0=Xi0)
+
+
+# ---------------------------------------------------------------------------
+# the farm axis: N turbines x M cases as one batch of lanes
+# ---------------------------------------------------------------------------
+
+def _interp_along0(xs, ys, x):
+    """Piecewise-linear interpolation of a table ``ys`` (n, ...) along its
+    leading axis at ``x`` (m,) -> (m, ...): clamped inside the table, zero
+    outside it (parked: below cut-in and above cut-out the rotor adds no
+    aero damping), as ``raft_tpu/parallel/sweep.py:_interp_along0``."""
+    idx = torch.clamp(torch.searchsorted(xs, x.contiguous(), right=True) - 1,
+                      0, xs.shape[0] - 2)
+    x0 = xs[idx]
+    x1 = xs[idx + 1]
+    f = torch.clamp((x - x0) / (x1 - x0), 0.0, 1.0)
+    expand = (slice(None),) + (None,) * (ys.ndim - 1)
+    out = ys[idx] * (1.0 - f)[expand] + ys[idx + 1] * f[expand]
+    parked = (x < xs[0]) | (x > xs[-1])
+    return torch.where(parked[expand], torch.zeros_like(out), out)
+
+
+def aero_damping_table(curve, zhub):
+    """(nspeeds, 6, 6) linearized aero damping from a power/thrust curve:
+    dT/dU at the operating point, acting at hub height, on the (surge,
+    pitch) block [[dT/dU, dT/dU z], [dT/dU z, dT/dU z^2]] (NumPy)."""
+    ws = np.asarray(curve["wind_speed"], float)
+    dTdU = np.gradient(np.asarray(curve["thrust"], float), ws)
+    B = np.zeros((len(ws), 6, 6))
+    B[:, 0, 0] = dTdU
+    B[:, 0, 4] = B[:, 4, 0] = dTdU * zhub
+    B[:, 4, 4] = dTdU * zhub**2
+    return B
+
+
+def make_farm_solver(fowt: FOWTModel, xy, curve=None, C_moor_t=None,
+                     aero: bool = True, k_w: float = 0.05,
+                     wake_max_iter: int = 100, wake_tol: float = 1e-4,
+                     wake_relax: float = 0.5, **kw):
+    """Batched farm solver (``raft_tpu/parallel/sweep.py:make_farm_solver``)
+    on the FOWT's device: N turbines of one design (``fowt``, replicated at
+    the positions ``xy`` (N, 2) [m]) x M cases.
+
+    ``curve``: a power/thrust curve dict (``models/wake.py:
+    power_thrust_curve``), by default the fowt's rotor's.  ``C_moor_t``:
+    (N, 6, 6) per-turbine mooring stiffness (tensor or array); by default
+    the fowt's own mooring stiffness at its reference position, shared
+    (a platform moved with its anchors has the same stiffness).
+    ``aero``: add each lane's aero damping at its waked wind speed to its
+    radiation damping; False solves wave-only lanes (the wake outputs
+    still come).  ``kw`` goes to `make_case_solver` (``nIter``, ``tol``,
+    ``XiStart``, ``fp_chunk``, ``relax``).
+
+    Returns ``solve_farm(Hs, Tp, beta, U_inf, wind_dir, Xi0=None)``: Hs,
+    Tp, beta (L,) turbine-major lanes, L = N * ncases (lane t * ncases +
+    c; `sweep_farm` tiles them), U_inf and wind_dir (ncases,).  Output:
+    ``Xi`` (L, 6, nw), ``std`` (L, 6), ``converged`` / ``iters`` (L,),
+    ``fp_chunks``, and ``U_wake`` / ``Ct_wake`` / ``aero_power`` (N,
+    ncases), ``wake_iters`` (ncases,)."""
+    from raft_tpu_torch.models import wake as wk
+
+    dev = fowt.device
+    xy = np.asarray(xy, float).reshape(-1, 2)
+    nt = int(xy.shape[0])
+    if nt < 1:
+        raise errors.ModelConfigError("farm needs at least one turbine",
+                                      n_turbines=nt)
+    rot = fowt.rotors[0] if fowt.rotors else None
+    if curve is None:
+        if rot is None:
+            raise errors.ModelConfigError(
+                "make_farm_solver needs a rotor (or an explicit curve=) "
+                "to build the wake power/thrust coupling")
+        curve = wk.power_thrust_curve(fowt)
+    D = np.full(nt, 2.0 * rot.R_rot if rot is not None
+                else float(curve.get("rotor_diameter", 200.0)))
+    if C_moor_t is None:
+        r6_ref = as_real([fowt.x_ref, fowt.y_ref, 0, 0, 0, 0], dev)
+        C_base = (mr.coupled_stiffness_rotvec(fowt.mooring, r6_ref)
+                  if fowt.mooring is not None
+                  else torch.zeros((6, 6), dtype=REAL, device=dev))
+        C_moor_t = C_base.expand(nt, 6, 6).clone()
+    else:
+        C_moor_t = as_real(C_moor_t, dev).reshape(nt, 6, 6)
+    r6_t = np.zeros((nt, 6))
+    r6_t[:, :2] = xy
+
+    case = make_case_solver(fowt, **kw)
+    cs, cCt, cP = wk.curve_tensors(curve, dev)
+    xy_d = as_real(xy, dev)
+    D_d = as_real(D, dev)
+    r6_d = as_real(r6_t, dev)
+    B_tab = (as_real(aero_damping_table(curve, float(rot.hubHt)), dev)
+             if (aero and rot is not None) else None)
+
+    def solve_farm(Hs, Tp, beta, U_inf, wind_dir, Xi0=None):
+        U_inf = as_real(U_inf, dev).reshape(-1)
+        nc = U_inf.shape[0]
+        eq = wk.wake_equilibria_torch(
+            xy_d, D_d, cs, cCt, cP, U_inf, as_real(wind_dir, dev),
+            k_w=k_w, max_iter=wake_max_iter, tol=wake_tol,
+            relax=wake_relax)
+        U_t = eq["U"].T                                   # (nt, nc)
+        U_l = U_t.reshape(-1)                             # turbine-major
+        B_add = _interp_along0(cs, B_tab, U_l) if B_tab is not None \
+            else None
+        out = case.batched(Hs, Tp, beta, Xi0=Xi0,
+                           r6_b=torch.repeat_interleave(r6_d, nc, dim=0),
+                           C_moor_b=torch.repeat_interleave(C_moor_t, nc,
+                                                            dim=0),
+                           B_add=B_add)
+        out = dict(out)
+        out["U_wake"] = U_t
+        out["Ct_wake"] = eq["Ct"].T
+        out["aero_power"] = eq["power"].T
+        out["wake_iters"] = eq["iterations"]
+        return out
+
+    solve_farm.fowt = fowt
+    solve_farm.n_turbines = nt
+    solve_farm.layout = xy
+    solve_farm.curve = curve
+    solve_farm.C_moor_t = C_moor_t
+    solve_farm.case = case
+    solve_farm.aero = bool(aero and B_tab is not None)
+    solve_farm.curve_speed = cs
+    solve_farm.B_tab = B_tab
+    solve_farm.wake_kw = dict(k_w=float(k_w),
+                              wake_max_iter=int(wake_max_iter),
+                              wake_tol=float(wake_tol),
+                              wake_relax=float(wake_relax))
+    return solve_farm
+
+
+def _farm_lane_tile(x, nt):
+    """(ncases,) case array -> (L,) turbine-major lane array."""
+    return torch.as_tensor(x).repeat(int(nt))
+
+
+def _farm_reshape(out, nt, ncases):
+    """Lane-shaped outputs -> (n_turbines, ncases, ...): lane arrays
+    reshape turbine-major, the wake outputs keep their case columns,
+    ``fp_chunks`` passes through."""
+    shaped = {}
+    for k, v in out.items():
+        if k == "fp_chunks":
+            shaped[k] = v
+        elif k in ("U_wake", "Ct_wake", "aero_power"):
+            shaped[k] = v[:, :ncases]
+        elif k == "wake_iters":
+            shaped[k] = v[:ncases]
+        else:
+            shaped[k] = v.reshape((nt, v.shape[0] // nt) + tuple(v.shape[1:]))[
+                :, :ncases]
+    return shaped
+
+
+def sweep_farm(fowt_or_design, xy, Hs, Tp, beta, U_inf, wind_dir=None,
+               device=None, **kw):
+    """Solve an N-turbine x M-case farm batch (``raft_tpu/parallel/
+    sweep.py:sweep_farm`` on one device, no mesh): ``xy`` (N, 2) layout
+    [m]; Hs, Tp, beta (ncases,) sea states shared by every turbine of a
+    case; U_inf (ncases,) free-stream hub wind speeds of the wake
+    equilibrium, ``wind_dir`` (ncases,) [deg] (default 0).  ``kw`` goes
+    to `make_farm_solver`.  Runs on the card unless ``device="cpu"``.
+    Returns (N, ncases, ...) tensors ``Xi``, ``std``, ``converged``,
+    ``iters``, ``U_wake``, ``Ct_wake``, ``aero_power``, the per-case
+    ``wake_iters`` and ``fp_chunks``."""
+    dev = resolve_device(device) if device is not None or not isinstance(
+        fowt_or_design, FOWTModel) else fowt_or_design.device
+    fowt = on_device(fowt_or_design, dev)
+    xy = np.asarray(xy, float).reshape(-1, 2)
+    nt = int(xy.shape[0])
+    Hs = as_real(Hs, dev).reshape(-1)
+    Tp = as_real(Tp, dev).reshape(-1)
+    beta = as_real(beta, dev).reshape(-1)
+    U_inf = as_real(U_inf, dev).reshape(-1)
+    wind_dir = (torch.zeros_like(U_inf) if wind_dir is None
+                else as_real(wind_dir, dev).reshape(-1))
+    ncases = int(Hs.shape[0])
+    if not (Tp.shape[0] == beta.shape[0] == U_inf.shape[0]
+            == wind_dir.shape[0] == ncases):
+        raise errors.ModelConfigError(
+            "sweep_farm case arrays must share one length",
+            ncases=ncases, Tp=int(Tp.shape[0]), beta=int(beta.shape[0]),
+            U_inf=int(U_inf.shape[0]), wind_dir=int(wind_dir.shape[0]))
+    solver = make_farm_solver(fowt, xy, **kw)
+    out = solver(_farm_lane_tile(Hs, nt), _farm_lane_tile(Tp, nt),
+                 _farm_lane_tile(beta, nt), U_inf, wind_dir)
+    return _farm_reshape(out, nt, ncases)

@@ -446,3 +446,30 @@ def test_foctt_current_case_on_the_card_matches_cpu(card):
             assert abs(cb[key] - ca[key]) <= 1e-9 * abs(ca[key]) + 1e-15, key
     cav_a, cav_b = (np.asarray(c["cavitation"][0]) for c in (ca, cb))
     assert np.max(np.abs(cav_b - cav_a)) <= 1e-9 * np.max(np.abs(cav_a))
+
+
+@pytest.mark.cuda
+def test_farm_sweep_on_the_card_matches_cpu(card):
+    """A small farm sweep (the coarse VolturnUS-S farm design's FOWT, its
+    BEM power/thrust curve, three turbines in a row x four cases, aero
+    damping at the waked speeds): the card's K1 lanes and wake outputs
+    against the same sweep on the CPU's plain versions."""
+    from raft_tpu_torch.models import farm_cases as FC
+    from raft_tpu_torch.ops.kernels import gj_solve as Gk
+    from raft_tpu_torch.parallel.sweep import design_fowt, sweep_farm
+
+    d = FC.f1_design(FC.GRID)
+    d.pop("array")
+    c = FC.f3_cases(4, seed=3)
+    args = (FC.F3_LAYOUT[:3], c["Hs"], c["Tp"], c["beta"], c["U_inf"],
+            c["wind_dir"])
+    cpu = sweep_farm(design_fowt(d, "cpu"), *args, nIter=6)
+    Gk.reset_launches()
+    gpu = sweep_farm(design_fowt(d, card), *args, nIter=6)
+    assert 0 < Gk.LAUNCHES["impedance_gj"] <= 6
+    for k in ("Xi", "std"):
+        assert _rel(gpu[k].cpu(), cpu[k]) < 1e-9, k
+    for k in ("U_wake", "Ct_wake", "aero_power"):
+        assert _rel(gpu[k].cpu(), cpu[k]) < 1e-12, k
+    for k in ("iters", "converged", "wake_iters"):
+        assert torch.equal(gpu[k].cpu(), cpu[k]), k

@@ -9,8 +9,8 @@
   (the cond-1e9 lanes, promoted and solved at f64 by both, agree to
   cond * eps: their residual sums are taken in another order);
 - the f32 mode against JAX's f32 mode, to 1e-5;
-- the dispatch facts per mode and the typed error for mixed / f32 with
-  2n > 16.
+- the dispatch facts per mode, and mixed / f32 with 2n > 16 through
+  the ladder around LU (no longer refused).
 All inputs are made with numpy from fixed seeds.
 """
 import numpy as np
@@ -255,15 +255,28 @@ def test_mixed_request_that_cannot_narrow_is_recorded():
 
 @pytest.mark.parametrize("mode", ["mixed", "f32"])
 def test_mixed_or_f32_above_the_kernels_raises_typed(mode):
+    """Above the kernels (2n = 18) mixed and f32 used to raise; they now
+    run around LU, recorded as such, and agree with the f64 solve (the
+    ladder to its promotion tolerance, f32 to its width)."""
     rng = np.random.default_rng(61)
     Z = torch.tensor(rng.standard_normal((2, 9, 9)) + 9 * np.eye(9),
                      dtype=torch.complex128)
-    _config.set_precision_mode(mode)
-    with pytest.raises(errors.ModelConfigError, match="A7"):
-        TL.inv_complex(Z)
     _config.set_precision_mode("f64")
-    TL.inv_complex(Z)
+    ref = TL.inv_complex(Z)
     assert TL.last_dispatch()["backend"] == "lu"
+    _config.set_precision_mode(mode)
+    try:
+        got = TL.inv_complex(Z)
+        d = TL.last_dispatch()
+    finally:
+        _config.set_precision_mode("f64")
+    assert d["backend"] == "lu" and d["precision"] == mode and d["n"] == 18
+    rel = float(torch.max(torch.abs(got - ref)) / torch.max(torch.abs(ref)))
+    if mode == "mixed":
+        assert d["factor_width"] == "f32" and d["lanes"] == 2
+        assert "promoted" in d and rel < 1e-9
+    else:
+        assert d["solve_width"] == "f32" and rel < 1e-5
 
 
 def test_unknown_precision_raises_typed():
