@@ -117,8 +117,26 @@ Phases (any failure exits non-zero; no phase's failure is turned into a
               and against the JAX package's wake_equilibria_jnp (1e-12,
               iterations exact); K1 at the farm sweep's operands, timed
               like the phase 3 rows;
-12. prints the kernels JSON line, the card line, and the final JSON line.
-Each path of phases 4-11 runs with the launch counters set to 0 just
+12. mcf     — MacCamy-Fuchs members (models/mcf_cases.py, goldens of
+              tests/golden/mcf_golden.py): OC4semi with MCF on its
+              circular columns, at its own 80 bins: (c1) run_raft, its one
+              case, against its physics record (1e-6, iteration counts
+              exact, the statics residual at most 4x the larger JAX
+              backend's) and no ledger golden (its dyn_solve_residual at
+              the machine floor, ROADMAP C3: printed beside the JAX
+              package's two); the inertia coefficient (N, 3, 3, nw)
+              complex; (c2) (c1) under potSecOrder 1 on
+              examples/example_qtf.py's second-order grid (30 x 30 pairs,
+              the Kim & Yue correction of the four columns) against its
+              record and its ledger golden, as phase 10; K1 exactly once
+              per drag pass (every impedance_solve call of the Model,
+              counted), K2 once per case, K5 exactly once in (c2); (c3)
+              sweep_cases on (c1)'s FOWT, 1024 seeded cases x 80 bins
+              (81,920 lanes per K1 launch, at most nIter launches) in f64
+              and under RAFT_TPU_PRECISION=mixed, 4 lanes against the
+              serial solve (rtol 1e-9), mixed against f64 as in phase 5;
+13. prints the kernels JSON line, the card line, and the final JSON line.
+Each path of phases 4-12 runs with the launch counters set to 0 just
 before it and read just after; every kernel of a path must launch in it.
 
 Options: --only-kernels stops after phase 3 (the short call after a
@@ -1009,7 +1027,7 @@ def check_qtf(dev):
 
 
 # ---------------------------------------------------------------------------
-# phases 4-11: the paths, each with its own launch counts
+# phases 4-12: the paths, each with its own launch counts
 # ---------------------------------------------------------------------------
 
 #: launches per path, read just after it ran (counters set to 0 just
@@ -1369,6 +1387,67 @@ def run_qtf(dev):
     return out
 
 
+def sweep_pair(label, path, fowt, Hs, Tp, beta, nIter, serial_lanes, dev):
+    """sweep_cases on ``fowt`` in f64 and under RAFT_TPU_PRECISION=mixed,
+    each between the launch counters (paths ``<path>_f64`` and
+    ``<path>_mixed``), every std finite; ``serial_lanes`` lanes of the
+    f64 sweep against the serial solve (rtol 1e-9); mixed against f64 as
+    in phase 5 (std 1e-6, iterations and convergence equal).  Returns
+    ({mode: wall, converged, fp_chunks, launches}, the checks)."""
+    from raft_tpu_torch import _config
+    from raft_tpu_torch.parallel.sweep import make_case_solver, sweep_cases
+
+    nc = len(Hs)
+    sweeps, recs = {}, {}
+    for mode, kind in (("f64", "impedance_gj"),
+                       ("mixed", "impedance_gj_mixed")):
+        _config.set_precision_mode(mode)
+        try:
+            with counted(f"{path}_{mode}", (kind,)):
+                t0 = time.perf_counter()
+                sw = sweep_cases(fowt, Hs, Tp, beta, nIter=nIter, tol=0.01,
+                                 device=dev)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            _config.set_precision_mode(None)
+        sweeps[mode] = sw
+        conv = int(sw["converged"].sum())
+        finite = bool(torch.all(torch.isfinite(sw["std"])))
+        recs[mode] = dict(wall_s=wall, converged=conv,
+                          fp_chunks=sw["fp_chunks"],
+                          launches=PATH_LAUNCHES[f"{path}_{mode}"])
+        log(f"  {label} {mode}: {nc} cases x {fowt.nw} bins in "
+            f"{wall:.3f} s; converged {conv}/{nc}; launches "
+            f"{recs[mode]['launches']}")
+        if not finite or sw["std"].shape != (nc, 6):
+            fail(f"{label} {mode}: non-finite or misshapen std")
+    solver = make_case_solver(fowt, nIter=nIter, tol=0.01)
+    worst = 0.0
+    for i in range(serial_lanes):
+        ref_i = solver(float(Hs[i]), float(Tp[i]), float(beta[i]))
+        a, b = sweeps["f64"]["Xi"][i], ref_i["Xi"]
+        worst = max(worst, float(torch.max(torch.abs(a - b))
+                                 / torch.max(torch.abs(b))))
+        if not _allclose(a, b, SWEEP_RTOL,
+                         atol=1e-12 * float(torch.max(torch.abs(b)))):
+            fail(f"{label} lane {i} differs from the serial solve")
+    f, mx = sweeps["f64"], sweeps["mixed"]
+    std_rel = float(torch.max(torch.abs(mx["std"] - f["std"])
+                              / torch.abs(f["std"]).clamp(min=1e-300)))
+    same_iters = bool(torch.equal(mx["iters"], f["iters"]))
+    same_conv = bool(torch.equal(mx["converged"], f["converged"]))
+    log(f"  {label} checks: {serial_lanes} lanes vs serial worst rel "
+        f"{worst:.2e}; mixed vs f64 std rel {std_rel:.2e}, iters equal "
+        f"{same_iters}, converged equal {same_conv}")
+    if std_rel > MIXED_STD_RTOL or not same_iters or not same_conv:
+        fail(f"{label} mixed vs f64: std rel {std_rel:.2e}, iters "
+             f"equal {same_iters}, converged equal {same_conv}")
+    return recs, dict(serial_worst_rel=worst, mixed_std_rel=std_rel,
+                      mixed_iters_equal=same_iters,
+                      mixed_converged_equal=same_conv)
+
+
 # ---------------------------------------------------------------------------
 # phase 9: first-order potential flow
 # ---------------------------------------------------------------------------
@@ -1463,11 +1542,10 @@ def run_potflow(dev):
     the host, then OC4semi at full width from the committed cache: (a)
     the native-BEM model, (b) from its files, (c) with the QTF, (d) the
     BEM sweep in f64 and mixed, and K1 at the sweep's operands."""
-    from raft_tpu_torch import Model, _config, ledger
+    from raft_tpu_torch import Model, ledger
     from raft_tpu_torch.io import bem_native
     from raft_tpu_torch.models import potflow_cases as PC
     from raft_tpu_torch.ops.kernels import gj_solve as G
-    from raft_tpu_torch.parallel.sweep import make_case_solver, sweep_cases
 
     golden = os.path.join(ROOT, "tests", "golden")
     work = os.path.join(OUT, "potflow")
@@ -1588,53 +1666,11 @@ def run_potflow(dev):
     Hs = 1.0 + 11.0 * rng.random(nc)
     Tp = 4.0 + 14.0 * rng.random(nc)
     beta = np.deg2rad(360.0 * rng.random(nc))
-    sweeps = {}
-    for mode, kind in (("f64", "impedance_gj"),
-                       ("mixed", "impedance_gj_mixed")):
-        _config.set_precision_mode(mode)
-        try:
-            with counted(f"potflow_sweep_{mode}", (kind,)):
-                t0 = time.perf_counter()
-                sw = sweep_cases(fowt, Hs, Tp, beta, nIter=10, tol=0.01,
-                                 device=dev)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-        finally:
-            _config.set_precision_mode(None)
-        sweeps[mode] = sw
-        conv = int(sw["converged"].sum())
-        finite = bool(torch.all(torch.isfinite(sw["std"])))
-        out[f"sweep_{mode}"] = dict(
-            wall_s=wall, converged=conv, fp_chunks=sw["fp_chunks"],
-            launches=PATH_LAUNCHES[f"potflow_sweep_{mode}"])
-        log(f"  (d) BEM sweep {mode}: {nc} cases x {fowt.nw} bins in "
-            f"{wall:.3f} s; converged {conv}/{nc}")
-        if not finite:
-            fail(f"(d) BEM sweep {mode}: non-finite std")
-    solver = make_case_solver(fowt, nIter=10, tol=0.01)
-    worst = 0.0
-    for i in range(BEM_SERIAL_LANES):
-        ref_i = solver(float(Hs[i]), float(Tp[i]), float(beta[i]))
-        a, b = sweeps["f64"]["Xi"][i], ref_i["Xi"]
-        worst = max(worst, float(torch.max(torch.abs(a - b))
-                                 / torch.max(torch.abs(b))))
-        if not _allclose(a, b, SWEEP_RTOL,
-                         atol=1e-12 * float(torch.max(torch.abs(b)))):
-            fail(f"(d) BEM sweep lane {i} differs from the serial solve")
-    f, mx = sweeps["f64"], sweeps["mixed"]
-    std_rel = float(torch.max(torch.abs(mx["std"] - f["std"])
-                              / torch.abs(f["std"]).clamp(min=1e-300)))
-    same_iters = bool(torch.equal(mx["iters"], f["iters"]))
-    same_conv = bool(torch.equal(mx["converged"], f["converged"]))
-    out["sweep_checks"] = dict(serial_worst_rel=worst, mixed_std_rel=std_rel,
-                               mixed_iters_equal=same_iters,
-                               mixed_converged_equal=same_conv)
-    log(f"  (d) checks: {BEM_SERIAL_LANES} lanes vs serial worst rel "
-        f"{worst:.2e}; mixed vs f64 std rel {std_rel:.2e}, iters equal "
-        f"{same_iters}, converged equal {same_conv}")
-    if std_rel > MIXED_STD_RTOL or not same_iters or not same_conv:
-        fail(f"(d) BEM sweep mixed vs f64: std rel {std_rel:.2e}, iters "
-             f"equal {same_iters}, converged equal {same_conv}")
+    recs, out["sweep_checks"] = sweep_pair(
+        "(d) BEM sweep", "potflow_sweep", fowt, Hs, Tp, beta, 10,
+        BEM_SERIAL_LANES, dev)
+    for mode, rec in recs.items():
+        out[f"sweep_{mode}"] = rec
 
     out["k1_bem_row"] = check_impedance_bem(G, fowt)
     return out
@@ -1648,17 +1684,20 @@ MHK_SWEEP_CASES = 256   # x 400 bins = 102,400 lanes per K1 launch
 MHK_SERIAL_LANES = 4
 
 
-def _held_golden(name, m, stem):
-    """A phase 10 model against its full-width goldens: the physics record
-    (every case's metrics at 1e-6, the iteration counts exact), the
-    statics residual one-sided (at most ``mhk_cases.RESIDUAL_FACTOR``
+def _held_golden(name, m, stem, ledger_stems=None):
+    """A phase 10 or 12 model against its full-width goldens: the physics
+    record (every case's metrics at 1e-6, the iteration counts exact),
+    the statics residual one-sided (at most ``mhk_cases.RESIDUAL_FACTOR``
     times the larger JAX backend's), and where the model has one
-    (``mhk_cases.LEDGER_STEMS``) the ledger golden at the golden bars.
-    The residual sits at the rounding floor, where the ledger's 0.5 band
-    decides by rounding (ROADMAP C7): its band verdict is printed."""
+    (``ledger_stems``, by default ``mhk_cases.LEDGER_STEMS``) the ledger
+    golden at the golden bars.  The residual sits at the rounding floor,
+    where the ledger's 0.5 band decides by rounding (ROADMAP C7): its
+    band verdict is printed."""
     from raft_tpu_torch import ledger
     from raft_tpu_torch.models import mhk_cases as MC
 
+    if ledger_stems is None:
+        ledger_stems = MC.LEDGER_STEMS
     gdir = os.path.join(ROOT, "tests", "golden")
     with open(MC.golden_file(gdir, stem, coarse=False)) as f:
         ref = json.load(f)
@@ -1678,7 +1717,7 @@ def _held_golden(name, m, stem):
     if not held:
         fail(f"{name}: statics_residual {ratio:.3g} x the JAX package's, "
              f"above {MC.RESIDUAL_FACTOR}")
-    if stem in MC.LEDGER_STEMS:
+    if stem in ledger_stems:
         chk = MC.ledger_golden_check(
             ledger.load_ledger(MC.ledger_golden_file(gdir, stem, False)),
             m.last_ledger, tol=GOLDEN_TOL, resid_tol=GOLDEN_RESID_TOL)
@@ -2200,6 +2239,129 @@ def run_farm(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: MacCamy-Fuchs members
+# ---------------------------------------------------------------------------
+
+MCF_SERIAL_LANES = 4
+
+
+@contextlib.contextmanager
+def drag_passes():
+    """Inside: every ``impedance_solve`` call of the Model (one drag
+    pass) is counted into the yielded dict's ``"passes"``."""
+    import raft_tpu_torch.model as TM
+
+    seen = {"passes": 0}
+    inner = TM.impedance_solve
+
+    def counting(*a, **k):
+        seen["passes"] += 1
+        return inner(*a, **k)
+
+    TM.impedance_solve = counting
+    try:
+        yield seen
+    finally:
+        TM.impedance_solve = inner
+
+
+def run_mcf(dev):
+    """Phase 12: MacCamy-Fuchs members (models/mcf_cases.py): (c1) OC4semi
+    with MCF columns through run_raft, (c2) the same under potSecOrder 1
+    with the Kim & Yue correction, each at full width against the JAX
+    package's goldens, and (c3) 1024 seeded cases on (c1)'s FOWT in f64
+    and mixed."""
+    from raft_tpu_torch import run_raft
+    from raft_tpu_torch.models import mcf_cases as FC
+    from raft_tpu_torch.models import mhk_cases as MC
+
+    gdir = os.path.join(ROOT, "tests", "golden")
+    out = {}
+
+    def model_path(path, design, k5):
+        """run_raft on the card: K1 exactly once per drag pass (every
+        impedance_solve call, counted; under potSecOrder 1 the passes of
+        both fixed points), K2 once per case, K5 ``k5`` times."""
+        expect = ("impedance_gj", "gj_solve") + (("qtf_pair",) if k5 else ())
+        with counted(path, expect), drag_passes() as seen:
+            t0 = time.perf_counter()
+            m = run_raft(design, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        recs = m._case_records
+        ncases = len(m.results["case_metrics"])
+        drag = sum(recs[str(i)]["fowt0"]["drag_iters"] for i in range(ncases))
+        got = PATH_LAUNCHES[path]
+        passes = seen["passes"]
+        # the record's drag_iters is the last fixed point's: under
+        # potSecOrder 1 the first one's passes come on top
+        passes_ok = passes > drag if k5 else passes == drag
+        if not passes_ok or got.get("impedance_gj") != passes \
+                or got.get("gj_solve") != ncases \
+                or got.get("qtf_pair", 0) != k5:
+            fail(f"{path}: launches {got}, expected K1 {passes} (one per "
+                 f"drag pass; the record's last fixed point took {drag}), "
+                 f"K2 {ncases} (one per case), K5 {k5}")
+        finite = all(np.isfinite(c[0][f"{ch}_std"])
+                     for c in m.results["case_metrics"].values()
+                     for ch in ("surge", "sway", "heave", "roll", "pitch",
+                                "yaw")) and bool(np.all(np.isfinite(m.Xi)))
+        if not finite:
+            fail(f"{path}: non-finite outputs")
+        if m._state[0]["hydro0"]["Imat"].dim() != 4:
+            fail(f"{path}: the inertia coefficient is not frequency "
+                 "dependent")
+        rest = wall - sum(m.timings.values())
+        stats = [dict(statics_iters=recs[str(i)]["statics_iters"],
+                      drag_iters=recs[str(i)]["fowt0"]["drag_iters"])
+                 for i in range(ncases)]
+        log(f"  {path}: {ncases} case(s) x {m.nw} bins in {wall:.2f} s; "
+            "split " + ", ".join(f"{k} {v:.3f} s"
+                                 for k, v in m.timings.items())
+            + f", build + unloaded statics + calcOutputs {rest:.3f} s; "
+            f"drag passes {passes}; per case {stats}")
+        out[path] = dict(wall_s=wall, timings=dict(m.timings), nw=m.nw,
+                         build_unloaded_outputs_s=rest, ncases=ncases,
+                         drag_passes=passes, launches=got, cases=stats)
+        return m
+
+    # (c1) strip theory with MCF columns: its record, no ledger golden
+    c1 = model_path("mcf", FC.mcf_design(), 0)
+    out["mcf"]["golden"] = _held_golden("mcf c1", c1, "oc4semi_mcf",
+                                        FC.LEDGER_STEMS)
+    with open(MC.golden_file(gdir, "oc4semi_mcf", coarse=False)) as f:
+        ref = json.load(f)
+    dres = dict(port=c1._case_records["0"]["dyn_solve_residual"],
+                jax_host=ref["dyn_solve_residual_host"],
+                jax_default=ref["dyn_solve_residual_default"])
+    out["mcf"]["dyn_solve_residual"] = dres
+    log(f"  [mcf c1] dyn_solve_residual {dres} (no ledger golden: "
+        f"{FC.NO_LEDGER['oc4semi_mcf']})")
+
+    # (c2) under the QTF, the Kim & Yue correction in its pair grid
+    c2 = model_path("mcf_qtf", FC.mcf_qtf_design(), 1)
+    out["mcf_qtf"]["nw2"] = len(c2.fowtList[0].w1_2nd)
+    out["mcf_qtf"]["golden"] = _held_golden("mcf c2", c2, "oc4semi_mcf_qtf",
+                                            FC.LEDGER_STEMS)
+
+    # (c3) 1024 seeded cases on (c1)'s FOWT, f64 then mixed: at most
+    # nIter launches of cases x bins lanes each
+    fowt = c1.fowtList[0]
+    Hs, Tp, beta = FC.sweep_inputs()
+    recs, out["mcf_sweep_checks"] = sweep_pair(
+        "(c3) MCF sweep", "mcf_sweep", fowt, Hs, Tp, beta, FC.SWEEP_NITER,
+        MCF_SERIAL_LANES, dev)
+    for mode, kind in (("f64", "impedance_gj"),
+                       ("mixed", "impedance_gj_mixed")):
+        n = recs[mode]["launches"].get(kind, 0)
+        out[f"mcf_sweep_{mode}"] = dict(recs[mode], lanes=len(Hs) * fowt.nw)
+        if not 0 < n <= FC.SWEEP_NITER:
+            fail(f"(c3) MCF sweep {mode}: {n} {kind} launches of "
+                 f"{len(Hs) * fowt.nw} lanes, not 1..{FC.SWEEP_NITER}")
+    return out
+
+
 # kernel line: (JSON name, launch key, TPU kernel it replaces, CUDA source,
 # the main-path shape its times are taken at)
 KERNELS = (
@@ -2293,7 +2455,8 @@ def main() -> int:
                      ("qtf", lambda: run_qtf(dev)),
                      ("potflow", lambda: run_potflow(dev)),
                      ("mhk", lambda: run_mhk(dev)),
-                     ("farm", lambda: run_farm(dev))):
+                     ("farm", lambda: run_farm(dev)),
+                     ("mcf", lambda: run_mcf(dev))):
         log(f"{name}: on the card")
         t0 = time.perf_counter()
         phases[name] = fn()

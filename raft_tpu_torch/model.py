@@ -43,10 +43,12 @@ the native BEM solve and the WAMIT parsing are host work at build time.
 Submerged (MHK) rotors carry blade members and a per-case cavitation
 check (``results["cavitation"]``); a mooring with free points or
 multi-segment lines solves its free points once per statics pose.
-Not part of the port yet: ballast trim, MacCamy-Fuchs members, the Kim &
-Yue correction, the FLORIS coupling, and the JAX package's observability,
-probes, journal/resume, quarantine and recovery ladder — failures raise
-typed errors, as the JAX package does with ``RAFT_TPU_RECOVERY=0``.
+MacCamy-Fuchs members take a frequency-dependent inertia coefficient and,
+under ``potSecOrder: 1``, the Kim & Yue correction of the QTF.
+Not part of the port yet: ballast trim, the FLORIS coupling, and the JAX
+package's observability, probes, journal/resume, quarantine and recovery
+ladder — failures raise typed errors, as the JAX package does with
+``RAFT_TPU_RECOVERY=0``.
 """
 from __future__ import annotations
 

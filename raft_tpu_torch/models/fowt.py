@@ -38,8 +38,11 @@ Submerged (MHK) rotors: a rotor whose blade tips stay below the surface
 element at each blade's build azimuth (``rotor.blade_member_dicts``),
 named ``"blade"``, after every other member; their buoyancy counts in
 the statics, their structural mass does not (it is in the RNA mass).
-MacCamy-Fuchs members are not part of the port yet: they raise
-``ModelConfigError``.
+
+MacCamy-Fuchs members (``MCF: True`` on a circular member): the
+transverse inertia coefficient of their nodes depends on the frequency,
+so ``Imat`` is (N, 3, 3, nw) complex (`fowt_hydro_constants`); the Kim &
+Yue second-order correction is in ``models/qtf.py``.
 """
 from __future__ import annotations
 
@@ -51,7 +54,6 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from raft_tpu_torch import errors
 from raft_tpu_torch._config import COMPLEX, REAL, as_real
 from raft_tpu_torch.io.bem_native import solve_bem_fowt
 from raft_tpu_torch.io.wamit import bem_excitation, load_bem
@@ -68,6 +70,7 @@ from raft_tpu_torch.ops.transforms import (
     translate_force_3to6, translate_matrix_3to6, translate_matrix_6to6,
     rotate_matrix_6, transform_force, skew,
 )
+from raft_tpu_torch.ops.special import hankel1p_all
 from raft_tpu_torch.ops.waves import wave_number, wave_kinematics
 from raft_tpu_torch.ops.spectra import jonswap
 from raft_tpu_torch.utils.dicttools import get_from_dict
@@ -267,9 +270,6 @@ def build_fowt(design: dict, w, depth=600.0, x_ref=0.0, y_ref=0.0,
     potSecOrder = int(get_from_dict(platform, "potSecOrder", dtype=int, default=0))
     if geometry_only:
         potSecOrder = 0
-    if any(m.MCF for m in members):
-        raise errors.ModelConfigError(
-            "MacCamy-Fuchs members are not part of the PyTorch port yet")
     # second-order hydro setup (reference: raft_fowt.py:231-252)
     w1_2nd = k1_2nd = qtf_data = None
     if potSecOrder == 1:
@@ -532,8 +532,10 @@ def fowt_statics(fowt: FOWTModel, pose, l_fill=None, rho_fill=None):
 # --------------------------------------------------------------------------
 
 def fowt_hydro_constants(fowt: FOWTModel, pose):
-    """Added mass (6,6) about the PRP plus per-node Amat/Imat/a_i
-    (reference: raft_fowt.py:848-880 over raft_member.py:877-1050)."""
+    """Added mass (6,6) about the PRP plus per-node Amat (N,3,3), Imat and
+    a_i (reference: raft_fowt.py:848-880 over raft_member.py:877-1088).
+    Imat is (N,3,3) real, or (N,3,3,nw) complex when a MacCamy-Fuchs
+    member is present."""
     r = pose["r"]
     dev = r.device
     rho = fowt.rho_water
@@ -562,6 +564,36 @@ def fowt_hydro_constants(fowt: FOWTModel, pose):
     Amat = Amat * mask[:, None, None]
     Imat = Imat * mask[:, None, None]
     a_i = _nd(fowt, "a_i", dev) * mask
+
+    # MacCamy-Fuchs: frequency-dependent complex inertia coefficient of
+    # the flagged circular members (reference: raft_member.py:1053-1088):
+    # Cm = 4i / (pi (kR)^2 H1'(kR)), blended by a cosine ramp into the
+    # Morison Cm for long waves (k < pi / (5R)), zero at k <= 0; on the
+    # transverse terms only, the end term stays real
+    if fowt.nodes.MCF is not None and bool(np.any(_host(fowt.nodes.MCF))):
+        k = as_real(fowt.k, dev)                      # (nw,)
+        R = _nd(fowt, "R", dev)                       # (N,)
+        R_safe = torch.where(R > 0, R, 1.0)
+        kR = k[None, :] * R_safe[:, None]             # (N, nw)
+        Hp1 = hankel1p_all(kR, 1)[1]
+        Cm = 4j / (math.pi * kR**2 * Hp1)
+        Tr = math.pi / 5.0 / R_safe                   # (N,)
+        ramp = torch.where(k[None, :] < Tr[:, None],
+                           0.5 * (1.0 - torch.cos(math.pi * k[None, :]
+                                                  / Tr[:, None])),
+                           1.0)
+        ramp = torch.where(k[None, :] <= 0.0, 0.0, ramp)
+        mcf = _nd(fowt, "MCF", dev)[:, None]
+        Cm_p1 = torch.where(mcf, Cm * ramp + (1.0 + Ca_p1[:, None])
+                            * (1 - ramp), (1.0 + Ca_p1[:, None]).to(COMPLEX))
+        Cm_p2 = torch.where(mcf, Cm * ramp + (1.0 + Ca_p2[:, None])
+                            * (1 - ramp), (1.0 + Ca_p2[:, None]).to(COMPLEX))
+        Imat = ((rho * v_side)[:, None, None, None]
+                * (Cm_p1[:, None, None, :] * p1Mat[:, :, :, None]
+                   + Cm_p2[:, None, None, :] * p2Mat[:, :, :, None])
+                + ((rho * v_end * Ca_End)[:, None, None]
+                   * qMat)[:, :, :, None].to(COMPLEX))
+        Imat = Imat * mask[:, None, None, None]
 
     offsets = r - pose["r6"][:3]
     A_hydro = torch.sum(translate_matrix_3to6(Amat, offsets), dim=0)
@@ -663,10 +695,14 @@ def fowt_hydro_excitation(fowt: FOWTModel, pose, seastate, hydro_consts):
     pDyn = pDyn * submerged[..., None]
 
     # inertial excitation: F = Imat @ ud + pDyn * a_i * q   per node
+    # (Imat is (N,3,3,nw) complex when MacCamy-Fuchs members are present)
     Imat = hydro_consts["Imat"].to(COMPLEX)
     a_i = hydro_consts["a_i"]
     q = pose["q"]
-    F_I = torch.einsum("nij,hnjw->hniw", Imat, ud)
+    if Imat.dim() == 4:
+        F_I = torch.einsum("nijw,hnjw->hniw", Imat, ud)
+    else:
+        F_I = torch.einsum("nij,hnjw->hniw", Imat, ud)
     F_nodes = F_I + pDyn[:, :, None, :] * (a_i[:, None] * q)[None, :, :, None]
     offsets = r - pose["r6"][:3]
     F_hydro_iner = torch.sum(_wrench_about_origin(F_nodes, offsets), dim=1)

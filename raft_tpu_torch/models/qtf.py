@@ -13,10 +13,12 @@ reference does.
 
 Conventions are the JAX package's: headings in radians throughout, the
 symmetric velocity gradient, and the reference's "last submerged node's
-Ca" in the waterline term.  The Kim & Yue correction for MacCamy-Fuchs
-members is not part of the port: a design with an MCF member raises
-``ModelConfigError``.  The ``.12d`` / ``.4`` readers and writers are host
-numpy, byte-compatible with the JAX package's files.
+Ca" in the waterline term.  The Kim & Yue correction of MacCamy-Fuchs
+members (`kim_yue_correction`, plain PyTorch on the model's device, as
+the JAX package computes it outside its Pallas kernel) is added to the
+raw pair grid before the Hermitian completion.  The ``.12d`` / ``.4``
+readers and writers are host numpy, byte-compatible with the JAX
+package's files.
 """
 from __future__ import annotations
 
@@ -25,10 +27,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from raft_tpu_torch import errors
 from raft_tpu_torch._config import COMPLEX, REAL, as_real
 from raft_tpu_torch.ops.kernels.qtf_pair import (check_dry_nodes,
                                                  qtf_pair_grid)
+from raft_tpu_torch.ops.special import hankel1p_all
 from raft_tpu_torch.ops.waves import (
     wave_kinematics, kinematics_from_motion, wave_vel_gradient,
     wave_pres1st_gradient,
@@ -172,10 +174,6 @@ def qtf_fields(fowt, pose, beta, Xi0=None, M_struc=None) -> dict:
     (lane-last, on the model's device) and the waterline-crossing members'
     fields.  ``Xi0`` None is a fixed body.  Raises ``NonFiniteResult``
     if a field of a node above water is not finite (``check_dry_nodes``)."""
-    if any(m.MCF for m in fowt.members):
-        raise errors.ModelConfigError(
-            "the Kim & Yue correction for MacCamy-Fuchs members is not part "
-            "of the PyTorch port yet")
     dev = fowt.device
     w2 = as_real(fowt.w1_2nd, dev)
     k2 = as_real(fowt.k1_2nd, dev)
@@ -312,10 +310,168 @@ def complete_hermitian(Q, w2):
 def calc_qtf_slender_body(fowt, pose, beta, Xi0=None, M_struc=None):
     """Slender-body QTF for one wave heading ``beta`` [rad], (nw2, nw2, 6)
     complex on the model's device.  The pair grid is kernel K5: on a CUDA
-    device the hand-written kernel, on the CPU its plain version."""
+    device the hand-written kernel, on the CPU its plain version; the
+    Kim & Yue correction of MacCamy-Fuchs members is added to it before
+    the Hermitian completion (reference: raft_fowt.py:1636-1640)."""
     fields = qtf_fields(fowt, pose, beta, Xi0=Xi0, M_struc=M_struc)
     Q = qtf_pair_grid(fields, beta, fowt.depth, fowt.rho_water, fowt.g)
+    Q = Q + kim_yue_correction(fowt, pose, beta)
     return complete_hermitian(Q, fields["w2"])
+
+
+# --------------------------------------------------------------------------
+# Kim & Yue analytical 2nd-order diffraction correction
+# (reference: raft_member.py:1090-1205, applied at raft_fowt.py:1636)
+# --------------------------------------------------------------------------
+
+def _recip(z):
+    """1/z, and 0 where that is not finite (high-order Hankel magnitudes
+    saturate the dtype; the physical limit of 1/(H'H') there is 0)."""
+    r = 1.0 / z
+    ok = torch.isfinite(r.real) & torch.isfinite(r.imag)
+    return torch.where(ok, r, torch.zeros_like(r))
+
+
+def _sinh_over_coshcosh(a, b, c):
+    """sinh(a) / (cosh(b) cosh(c)), overflow-stable for |a| <= b + c."""
+    num = torch.exp(a - b - c) - torch.exp(-a - b - c)
+    den = (1.0 + torch.exp(-2.0 * b)) * (1.0 + torch.exp(-2.0 * c))
+    return 2.0 * num / den
+
+
+def _inv_coshcosh(b, c):
+    """1 / (cosh(b) cosh(c)), overflow-stable."""
+    return 4.0 * torch.exp(-(b + c)) / (
+        (1.0 + torch.exp(-2.0 * b)) * (1.0 + torch.exp(-2.0 * c)))
+
+
+def kim_yue_correction(fowt, pose, beta, Nm: int = 10):
+    """Sum of the Kim & Yue (1989/1990) bottom-mounted-cylinder
+    difference-frequency corrections over the MacCamy-Fuchs members that
+    pierce the surface (``rA0.z * rB0.z < 0``), on the (nw2, nw2) pair
+    grid of ``fowt.w1_2nd`` for heading ``beta`` [rad] at ``pose``:
+    (nw2, nw2, 6) complex on the model's device, zero when no member
+    counts.  ``Nm`` is the highest order of the Hankel sums.
+
+    As the JAX package and the reference compute it: the real part only
+    is kept (the diffraction share, so as not to count the Rainey terms
+    twice, :1148/:1196); the segment phase is taken at the waterline
+    point rwl (:1199), not at the segment's midpoint; end nodes
+    (``dls == 0``) reuse ds as the radius (:1173-1179); the whole force
+    is conjugated where k1 < k2 (:1202-1203).  Member geometry is read
+    on the host; the pair-grid algebra runs on the device, the Hankel
+    derivative tables cached by radius."""
+    dev = fowt.device
+    k2g = as_real(fowt.k1_2nd, dev)
+    w2 = as_real(fowt.w1_2nd, dev)
+    nw2 = w2.shape[0]
+    h = float(fowt.depth)
+    rho, g = float(fowt.rho_water), float(fowt.g)
+    F = torch.zeros((nw2, nw2, 6), dtype=COMPLEX, device=dev)
+    members = [(im, m) for im, m in enumerate(fowt.members)
+               if m.MCF and float(m.rA0[2]) * float(m.rB0[2]) < 0]
+    if not members:
+        return F
+
+    k1, k2 = k2g[:, None], k2g[None, :]
+    w1, wv2 = w2[:, None], w2[None, :]
+    beta = float(beta)
+    cosB, sinB = np.cos(beta), np.sin(beta)
+    rPRP = _np(pose["r6"])[:3]
+
+    def omega_sum(Hp, weights):
+        """sum_n weights_n * (1/(Hp_{n+1} conj(Hp_n)) - 1/(Hp_n
+        conj(Hp_{n+1}))) on the pair grid; Hp the (Nm+2, nw2) derivative
+        table, ``weights`` a per-n list of grids or a scalar (reference:
+        raft_member.py:1102-1109)."""
+        tot = 0.0
+        for n in range(Nm + 1):
+            a1 = Hp[n + 1][:, None] * torch.conj(Hp[n][None, :])
+            a2 = Hp[n][:, None] * torch.conj(Hp[n + 1][None, :])
+            wn = weights[n] if isinstance(weights, list) else weights
+            tot = tot + wn * (_recip(a1) - _recip(a2))
+        return tot
+
+    hp_cache: dict = {}
+
+    def hp_table(R):
+        key = round(float(R), 12)
+        if key not in hp_cache:
+            hp_cache[key] = hankel1p_all(k2g * float(R), Nm + 1)
+        return hp_cache[key]
+
+    def wrench(pf, off):
+        return as_real(np.concatenate([pf, np.cross(off, pf)]), dev)
+
+    diag = w1 == wv2
+    kp = k1 + k2
+    km_safe = torch.where(diag, 1.0, k1 - k2)
+    for im, m in members:
+        mpose = pose["members"][im]
+        rA, rB = _np(mpose["rA"]), _np(mpose["rB"])
+        rm = _np(mpose["r"])
+        p1, p2 = _np(mpose["p1"]), _np(mpose["p2"])
+        ds, dls = _np(m.ds), _np(m.dls)
+
+        # wave-aligned transverse force direction (:1128-1131)
+        bvec = np.array([cosB, sinB, 0.0])
+        pf = np.dot(bvec, p1) * p1 + np.dot(bvec, p2) * p2
+        pf = pf / np.linalg.norm(pf)
+
+        # waterline intersection and radius (:1136-1139)
+        rwl = rA + (rB - rA) * (0.0 - rA[2]) / (rB[2] - rA[2])
+        order = np.argsort(rm[:, 2])
+        Rwl = float(np.interp(0.0, rm[order, 2], 0.5 * ds[order]))
+        phase = torch.exp(-1j * ((k1 - k2)
+                                 * float(cosB * rwl[0] + sinB * rwl[1])))
+
+        # ---- waterline relative-elevation term (:1134-1149) ----
+        k1R, k2R = k1 * Rwl, k2 * Rwl
+        Fwl = complex(-rho * g * Rwl * 2j / np.pi) / (k1R * k2R) \
+            * omega_sum(hp_table(Rwl), 1.0)
+        Fwl = Fwl.real * phase
+        F = F + Fwl[:, :, None] * wrench(pf, rwl - rPRP)[None, None, :]
+
+        # ---- Bernoulli quadratic-velocity depth integral (:1155-1200) ----
+        for il in range(len(rm) - 1):
+            z1 = float(rm[il, 2])
+            if z1 > 0:
+                continue
+            z2 = min(float(rm[il + 1, 2]), 0.0)
+            R1 = ds[il] / 2.0 if dls[il] != 0 else ds[il]
+            R2 = ds[il + 1] / 2.0 if dls[il + 1] != 0 else ds[il]
+            R = float(0.5 * (R1 + R2))
+            k1R, k2R = k1 * R, k2 * R
+            k1h, k2h = k1R * (h / R), k2R * (h / R)
+            # Im/Ip pre-divided by cosh(k1h)cosh(k2h) with the
+            # overflow-stable exp-ratio algebra
+            icc = _inv_coshcosh(k1h, k2h)
+            sp2 = _sinh_over_coshcosh(kp * (z2 + h), k1h, k2h) / (k1h + k2h)
+            sp1 = _sinh_over_coshcosh(kp * (z1 + h), k1h, k2h) / (k1h + k2h)
+            sm2 = torch.where(
+                diag, (z2 + h) / h * icc,
+                _sinh_over_coshcosh(km_safe * (z2 + h), k1h, k2h)
+                / torch.where(diag, 1.0, k1h - k2h))
+            sm1 = torch.where(
+                diag, (z1 + h) / h * icc,
+                _sinh_over_coshcosh(km_safe * (z1 + h), k1h, k2h)
+                / torch.where(diag, 1.0, k1h - k2h))
+            Im_cc = 0.5 * (sp2 - sm2 - sp1 + sm1)
+            Ip_cc = 0.5 * (sp2 + sm2 - sp1 - sm1)
+
+            t1 = torch.sqrt(k1h * torch.tanh(k1h))
+            t2 = torch.sqrt(k2h * torch.tanh(k2h))
+            pref = k1h * k2h / t1 / t2
+            weights = [pref * (Im_cc + Ip_cc * n * (n + 1) / k1R / k2R)
+                       for n in range(Nm + 1)]
+            dF = (complex(rho * g * R * 2j / np.pi) / (k1R * k2R)
+                  * omega_sum(hp_table(R), weights))
+            rmid = 0.5 * (rm[il] + rm[il + 1])
+            dF = dF.real * phase
+            F = F + dF[:, :, None] * wrench(pf, rmid - rPRP)[None, None, :]
+
+    # conjugate where k1 < k2 (:1202-1203)
+    return torch.where((k1 < k2)[:, :, None], torch.conj(F), F)
 
 
 # --------------------------------------------------------------------------

@@ -125,13 +125,13 @@ def rm1_model():
     return m
 
 
-def check_golden(m, stem):
+def check_golden(m, stem, ledger_stems=MC.LEDGER_STEMS):
     """The port's run against the goldens of ``stem`` on the coarse grid:
     the physics record (every case's metrics at 1e-6, the iteration counts
     exact), the statics residual one-sided (at most
     ``MC.RESIDUAL_FACTOR`` times the larger JAX backend's), and where
-    the model has one (``MC.LEDGER_STEMS``) the ledger golden at the
-    golden bars, the statics residual's 0.5 band at the rounding floor
+    the model has one (``stem`` in ``ledger_stems``) the ledger golden at
+    the golden bars, the statics residual's 0.5 band at the rounding floor
     reported (ROADMAP C7)."""
     from raft_tpu_torch import ledger
 
@@ -146,7 +146,7 @@ def check_golden(m, stem):
           f"{gold['statics_residual_default']}; ratio {ratio:.3g}")
     assert rel <= 1e-6 and same, (rel, same)
     assert held, (ratio, MC.RESIDUAL_FACTOR)
-    if stem in MC.LEDGER_STEMS:
+    if stem in ledger_stems:
         chk = MC.ledger_golden_check(
             ledger.load_ledger(MC.ledger_golden_file(GOLDEN, stem, True)),
             m.last_ledger)

@@ -17,7 +17,9 @@ the JAX package's native-BEM solve (``tests/golden/oc4semi_bem/``).
   second-order grid against ``oc4semi_bem_qtf.metrics.json`` at 1e-6
   with the iteration counts exact.  Its ``statics_residual`` sits at the
   rounding floor of the force sum (ROADMAP C7) and is reported, not held.
-- MacCamy-Fuchs members and the ballast trim are still refused.
+- A MacCamy-Fuchs member builds: the spar's (N, 3, 3, nw) inertia
+  coefficient against the JAX package's at 1e-12.  The ballast trim is
+  still refused.
 """
 import json
 import os
@@ -162,16 +164,27 @@ def test_oc4semi_bem_qtf_matches_jax_metrics(cache_copy):
     assert rel <= PC.METRICS_TOL
 
 
-@pytest.mark.parametrize("what", ["mcf", "ballast"])
+@pytest.mark.parametrize("what", ["ballast"])
 def test_still_refused(what):
-    """MacCamy-Fuchs members and the ballast trim stay refused (ROADMAP
-    A4 and A1 wait for C7)."""
-    if what == "mcf":
-        d = PC.spar_design(1)
-        d["platform"]["members"][0]["MCF"] = True
-        with pytest.raises(errors.ModelConfigError, match="MacCamy-Fuchs"):
-            Model(d, device="cpu")
-    else:
-        m = Model(PC.spar_design(1), device="cpu")
-        with pytest.raises(errors.ModelConfigError, match="ballast"):
-            m.analyzeUnloaded(ballast=2)
+    """The ballast trim stays refused (ROADMAP A1 waits for C7)."""
+    m = Model(PC.spar_design(1), device="cpu")
+    with pytest.raises(errors.ModelConfigError, match="ballast"):
+        m.analyzeUnloaded(ballast=2)
+
+
+def test_mcf_spar_builds_and_matches_jax_imat():
+    """A MacCamy-Fuchs member, refused until ROADMAP A4, builds on the
+    spar: its (N, 3, 3, nw) complex inertia coefficient equals the JAX
+    package's at 1e-12, and it depends on the frequency."""
+    d = PC.spar_design(1)
+    d["platform"]["members"][0]["MCF"] = True
+    m = Model(d, device="cpu")
+    fowt = m.fowtList[0]
+    assert fowt.members[0].MCF
+    jf = JF.build_fowt(d, m.w, depth=float(d["site"]["water_depth"]))
+    hc = TF.fowt_hydro_constants(fowt, TF.fowt_pose(fowt, np.zeros(6)))
+    jhc = JF.fowt_hydro_constants(jf, JF.fowt_pose(jf, np.zeros(6)))
+    got, ref = hc["Imat"].numpy(), np.asarray(jhc["Imat"])
+    assert got.shape == ref.shape == (fowt.nodes.n, 3, 3, m.nw)
+    assert np.max(np.abs(got - ref)) <= 1e-12 * np.max(np.abs(ref))
+    assert np.ptp(np.abs(got), axis=-1).max() > 0

@@ -254,7 +254,7 @@ def test_mixed_request_that_cannot_narrow_is_recorded():
 
 
 @pytest.mark.parametrize("mode", ["mixed", "f32"])
-def test_mixed_or_f32_above_the_kernels_raises_typed(mode):
+def test_mixed_and_f32_around_lu_at_2n_18_match_f64(mode):
     """Above the kernels (2n = 18) mixed and f32 used to raise; they now
     run around LU, recorded as such, and agree with the f64 solve (the
     ladder to its promotion tolerance, f32 to its width)."""

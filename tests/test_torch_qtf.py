@@ -14,7 +14,8 @@ by function.
    ``.12d`` round trip between the two packages' writers and readers,
    ``write_rao_4`` byte for byte, ``interp`` against ``jnp.interp``, the
    QTF cache key against the JAX Model's hash of the same inputs, the
-   MCF refusal, and ``outFolderQTF``: the port's Model writes the .4 /
+   spar flagged MacCamy-Fuchs (its QTF with the Kim & Yue correction),
+   and ``outFolderQTF``: the port's Model writes the .4 /
    .12d / .key snapshot, a second run reloads it (no K5 evaluation) with
    the same results, and the JAX reader reads the port's .12d.
 Inputs are made from numpy seeds and handed to both packages.
@@ -229,13 +230,20 @@ def test_non_finite_field_at_a_dry_node_raises(monkeypatch):
         K.check_dry_nodes(dict(fields, **{name: t}))
 
 
-def test_mcf_member_raises():
+def test_mcf_spar_qtf_with_kim_yue_matches_jax():
+    """The spar flagged MacCamy-Fuchs in both packages, once refused here:
+    its QTF, the Kim & Yue correction added to the pair grid, against the
+    JAX package's at 1e-10 of max|Q|, and the correction moves it."""
     jf, jp, kw = spar_inputs(10.0, True)
+    jf.members[0] = dataclasses.replace(jf.members[0], MCF=True)
     tf = state_from_numpy(jf, "cpu")
-    tf.members[0].MCF = True
-    with pytest.raises(errors.ModelConfigError):
-        TQ.calc_qtf_slender_body(tf, TF.fowt_pose(tf, np.zeros(6)), 0.0,
-                                 **kw)
+    assert tf.members[0].MCF
+    tp = TF.fowt_pose(tf, np.zeros(6))
+    ref = np.asarray(JQ.calc_qtf_slender_body(jf, jp, 0.35, **kw))
+    got = TQ.calc_qtf_slender_body(tf, tp, 0.35, **kw)
+    assert _rel(got, ref) <= QTF_TOL
+    ky = _np(TQ.kim_yue_correction(tf, tp, 0.35))
+    assert np.max(np.abs(ky)) > 1e-6 * np.max(np.abs(ref))
 
 
 # ---------------------------------------------------------------------------
