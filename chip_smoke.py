@@ -90,7 +90,8 @@ Phases (any failure exits non-zero; no phase's failure is turned into a
               against its ledger golden (every other metric at the golden
               bars), the per-case cavitation arrays at 1e-9; FOCTT's
               build and shipped-case constants on the card against
-              foctt_build.json at 1e-9 (m2a); FOCTT's shipped case run to
+              foctt_build.json at 1e-9 (m2a); FOCTT's shipped case (Model ->
+              analyzeCases: its unloaded statics are m2b's) run to
               its end (statics at the iteration cap, ROADMAP C8: printed,
               compared with nothing); OC3spar with a clump weight on each
               line (m3, free points) against its record and its ledger
@@ -135,9 +136,34 @@ Phases (any failure exits non-zero; no phase's failure is turned into a
               (81,920 lanes per K1 launch, at most nIter launches) in f64
               and under RAFT_TPU_PRECISION=mixed, 4 lanes against the
               serial solve (rtol 1e-9), mixed against f64 as in phase 5;
-13. prints the kernels JSON line, the card line, and the final JSON line.
-Each path of phases 4-12 runs with the launch counters set to 0 just
+13. recovery — fault tolerance (raft_tpu_torch/recovery.py), every launch
+              of every kernel counted and printed against its expected
+              value: (r1) OC3spar's three shipped cases at its 80 bins,
+              clean, then under nan@dynamics:case=1 (case 1 walks
+              configured -> re_solve -> damped_restart and is quarantined,
+              its sequence and failure record those of the JAX package on
+              tests/golden/recovery/oc3spar.json mapped through
+              recovery.JAX_STEP; cases 0 and 2 at 1e-12 of the clean run),
+              then analyzeCases(resume=True) (cases 0 and 2 restored, one
+              statics and one dynamics solve, the ledger at 1e-12 of the
+              clean one); (r2) case 0 alone under raise@kernel:case=0:once
+              (one attempt, recovered at 1e-12, K1 launches equal to a
+              clean run's); (r3) case 0 under nan@dynamics:case=0:times=2
+              under RAFT_TPU_PRECISION=mixed (K3 on every rung, no K1) and
+              in f64, mixed against f64 as in phase 5; (r4) phase 5's 1024
+              cases with lanes 0, 512 and 1023 poisoned by the sweep seam:
+              re-solved on K1 at 3 x 80 lanes and spliced back at 1e-12,
+              the other lanes bitwise equal, NaN with quarantine="off";
+              (r5) sweep_cases_chunked on the same table in 4 chunks of
+              256 with a CheckpointStore under --out: bitwise equal to one
+              sweep, a pure read, a deleted tail, an edited row and a
+              corrupt chunk each re-solving only what they must;
+14. prints the kernels JSON line, the card line, and the final JSON line.
+Each path of phases 4-13 runs with the launch counters set to 0 just
 before it and read just after; every kernel of a path must launch in it.
+Every Model run of phases 4-12 must end with no recovery attempt and no
+quarantined case, and every sweep_cases with no quarantined lane; the case
+journal of every run goes under --out (RAFT_TPU_JOURNAL_DIR).
 
 Options: --only-kernels stops after phase 3 (the short call after a
 kernel edit); --out DIR sets where the full
@@ -1137,17 +1163,23 @@ def device_busy(fn):
                 ours={k: dict(ms=ms, count=n) for k, (ms, n) in ours.items()})
 
 
+def sweep_inputs(nc=SWEEP_CASES):
+    """Phase 5's seeded sea states (Hs 1-12 m, Tp 4-18 s, 0-360 deg)."""
+    rng = np.random.default_rng(2026)
+    Hs = 1.0 + 11.0 * rng.random(nc)
+    Tp = 4.0 + 14.0 * rng.random(nc)
+    beta = np.deg2rad(360.0 * rng.random(nc))
+    return Hs, Tp, beta
+
+
 def run_sweeps(dev):
     """sweep_cases on OC3spar, 1024 seeded cases, in f64 and mixed."""
     from raft_tpu_torch import _config
     from raft_tpu_torch.parallel.sweep import (
         design_fowt, make_case_solver, sweep_cases)
 
-    rng = np.random.default_rng(2026)
     nc = SWEEP_CASES
-    Hs = 1.0 + 11.0 * rng.random(nc)
-    Tp = 4.0 + 14.0 * rng.random(nc)
-    beta = np.deg2rad(360.0 * rng.random(nc))
+    Hs, Tp, beta = sweep_inputs(nc)
     t0 = time.perf_counter()
     fowt = design_fowt("OC3spar", dev)
     torch.cuda.synchronize()
@@ -1750,11 +1782,12 @@ def _within(name, live, ref):
 def run_mhk(dev):
     """Phase 10: RM1_Floating (m1) and FOCTT_example's converging case
     (m2b) through run_raft at full width, FOCTT's build and shipped-case
-    constants (m2a), its shipped case run to the end, OC3spar with clump
-    weights on its lines (m3), and a 256-case sweep on RM1's FOWT."""
+    constants (m2a), its shipped case's analyzeCases run to the end,
+    OC3spar with clump weights on its lines (m3), and a 256-case sweep on
+    RM1's FOWT."""
     import warnings
 
-    from raft_tpu_torch import run_raft
+    from raft_tpu_torch import Model, run_raft
     from raft_tpu_torch.models import fowt as TF
     from raft_tpu_torch.models import mhk_cases as MC
     from raft_tpu_torch.models import rotor as TR
@@ -1770,12 +1803,17 @@ def run_mhk(dev):
     out = {}
     expect = ("impedance_gj", "gj_solve")
 
-    def raft(path, design):
-        """run_raft on the card, its K1/K2 launches exact: K1 once per
-        drag pass of every case, K2 once per case."""
+    def raft(path, design, unloaded=True):
+        """run_raft on the card (``unloaded=False``: Model ->
+        analyzeCases, no unloaded statics), its K1/K2 launches exact: K1
+        once per drag pass of every case, K2 once per case."""
         with counted(path, expect):
             t0 = time.perf_counter()
-            m = run_raft(design, device=dev)
+            if unloaded:
+                m = run_raft(design, device=dev)
+            else:
+                m = Model(design, device=dev)
+                m.analyzeCases()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         recs = m._case_records
@@ -1795,7 +1833,7 @@ def run_mhk(dev):
                                 "yaw")) and bool(np.all(np.isfinite(m.Xi)))
         if not finite:
             fail(f"{path}: non-finite outputs")
-        # the rest of run_raft's wall: the build, analyzeUnloaded and
+        # the rest of the wall: the build, analyzeUnloaded and
         # calcOutputs (Model.timings covers analyzeCases)
         rest = wall - sum(m.timings.values())
         log(f"  {path}: {ncases} case(s) x {m.nw} bins in {wall:.2f} s; "
@@ -1864,8 +1902,9 @@ def run_mhk(dev):
     if not c0["omega_avg"][0] > 0:
         fail("m2b: the current-driven rotor reports no speed")
 
-    # FOCTT's shipped case: to the end, compared with nothing (C8)
-    ms = raft("mhk_foctt_shipped", MC.foctt_design())
+    # FOCTT's shipped case: to the end, compared with nothing (C8).  Its
+    # unloaded statics, the same 50 capped iterations as m2b's, ran there
+    ms = raft("mhk_foctt_shipped", MC.foctt_design(), unloaded=False)
     log(f"  FOCTT shipped case (ROADMAP C8): statics_iters "
         f"{out['mhk_foctt_shipped']['cases'][0]['statics_iters']}, "
         f"statics_residual "
@@ -2246,26 +2285,6 @@ def run_farm(dev):
 MCF_SERIAL_LANES = 4
 
 
-@contextlib.contextmanager
-def drag_passes():
-    """Inside: every ``impedance_solve`` call of the Model (one drag
-    pass) is counted into the yielded dict's ``"passes"``."""
-    import raft_tpu_torch.model as TM
-
-    seen = {"passes": 0}
-    inner = TM.impedance_solve
-
-    def counting(*a, **k):
-        seen["passes"] += 1
-        return inner(*a, **k)
-
-    TM.impedance_solve = counting
-    try:
-        yield seen
-    finally:
-        TM.impedance_solve = inner
-
-
 def run_mcf(dev):
     """Phase 12: MacCamy-Fuchs members (models/mcf_cases.py): (c1) OC4semi
     with MCF columns through run_raft, (c2) the same under potSecOrder 1
@@ -2284,7 +2303,7 @@ def run_mcf(dev):
         impedance_solve call, counted; under potSecOrder 1 the passes of
         both fixed points), K2 once per case, K5 ``k5`` times."""
         expect = ("impedance_gj", "gj_solve") + (("qtf_pair",) if k5 else ())
-        with counted(path, expect), drag_passes() as seen:
+        with counted(path, expect), solve_counts() as seen:
             t0 = time.perf_counter()
             m = run_raft(design, device=dev)
             torch.cuda.synchronize()
@@ -2362,6 +2381,358 @@ def run_mcf(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: fault tolerance (recovery.py, analyzeCases, sweep_cases)
+# ---------------------------------------------------------------------------
+
+RECOVERY_TOL = 1e-12
+RECOVERY_CHUNKS = 4
+
+
+@contextlib.contextmanager
+def clean_path_checks():
+    """Inside: every ``Model.analyzeCases`` must end with no recovery
+    attempt and no quarantined case, every ``sweep_cases`` with
+    ``out["quarantine"] is None``; the yielded dict counts both."""
+    from raft_tpu_torch.model import Model
+    from raft_tpu_torch.parallel import sweep as SW
+
+    seen = {"models": 0, "sweeps": 0}
+    analyze, sweep = Model.analyzeCases, SW.sweep_cases
+
+    def checked_analyze(self, *a, **k):
+        out = analyze(self, *a, **k)
+        seen["models"] += 1
+        if self.failed_cases or self.recovery_attempts:
+            fail(f"a clean Model run recorded {self.recovery_attempts} / "
+                 f"quarantined {self.failed_cases}")
+        return out
+
+    def checked_sweep(*a, **k):
+        out = sweep(*a, **k)
+        seen["sweeps"] += 1
+        if out["quarantine"] is not None:
+            fail(f"a clean sweep quarantined lanes: {out['quarantine']}")
+        return out
+
+    Model.analyzeCases, SW.sweep_cases = checked_analyze, checked_sweep
+    try:
+        yield seen
+    finally:
+        Model.analyzeCases, SW.sweep_cases = analyze, sweep
+
+
+@contextlib.contextmanager
+def solve_counts():
+    """Inside: the Model's statics and dynamics solves, its drag passes
+    (``impedance_solve`` calls; those of the damped restart apart) and
+    system solves (``inv_complex`` calls), and the lanes of every
+    ``impedance_solve`` call of the sweep module, counted."""
+    import raft_tpu_torch.model as TM
+    import raft_tpu_torch.parallel.sweep as SW
+    from raft_tpu_torch import recovery
+
+    seen = {"statics": 0, "dynamics": 0, "passes": 0, "damped_passes": 0,
+            "system": 0, "sweep_lanes": []}
+    saved = (TM.Model.solveStatics, TM.Model.solveDynamics,
+             TM.impedance_solve, TM.inv_complex, SW.impedance_solve)
+    statics, dynamics, imp, inv, sw_imp = saved
+
+    def c_statics(self, *a, **k):
+        seen["statics"] += 1
+        return statics(self, *a, **k)
+
+    def c_dynamics(self, *a, **k):
+        seen["dynamics"] += 1
+        return dynamics(self, *a, **k)
+
+    def c_imp(*a, **k):
+        seen["passes"] += 1
+        seen["damped_passes"] += recovery.current("fp_relax", 0.8) != 0.8
+        return imp(*a, **k)
+
+    def c_inv(*a, **k):
+        seen["system"] += 1
+        return inv(*a, **k)
+
+    def c_sw_imp(w, M, B, C, F):
+        seen["sweep_lanes"].append(int(F.shape[0]) * int(F.shape[-1]))
+        return sw_imp(w, M, B, C, F)
+
+    (TM.Model.solveStatics, TM.Model.solveDynamics, TM.impedance_solve,
+     TM.inv_complex, SW.impedance_solve) = (c_statics, c_dynamics, c_imp,
+                                            c_inv, c_sw_imp)
+    try:
+        yield seen
+    finally:
+        (TM.Model.solveStatics, TM.Model.solveDynamics, TM.impedance_solve,
+         TM.inv_complex, SW.impedance_solve) = saved
+
+
+def _expect(label, got, want):
+    """Log one count against its expected value; fail when they differ."""
+    log(f"    {label}: {got} (expected {want})")
+    if got != want:
+        fail(f"{label}: {got}, expected {want}")
+
+
+def _attempts(m):
+    return [(a.phase, a.case, a.step_from, a.step_to, a.outcome, a.error)
+            for a in m.recovery_attempts]
+
+
+def run_recovery(dev, coarse=False, ncases=SWEEP_CASES):
+    """Phase 13: the degradation ladder, per-case quarantine and
+    journal/resume of ``Model.analyzeCases`` on OC3spar's three shipped
+    cases, and lane quarantine and the checkpointed chunked sweep on
+    phase 5's sweep (``coarse``/``ncases`` cut both for a rehearsal on
+    the CPU)."""
+    from raft_tpu_torch import _config, ledger, recovery
+    from raft_tpu_torch.model import Model
+    from raft_tpu_torch.models import recovery_cases as RC
+    from raft_tpu_torch.parallel.sweep import (design_fowt, sweep_cases,
+                                               sweep_cases_chunked)
+    from raft_tpu_torch.serve.checkpoint import CheckpointStore
+    from raft_tpu_torch.testing import faults
+
+    with open(os.path.join(ROOT, "tests", "golden", "recovery",
+                           "oc3spar.json")) as f:
+        gold = json.load(f)
+    out = {}
+    K1, K2, K3, K4 = ("impedance_gj", "gj_solve", "impedance_gj_mixed",
+                      "gj_solve_mixed")
+
+    def model_run(path, design, spec=None, resume=False, mode=None,
+                  expect=(K1, K2)):
+        faults.install(spec)
+        _config.set_precision_mode(mode)
+        try:
+            with counted(path, expect), solve_counts() as seen:
+                t0 = time.perf_counter()
+                m = Model(design, device=dev)
+                m.analyzeCases(resume=resume)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            faults.clear()
+            _config.set_precision_mode(None)
+        got = PATH_LAUNCHES[path]
+        log(f"  {path}: {len(m.results['case_metrics'])} case(s) x {m.nw} "
+            f"bins in {wall:.2f} s (statics {m.timings['statics']:.2f} s, "
+            f"dynamics {m.timings['dynamics']:.2f} s); attempts "
+            f"{_attempts(m)}; failed {[(c['case'], c['phase'], c['error']) for c in m.failed_cases]}; "
+            f"resumed {m.resumed_cases}; solves {seen}; launches {got}")
+        out[path] = dict(wall_s=wall, timings=dict(m.timings),
+                         attempts=[a.to_dict() for a in m.recovery_attempts],
+                         failed_cases=m.failed_cases,
+                         resumed_cases=m.resumed_cases, launches=got,
+                         solves={k: v for k, v in seen.items()
+                                 if k != "sweep_lanes"})
+        return m, seen, got
+
+    def drag(m, i):
+        return m._case_records[str(i)]["fowt0"]["drag_iters"]
+
+    def mapped(rec):
+        return [(a["phase"], a["case"], recovery.JAX_STEP[a["step_from"]],
+                 recovery.JAX_STEP[a["step_to"]], a["outcome"], a["error"])
+                for a in rec["attempts"]]
+
+    # (r1) OC3spar's three shipped cases: clean, case 1 quarantined, resume
+    design = RC.oc3spar_design(coarse=coarse)
+    m0, s0, l0 = model_run("recovery_clean", design)
+    recovery.CaseJournal.for_model(m0).clear()
+    m1, s1, l1 = model_run("recovery_faulted", design, "nan@dynamics:case=1")
+    log("  (r1) against the JAX package's ladder on OC3spar "
+        "(tests/golden/recovery/oc3spar.json):")
+    _expect("attempts", _attempts(m1), mapped(gold["faulted"]))
+    _expect("failed cases", [(c["case"], c["phase"], c["error"])
+                             for c in m1.failed_cases],
+            [(c["case"], c["phase"], c["error"])
+             for c in gold["faulted"]["failed_cases"]])
+    _expect("statics / dynamics solves",
+            (s1["statics"], s1["dynamics"]),
+            (gold["faulted"]["solves"]["statics"],
+             gold["faulted"]["solves"]["dynamics"]))
+    rep = ledger.diff(m0.last_ledger, m1.last_ledger, tol_rel=RECOVERY_TOL)
+    _expect("ledger diff against the clean run: added / removed / moved",
+            (rep["added"], rep["removed"], len(rep["regressions"])),
+            (["case1/failed"], ["case1/fowt0", "case1/system"], 0))
+    undamped = drag(m0, 0) + drag(m0, 2) + 2 * drag(m0, 1)
+    _expect("K1 launches = drag passes", l1.get(K1), s1["passes"])
+    _expect("undamped drag passes (cases 0, 2 and case 1's two rungs, "
+            "from the clean run's records)",
+            s1["passes"] - s1["damped_passes"], undamped)
+    log(f"    damped-restart drag passes: {s1['damped_passes']} (at most "
+        f"{2 * m1.nIter + 1})")
+    if not 0 < s1["damped_passes"] <= 2 * m1.nIter + 1:
+        fail(f"(r1) damped restart ran {s1['damped_passes']} passes")
+    _expect("K2 launches = dynamics attempts", l1.get(K2), s1["dynamics"])
+    m2, s2, l2 = model_run("recovery_resumed", design, resume=True)
+    _expect("resumed cases", m2.resumed_cases, [0, 2])
+    _expect("statics / dynamics solves on resume",
+            (s2["statics"], s2["dynamics"]), (1, 1))
+    _expect("K1 / K2 launches on resume", (l2.get(K1), l2.get(K2)),
+            (drag(m0, 1), 1))
+    rep = ledger.diff(m0.last_ledger, m2.last_ledger, tol_rel=RECOVERY_TOL)
+    _expect("resumed ledger equals the clean run's at 1e-12", rep["ok"],
+            True)
+
+    # (r2) case 0 alone, one injected kernel failure before any launch
+    design1 = RC.oc3spar_design(coarse=coarse, ncases=1)
+    m3, s3, l3 = model_run("recovery_clean1", design1)
+    m4, s4, l4 = model_run("recovery_kernel_once", design1,
+                           "raise@kernel:case=0:once")
+    log("  (r2) raise@kernel:case=0:once:")
+    _expect("attempts", _attempts(m4), [("dynamics", "0", "configured",
+                                         "re_solve", "recovered",
+                                         "KernelFailure")])
+    rep = ledger.diff(m3.last_ledger, m4.last_ledger, tol_rel=RECOVERY_TOL)
+    _expect("ledger equals a clean one-case run at 1e-12", rep["ok"], True)
+    _expect("K1 / K2 launches equal the clean run's",
+            (l4.get(K1), l4.get(K2)), (l3.get(K1), l3.get(K2)))
+    _expect("impedance_solve calls (the faulted one launched nothing)",
+            s4["passes"], s3["passes"] + 1)
+
+    # (r3) mixed: two failing rungs, the damped restart recovers
+    spec = "nan@dynamics:case=0:times=2"
+    m5, s5, l5 = model_run("recovery_mixed", design1, spec, mode="mixed",
+                           expect=(K3, K4))
+    m6, s6, l6 = model_run("recovery_f64_times2", design1, spec)
+    log("  (r3) nan@dynamics:case=0:times=2, mixed against f64:")
+    want = [("dynamics", "0", "configured", "re_solve", "failed",
+             "NonFiniteResult"),
+            ("dynamics", "0", "re_solve", "damped_restart", "recovered",
+             "NonFiniteResult")]
+    _expect("attempts (mixed)", _attempts(m5), want)
+    _expect("attempts (f64)", _attempts(m6), want)
+    _expect("mixed launches: K3 = drag passes, K4 = system solves, no K1 "
+            "or K2", (l5.get(K3), l5.get(K4), l5.get(K1, 0), l5.get(K2, 0)),
+            (s5["passes"], s5["dynamics"], 0, 0))
+    _expect("f64 launches: K1 = drag passes, K2 = system solves",
+            (l6.get(K1), l6.get(K2)), (s6["passes"], s6["dynamics"]))
+    _expect("drag passes, mixed = f64", s5["passes"], s6["passes"])
+    rep = ledger.diff(m6.last_ledger, m5.last_ledger, tol_rel=MIXED_STD_RTOL,
+                      per_metric={"*_residual*": GOLDEN_RESID_TOL})
+    _expect("mixed ledger against f64 (1e-6, residuals 0.5): blocking "
+            "regressions", len(ledger.blocking_regressions(rep)), 0)
+
+    # (r4) phase 5's sweep with its first, middle and last lanes poisoned
+    fowt = design_fowt(RC.oc3spar_design(coarse=coarse), dev)
+    Hs, Tp, beta = sweep_inputs(ncases)
+    poison = (0, ncases // 2, ncases - 1)
+    spec = ",".join(f"nan@sweep:lane={i}" for i in poison)
+    kw = dict(nIter=10, tol=0.01, device=dev)
+    with counted("recovery_sweep_clean", (K1,)):
+        clean = sweep_cases(fowt, Hs, Tp, beta, **kw)
+    if not all(bool(clean["converged"][i]) for i in poison):
+        fail(f"(r4) a poisoned lane {poison} did not converge in the clean "
+             "sweep: it would walk on to the damped restart")
+    faults.install(spec)
+    try:
+        with counted("recovery_sweep", (K1,)), solve_counts() as ss:
+            t0 = time.perf_counter()
+            sw = sweep_cases(fowt, Hs, Tp, beta, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        with counted("recovery_sweep_off", (K1,)):
+            off = sweep_cases(fowt, Hs, Tp, beta, quarantine="off", **kw)
+    finally:
+        faults.clear()
+    q = sw["quarantine"]
+    lanes = list(poison)
+    nw = fowt.nw
+    log(f"  (r4) {ncases} cases x {nw} bins, lanes {lanes} poisoned: "
+        f"{wall:.3f} s; quarantine {q}")
+    _expect("quarantine lanes / recovered / quarantined / rungs",
+            (q["lanes"], q["recovered"], q["quarantined"],
+             [(a["step_from"], a["step_to"], a["outcome"])
+              for a in q["ladder"]]),
+            (lanes, lanes, [], [("batched", "re_solve", "recovered")]))
+    rel = max(_rel(sw[k][lanes], clean[k][lanes]) for k in ("Xi", "std"))
+    log(f"    spliced lanes against the clean sweep: rel {rel:.2e}")
+    if not rel <= RECOVERY_TOL:
+        fail(f"(r4) spliced lanes differ from the clean sweep by {rel:.2e}")
+    rest = torch.ones(ncases, dtype=torch.bool, device=clean["Xi"].device)
+    rest[lanes] = False
+    _expect("other lanes bitwise equal (Xi, std)",
+            (bool(torch.equal(sw["Xi"][rest], clean["Xi"][rest])),
+             bool(torch.equal(sw["std"][rest], clean["std"][rest]))),
+            (True, True))
+    _expect("iters / converged equal the clean sweep's",
+            (bool(torch.equal(sw["iters"], clean["iters"])),
+             bool(torch.equal(sw["converged"], clean["converged"]))),
+            (True, True))
+    batch = [n for n in ss["sweep_lanes"] if n == ncases * nw]
+    resolve = [n for n in ss["sweep_lanes"] if n != ncases * nw]
+    _expect("K1 launches: batch + re-solve", PATH_LAUNCHES[
+        "recovery_sweep"].get(K1), len(ss["sweep_lanes"]))
+    _expect("batch launches equal the clean sweep's", len(batch),
+            PATH_LAUNCHES["recovery_sweep_clean"].get(K1))
+    _expect("re-solve launch lanes", sorted(set(resolve)),
+            [len(lanes) * nw])
+    _expect("quarantine off: poisoned lanes NaN, the rest finite, no record",
+            (bool(torch.all(torch.isnan(off["std"][lanes]))),
+             bool(torch.all(torch.isfinite(off["std"][rest]))),
+             off["quarantine"]), (True, True, None))
+    out["recovery_sweep"] = dict(wall_s=wall, quarantine=q, spliced_rel=rel,
+                                 resolve_launches=len(resolve),
+                                 resolve_lanes=len(lanes) * nw,
+                                 launches=PATH_LAUNCHES["recovery_sweep"])
+
+    # (r5) the same table in 4 checkpointed chunks
+    store = CheckpointStore(os.path.join(OUT, "recovery_checkpoints"))
+    key = "oc3spar-sweep"
+    store.delete(key)
+    chunk = -(-ncases // RECOVERY_CHUNKS)
+    ref = {k: clean[k].cpu().numpy() for k in ("Xi", "std", "iters",
+                                                "converged")}
+    chunks = list(range(RECOVERY_CHUNKS))
+    log(f"  (r5) sweep_cases_chunked, {RECOVERY_CHUNKS} chunks of {chunk}:")
+
+    def chunked(label, table, want):
+        with counted(f"recovery_chunked_{label}", ()):
+            t0 = time.perf_counter()
+            res, info = sweep_cases_chunked(fowt, *table, store=store,
+                                            key=key, chunk=chunk, **kw)
+            wall = time.perf_counter() - t0
+        _expect(f"{label}: resumed / solved ({wall:.2f} s, launches "
+                f"{PATH_LAUNCHES[f'recovery_chunked_{label}']})",
+                (info["resumed"], info["solved"]), want)
+        out[f"recovery_chunked_{label}"] = dict(
+            wall_s=wall, info=info,
+            launches=PATH_LAUNCHES[f"recovery_chunked_{label}"])
+        return res
+
+    first = chunked("first", (Hs, Tp, beta), ([], chunks))
+    _expect("first call bitwise equal to one sweep_cases over the table",
+            {k: bool(np.array_equal(first[k], ref[k])) for k in ref},
+            {k: True for k in ref})
+    again = chunked("second", (Hs, Tp, beta), (chunks, []))
+    _expect("second call: nothing launched, output unchanged",
+            (PATH_LAUNCHES["recovery_chunked_second"].get(K1, 0),
+             all(np.array_equal(again[k], first[k]) for k in ref)),
+            (0, True))
+    store.delete(key, 2)
+    store.delete(key, 3)
+    killed = chunked("killed", (Hs, Tp, beta), ([0, 1], [2, 3]))
+    _expect("after the kill, output unchanged",
+            all(np.array_equal(killed[k], first[k]) for k in ref), True)
+    Hs2 = Hs.copy()
+    Hs2[3 * chunk + min(17, chunk - 1)] += 0.25
+    chunked("edited", (Hs2, Tp, beta), ([0, 1, 2], [3]))
+    corrupt0 = store.stats()["corrupt"]
+    faults.install("corrupt@checkpoint:step=1")
+    try:
+        chunked("corrupt", (Hs2, Tp, beta), ([0, 2, 3], [1]))
+    finally:
+        faults.clear()
+    _expect("corrupt checkpoints deleted", store.stats()["corrupt"]
+            - corrupt0, 1)
+    out["checkpoint_store"] = store.stats()
+    return out
+
+
 # kernel line: (JSON name, launch key, TPU kernel it replaces, CUDA source,
 # the main-path shape its times are taken at)
 KERNELS = (
@@ -2389,6 +2760,8 @@ def main() -> int:
     if "--out" in sys.argv[1:]:
         OUT = os.path.abspath(sys.argv[sys.argv.index("--out") + 1])
     dev = torch.device("cuda")
+    # every Model run's case journal goes under --out, never ~/.cache
+    os.environ["RAFT_TPU_JOURNAL_DIR"] = os.path.join(OUT, "journal")
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
@@ -2447,20 +2820,30 @@ def main() -> int:
         return 1 if FAILURES else 0
 
     phases = {}
-    for name, fn in (("main", lambda: run_main(dev)),
-                     ("sweep", lambda: run_sweeps(dev)),
-                     ("variants", lambda: run_variants(dev)),
-                     ("golden", lambda: run_goldens(dev, "f64")),
-                     ("golden_mixed", lambda: run_goldens(dev, "mixed")),
-                     ("qtf", lambda: run_qtf(dev)),
-                     ("potflow", lambda: run_potflow(dev)),
-                     ("mhk", lambda: run_mhk(dev)),
-                     ("farm", lambda: run_farm(dev)),
-                     ("mcf", lambda: run_mcf(dev))):
-        log(f"{name}: on the card")
-        t0 = time.perf_counter()
-        phases[name] = fn()
-        log(f"{name}: {time.perf_counter() - t0:.1f} s")
+    with clean_path_checks() as clean_runs:
+        for name, fn in (("main", lambda: run_main(dev)),
+                         ("sweep", lambda: run_sweeps(dev)),
+                         ("variants", lambda: run_variants(dev)),
+                         ("golden", lambda: run_goldens(dev, "f64")),
+                         ("golden_mixed", lambda: run_goldens(dev, "mixed")),
+                         ("qtf", lambda: run_qtf(dev)),
+                         ("potflow", lambda: run_potflow(dev)),
+                         ("mhk", lambda: run_mhk(dev)),
+                         ("farm", lambda: run_farm(dev)),
+                         ("mcf", lambda: run_mcf(dev))):
+            log(f"{name}: on the card")
+            t0 = time.perf_counter()
+            phases[name] = fn()
+            log(f"{name}: {time.perf_counter() - t0:.1f} s")
+    log(f"clean paths: {clean_runs['models']} Model runs and "
+        f"{clean_runs['sweeps']} sweeps of phases 4-12 checked for no "
+        "recovery attempt and nothing quarantined")
+    phases["clean_path_runs"] = clean_runs
+    log("recovery: on the card")
+    t0 = time.perf_counter()
+    phases["recovery"] = run_recovery(dev)
+    phases["recovery"]["wall_s"] = time.perf_counter() - t0
+    log(f"recovery: {phases['recovery']['wall_s']:.1f} s")
 
     def summary(label, key, replaces, source, lanes):
         # ms is the wall time of one wrapper call on the stream (CUDA
@@ -2488,6 +2871,10 @@ def main() -> int:
                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
                 "library_ms": main["library_ms"], "lanes": lanes,
                 "device_ms": main["device_ms"], "launches_by_path": by_path,
+                # phase 13: the launches of the ladder's runs (faulted,
+                # resumed, recovered, re-solved lanes, chunks), by path
+                "recovery_launches": {p: n for p, n in by_path.items()
+                                      if p.startswith("recovery_")},
                 "launch_floor_ms": floor}
 
     kernels = [summary(*k) for k in KERNELS]

@@ -115,3 +115,35 @@ def precision_tol() -> float:
         return float(raw) if raw.strip() else _PRECISION_TOL_DEFAULT
     except ValueError:
         return _PRECISION_TOL_DEFAULT
+
+
+# ---------------------------------------------------------------------------
+# automatic recovery (recovery.py ladder + model.py case quarantine)
+# ---------------------------------------------------------------------------
+#
+# RAFT_TPU_RECOVERY, as in the JAX package: "1" (default) — a recoverable
+# solver failure walks the degradation ladder and a case the ladder cannot
+# save is quarantined while the others run; "0" — the first failure
+# propagates out of analyzeCases / sweep_cases unchanged.
+
+_RECOVERY_MODES = ("0", "1")
+_recovery_override: str | None = None
+
+
+def recovery_mode() -> str:
+    """Active recovery mode ("0" | "1"); a programmatic override beats the
+    ``RAFT_TPU_RECOVERY`` environment variable."""
+    if _recovery_override is not None:
+        return _recovery_override
+    mode = os.environ.get("RAFT_TPU_RECOVERY", "1").strip().lower()
+    if mode in ("off", "false"):
+        mode = "0"
+    return mode if mode in _RECOVERY_MODES else "1"
+
+
+def set_recovery_mode(mode: str | None):
+    """Override the recovery mode in-process (None clears)."""
+    global _recovery_override
+    if mode is not None and str(mode) not in _RECOVERY_MODES:
+        raise ValueError(f"recovery mode {mode!r} not in {_RECOVERY_MODES}")
+    _recovery_override = None if mode is None else str(mode)

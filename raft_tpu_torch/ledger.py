@@ -143,8 +143,10 @@ def ledger_from_model(model, run_id: str = None) -> dict:
     One entry per (case, fowt) with response means/stds and RAO
     magnitude/phase summaries per DOF, one system entry per case (mean
     offsets, statics Newton iterations, dynamics condition number and
-    solve residuals, drag fixed-point counts), plus an ``eigen`` entry
-    when ``solveEigen`` has run.
+    solve residuals, drag fixed-point counts), a ``case{N}/failed`` entry
+    in place of those for a quarantined case, plus an ``eigen`` entry
+    when ``solveEigen`` has run; ``extra["failed_cases"]`` holds the
+    quarantined cases' records.
     """
     config = {"nCases": len(model.results.get("case_metrics", {})),
               "nFOWT": model.nFOWT, "nw": model.nw, "nDOF": model.nDOF}
@@ -195,6 +197,10 @@ def ledger_from_model(model, run_id: str = None) -> dict:
     if "eigen" in model.results:
         add_entry(led, "eigen",
                   {"fn_hz": model.results["eigen"]["frequencies"]})
+    # the quarantined cases' full records, as the JAX package's ledger
+    # carries them
+    led["extra"] = {"failed_cases": list(getattr(model, "failed_cases",
+                                                 None) or [])}
     return finalize(led)
 
 

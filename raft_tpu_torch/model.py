@@ -45,21 +45,33 @@ check (``results["cavitation"]``); a mooring with free points or
 multi-segment lines solves its free points once per statics pose.
 MacCamy-Fuchs members take a frequency-dependent inertia coefficient and,
 under ``potSecOrder: 1``, the Kim & Yue correction of the QTF.
+
+Fault tolerance (``recovery.py``, as the JAX package's ``analyzeCases``
+with ``RAFT_TPU_RECOVERY`` on, its default): a case whose statics or
+dynamics fail recoverably walks the degradation ladder; a case the
+ladder cannot save is quarantined (`failed_cases`, a ``case{N}/failed``
+ledger entry) while the other cases run; each completed case is
+journaled and ``analyzeCases(resume=True)`` re-runs only the cases
+missing from the journal.  A kernel that fails to build, load or launch
+is fatal: it propagates, no rung is tried and nothing is quarantined.
+The ``statics`` and ``dynamics`` fault seams (``testing/faults.py``) sit
+after the Newton and after each drag fixed point.
+
 Not part of the port yet: ballast trim, the FLORIS coupling, and the JAX
-package's observability, probes, journal/resume, quarantine and recovery
-ladder — failures raise typed errors, as the JAX package does with
-``RAFT_TPU_RECOVERY=0``.
+package's observability and probes.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
+import logging
 import os
 import time
 
 import numpy as np
 import torch
 
-from raft_tpu_torch import errors, ledger as _ledger
+from raft_tpu_torch import errors, ledger as _ledger, recovery
 from raft_tpu_torch._config import COMPLEX, REAL, as_real, resolve_device
 from raft_tpu_torch.io.bem_native import solve_bem_fowt
 from raft_tpu_torch.io.wamit import bem_coeffs
@@ -77,7 +89,10 @@ from raft_tpu_torch.models.rotor import calc_aero, calc_cavitation
 from raft_tpu_torch.ops.linalg import impedance_solve, inv_complex, last_dispatch
 from raft_tpu_torch.ops.spectra import get_psd, get_rao, get_rms
 from raft_tpu_torch.ops.transforms import transform_force, translate_matrix_6to6
+from raft_tpu_torch.testing import faults
 from raft_tpu_torch.utils.dicttools import get_from_dict
+
+_LOG = logging.getLogger("raft_tpu_torch.model")
 
 RAD2DEG = 180.0 / np.pi
 
@@ -386,7 +401,10 @@ class Model:
         F0s = [st["F_undisplaced"] + st["F_env_constant"]
                for st in self._state]
         K_hss = [st["K_hydrostatic"] for st in self._state]
-        db = self._t(np.tile([30, 30, 5, 0.1, 0.1, 0.1], N))
+        # the ladder's damped rung shrinks the Newton step clip
+        # (recovery.override("clip_scale")); 1.0 outside it
+        db = self._t(np.tile([30, 30, 5, 0.1, 0.1, 0.1], N)
+                     * float(recovery.current("clip_scale", 1.0)))
         tol = self._t(np.tile(np.array([0.05, 0.05, 0.05, 5e-3, 5e-3, 5e-3])
                               * 1e-3, N))
         Ucur = [self._t(st["moor_current"] if st.get("moor_current")
@@ -430,6 +448,9 @@ class Model:
                 break
         residual = _f(torch.sqrt(torch.sum(F ** 2)))
         Xh = _np(X)
+        # fault seam: nan@statics poisons the pose, raise@statics raises
+        if faults.maybe_raise("statics", case=self._iCase) == "nan":
+            Xh = np.full_like(Xh, np.nan)
         if not np.all(np.isfinite(Xh)) or not np.isfinite(residual):
             raise errors.StaticsDivergence(
                 "statics Newton produced a non-finite pose",
@@ -636,8 +657,11 @@ class Model:
         fowt = self.fowtList[ifowt]
         state = self._state[ifowt]
         dev = self.device
-        nIter = self.nIter + 1
-        keep, relax = 0.2, 0.8
+        # the ladder's damped restart doubles the iteration budget and
+        # strengthens the under-relaxation (recovery.override)
+        nIter = self.nIter * int(recovery.current("fp_iter_mult", 1)) + 1
+        keep, relax = recovery.relax_weights(
+            recovery.current("fp_relax", 0.8))
         w = self._t(self.w)
         nw = self.nw
 
@@ -741,6 +765,11 @@ class Model:
         rec = self._case_records.setdefault(self._case_label(), {})
         rec[f"fowt{ifowt}"] = {"drag_iters": ii, "drag_residual": residual,
                                "drag_converged": converged}
+        # fault seam: nan@dynamics poisons the converged impedance, so the
+        # non-finite screen of solveDynamics sees a corrupt solve
+        if faults.maybe_raise("dynamics", case=self._iCase,
+                              fowt=ifowt) == "nan":
+            Z = Z * float("nan")
         state["Z"] = Z
         state["Bmat"] = Bmat
         state["Fhydro_2nd"] = F2
@@ -810,55 +839,220 @@ class Model:
         self.C_moor0 = _np(self._state[0]["C_moor"]).copy()
         self.F_moor0 = _np(self._state[0]["F_moor0"]).copy()
 
-    def analyzeCases(self, display=0):
+    def analyzeCases(self, display=0, resume=False):
         """Statics + dynamics + output statistics per load case; the
         result ledger lands on ``self.last_ledger`` and the wall seconds
-        per phase on ``self.timings``."""
+        per phase (every ladder rung included) on ``self.timings``.
+
+        Fault tolerance: a recoverable failure of a case's statics or
+        dynamics walks the degradation ladder (``recovery.py``), every
+        transition recorded in ``self.recovery_attempts``; a case the
+        ladder cannot save is quarantined — a structured record in
+        ``self.failed_cases``, a ``case{N}/failed`` ledger entry and
+        ``last_ledger["extra"]["failed_cases"]`` — while the other cases
+        run, and when no case survives the last failure is raised.  Each
+        completed case is journaled; ``resume=True`` restores the cases
+        this model's journal holds (``self.resumed_cases``) and re-runs
+        the others.  A kernel that fails to build, load or launch raises
+        at once; ``RAFT_TPU_RECOVERY=0`` turns ladder and quarantine
+        off."""
         nCases = len(self.design["cases"]["data"])
         self._case_records = {}
         self.timings = {"statics": 0.0, "dynamics": 0.0, "outputs": 0.0}
         self.results["properties"] = self.results.get("properties", {})
         self.results["case_metrics"] = {}
         self.results["mean_offsets"] = []
+        #: structured records of this run's quarantined cases
+        self.failed_cases = []
+        #: the ladder transitions of this run (recovery.RecoveryAttempt)
+        self.recovery_attempts = []
+        #: the cases this run restored from the journal
+        self.resumed_cases = []
         try:
-            for iCase in range(nCases):
-                case = dict(zip(self.design["cases"]["keys"],
-                                self.design["cases"]["data"][iCase]))
-                case["iCase"] = iCase
-                self._iCase = iCase
-                self.results["case_metrics"][iCase] = {}
-                t0 = time.perf_counter()
-                self.solveStatics(case, display=display)
-                self._sync()
-                t1 = time.perf_counter()
-                self.solveDynamics(case, display=display)
-                self._sync()
-                t2 = time.perf_counter()
-                self.timings["statics"] += t1 - t0
-                self.timings["dynamics"] += t2 - t1
-                if any(f.potSecOrder > 0 for f in self.fowtList):
-                    # re-solve the operating point with the mean wave drift
-                    # included, then clear it so it cannot leak into the
-                    # next case (reference: raft_model.py:296-303)
-                    self.results["mean_offsets"].pop()   # superseded
-                    self.solveStatics(case, display=display)
-                    for st in self._state:
-                        st.pop("F_meandrift", None)
-                    t2 = self._lap("drift_statics", t2)
-                for i in range(self.nFOWT):
-                    self.results["case_metrics"][iCase][i] = {}
-                    self.saveTurbineOutputs(
-                        self.results["case_metrics"][iCase][i], i, case)
-                if self.arr_ms is not None:
-                    self.results["case_metrics"][iCase]["array_mooring"] = \
-                        self._array_tension_stats(iCase)
-                self._sync()
-                t3 = time.perf_counter()
-                self.timings["outputs"] += t3 - t2
+            self._analyze_cases_impl(nCases, display, resume)
         finally:
             self._iCase = None
         self.last_ledger = _ledger.ledger_from_model(self)
         return self.results
+
+    # ---- cross-case carry state (retry and resume bookkeeping) ----------
+
+    def _snapshot_carry(self) -> dict:
+        """Host copy of the state one case hands the next: the
+        stale-heading hub-transfer quirk, a pending mean-drift forcing and
+        an array's free points.  Restored before each statics attempt (a
+        retry sees the heading the first attempt did) and journaled after
+        each case (a resumed run reproduces a continuous one)."""
+        return {
+            "stored_heading": [
+                None if st.get("_stored_heading") is None
+                else list(st["_stored_heading"]) for st in self._state],
+            "F_meandrift": [
+                None if "F_meandrift" not in st
+                else _np(st["F_meandrift"]).copy() for st in self._state],
+            "arr_xf": (None if self._arr_xf is None
+                       else _np(self._arr_xf).copy()),
+        }
+
+    def _restore_carry(self, carry: dict):
+        """Put a `_snapshot_carry` back, its tensors on ``self.device``."""
+        for st, heads, fmd in zip(self._state, carry["stored_heading"],
+                                  carry["F_meandrift"]):
+            if heads is None:
+                st.pop("_stored_heading", None)
+            else:
+                st["_stored_heading"] = list(heads)
+            if fmd is None:
+                st.pop("F_meandrift", None)
+            else:
+                st["F_meandrift"] = self._t(fmd)
+        self._arr_xf = (None if carry["arr_xf"] is None
+                        else self._t(carry["arr_xf"]))
+
+    def _case_journal(self):
+        """This model's case journal, or None when journaling is off
+        (``RAFT_TPU_JOURNAL=0``) or its directory is unusable."""
+        if not recovery.journal_enabled():
+            return None
+        try:
+            return recovery.CaseJournal.for_model(self)
+        # journaling is optional resilience: an unusable journal directory
+        # must never take analyzeCases down
+        except Exception as e:
+            _LOG.warning("case journal unavailable: %s", e)
+            return None
+
+    @contextlib.contextmanager
+    def _timed(self, key):
+        """Add the wall of the block (after a device sync) to
+        ``timings[key]``, also when it raises."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self._lap(key, t0)
+
+    def _analyze_cases_impl(self, nCases, display, resume):
+        journal = self._case_journal()
+        quarantine = recovery.enabled()
+        last_err = None
+        for iCase in range(nCases):
+            case = dict(zip(self.design["cases"]["keys"],
+                            self.design["cases"]["data"][iCase]))
+            case["iCase"] = iCase
+            self._iCase = iCase
+            if resume and journal is not None:
+                entry = journal.load_case(iCase)
+                if entry is not None:
+                    self._resume_case(iCase, entry)
+                    continue
+            self.results["case_metrics"][iCase] = {}
+            carry0 = self._snapshot_carry()
+            ok = False
+            try:
+                with faults.context(case=iCase):
+                    self._run_one_case(iCase, case, display, carry0)
+                ok = True
+            except errors.RECOVERABLE as e:
+                if not quarantine or not errors.recoverable(e):
+                    raise
+                last_err = e
+                self._quarantine_case(iCase, e)
+            finally:
+                # keep the mean-offset list aligned with the case index (a
+                # failed case may have appended 0 or 1 entries)
+                offs = self.results["mean_offsets"]
+                del offs[iCase + 1:]
+                while len(offs) < iCase + 1:
+                    offs.append(np.full(self.nDOF, np.nan))
+            if ok and journal is not None:
+                # host values only: the outputs are numpy, the carry is
+                # pulled to the host
+                journal.store_case(iCase, {
+                    "case_metrics": self.results["case_metrics"][iCase],
+                    "mean_offset": np.array(
+                        self.results["mean_offsets"][iCase], float),
+                    "case_record": self._case_records.get(str(iCase), {}),
+                    "carry": self._snapshot_carry()})
+        if self.failed_cases and len(self.failed_cases) == nCases:
+            # nothing survived: raise instead of an all-quarantined result
+            raise last_err
+        return self.results
+
+    def _run_one_case(self, iCase, case, display, carry0):
+        """One load case: statics and dynamics through the degradation
+        ladder, the mean-drift statics re-solve under second-order loads,
+        the output statistics and an array's tension statistics."""
+
+        def statics_fn():
+            # every attempt starts from the carry the first one saw (the
+            # stale heading advances inside _case_constants)
+            self._restore_carry(carry0)
+            return self.solveStatics(case, display=display)
+
+        def ladder(phase, fn, steps):
+            return recovery.run_ladder(phase, str(iCase), fn, steps,
+                                       recorder=self.recovery_attempts.append)
+
+        with self._timed("statics"):
+            ladder("statics", statics_fn, recovery.statics_ladder())
+        with self._timed("dynamics"):
+            ladder("dynamics",
+                   lambda: self.solveDynamics(case, display=display),
+                   recovery.dynamics_ladder())
+        if any(f.potSecOrder > 0 for f in self.fowtList):
+            # re-solve the operating point with the mean wave drift
+            # included, then clear it so it cannot leak into the next case
+            # (reference: raft_model.py:296-303)
+            self.results["mean_offsets"].pop()   # superseded
+            with self._timed("drift_statics"):
+                ladder("statics",
+                       lambda: self.solveStatics(case, display=display),
+                       recovery.statics_ladder())
+            for st in self._state:
+                st.pop("F_meandrift", None)
+        with self._timed("outputs"):
+            for i in range(self.nFOWT):
+                self.results["case_metrics"][iCase][i] = {}
+                self.saveTurbineOutputs(
+                    self.results["case_metrics"][iCase][i], i, case)
+            if self.arr_ms is not None:
+                self.results["case_metrics"][iCase]["array_mooring"] = \
+                    self._array_tension_stats(iCase)
+
+    def _quarantine_case(self, iCase, err: errors.RaftError):
+        """Record a case the ladder could not save and keep the run going:
+        a structured failure record replaces its metrics."""
+        rec = {"case": int(iCase), **err.context()}
+        self.failed_cases.append(rec)
+        self.results["case_metrics"][iCase] = {"failed": rec}
+        self._case_records.pop(str(iCase), None)
+        # a failed case's mean offset is always the NaN marker, also when
+        # its statics passed and its dynamics failed
+        offs = self.results["mean_offsets"]
+        if len(offs) > iCase:
+            offs[iCase] = np.full(self.nDOF, np.nan)
+        # a completed case never hands F_meandrift on (the clean flow pops
+        # it after the drift re-solve); a quarantined one must not either.
+        # The advanced _stored_heading stays, as in the clean flow.
+        for state in self._state:
+            state.pop("F_meandrift", None)
+        _LOG.error("case %d quarantined: %s", iCase, err)
+
+    def _resume_case(self, iCase, entry):
+        """Restore one journaled case: its metrics, ledger record and the
+        carry it handed on; its solves do not run."""
+        self.results["case_metrics"][iCase] = entry["case_metrics"]
+        offs = self.results["mean_offsets"]
+        del offs[iCase:]
+        while len(offs) < iCase:
+            offs.append(np.full(self.nDOF, np.nan))
+        offs.append(np.array(entry["mean_offset"], float))
+        if entry.get("case_record"):
+            self._case_records[str(iCase)] = entry["case_record"]
+        self._restore_carry(entry["carry"])
+        self.resumed_cases.append(int(iCase))
+        _LOG.info("case %d restored from the journal", iCase)
 
     # ------------------------------------------------------------------
     # outputs

@@ -786,13 +786,21 @@ def fowt_hydro_linearization_pre(fowt: FOWTModel, pose, pre, Xi):
     submerged = r[..., 2] < 0.0
 
     iwXi = (1j * w) * Xi                                     # (...,6,nw)
-    # motion spectrum quadratic form: M[j,k] = sum_w w^2 Re(Xi_j Xi_k*)
-    M_re = torch.real(torch.einsum("...jw,...kw->...jk", iwXi, torch.conj(iwXi)))
+    # motion spectrum quadratic form: M[j,k] = sum_w w^2 Re(Xi_j Xi_k*).
+    # It and the quadratic forms in it are element-wise products and sums:
+    # as batched GEMMs (einsum) the card rounds them differently at
+    # different batch sizes, and a lane of a sweep must not depend on the
+    # lanes solved beside it (sweep_cases_chunked's chunks are bitwise
+    # those of the whole table)
+    re, im = iwXi.real, iwXi.imag
+    M_re = torch.sum(re[..., :, None, :] * re[..., None, :, :]
+                     + im[..., :, None, :] * im[..., None, :, :], dim=-1)
 
     def rms_scalar(s, g, A):
         b = torch.real(torch.einsum("...jw,...nw->...nj", iwXi, torch.conj(s)))
         cross = torch.sum(g * b, dim=-1)
-        quad = torch.einsum("...nj,...jk,...nk->...n", g, M_re, g)
+        quad = torch.sum(g[..., :, :, None] * M_re[..., None, :, :]
+                         * g[..., :, None, :], dim=(-2, -1))
         return torch.sqrt(torch.clamp(0.5 * (A - 2.0 * cross + quad), min=0.0))
 
     vRMS_q = rms_scalar(pre["s_q"], pre["g_q"], pre["A_q"])
@@ -803,7 +811,8 @@ def fowt_hydro_linearization_pre(fowt: FOWTModel, pose, pre, Xi):
     D = torch.real(torch.einsum("...jw,...ncw->...ncj", iwXi,
                                 torch.conj(pre["u_P"])))
     cross_P = torch.sum(K * D, dim=(-2, -1))
-    quad_P = torch.einsum("...ncj,...jk,...nck->...n", K, M_re, K)
+    quad_P = torch.sum(K[..., :, :, :, None] * M_re[..., None, None, :, :]
+                       * K[..., :, :, None, :], dim=(-3, -2, -1))
     vRMS_p = torch.sqrt(torch.clamp(
         0.5 * (pre["A_P"] - 2.0 * cross_P + quad_P), min=0.0))
 

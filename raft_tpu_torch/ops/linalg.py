@@ -55,6 +55,7 @@ from raft_tpu_torch._config import COMPLEX, as_real
 from raft_tpu_torch.ops import precision as _prec
 from raft_tpu_torch.ops.kernels.gj_solve import (
     gj_solve, gj_solve_plain, impedance_gj_solve)
+from raft_tpu_torch.testing import faults
 
 #: largest real-embedded system size the Gauss-Jordan kernels take
 _GJ_MAX_N = 16
@@ -281,7 +282,12 @@ def impedance_solve(w, M, B, C, F):
 
     2n <= 16 goes to the fused impedance kernel (K1; K3 under the mixed
     ladder), which assembles the embedding itself; larger systems
-    assemble Z and solve by LU (the ladder around LU under mixed)."""
+    assemble Z and solve by LU (the ladder around LU under mixed).
+
+    The ``kernel`` fault seam sits before any launch: ``raise@kernel``
+    raises an injected ``KernelFailure`` and the call launches
+    nothing."""
+    faults.maybe_raise("kernel")
     n = M.shape[-3]
     nw = M.shape[-1]
     batch_elems = math.prod(torch.broadcast_shapes(

@@ -20,17 +20,29 @@ waked wind speed, and the rotor's linearized aero damping at that speed
 enters the lane's impedance (``B_add``): one K1 launch of N*M*nw lanes
 per drag pass.
 
+Fault tolerance (the JAX package's, ``raft_tpu/parallel/sweep.py``):
+``sweep_cases`` finds its non-finite lanes (``quarantine="nonfinite"``,
+the default; ``"all"`` adds the lanes that did not converge, ``"off"``
+none) in one host pull and re-solves only those lanes down
+`_LANE_LADDER` — the configured kernel (K1, or K3 under ``mixed``) on
+the offending lanes alone — splicing every finite result back;
+``sweep_cases_chunked`` persists each chunk of a large case table in a
+``serve.checkpoint.CheckpointStore`` so a killed sweep re-solves only its
+unfinished chunks.  The ``sweep`` fault seam (``testing/faults.py``)
+sits after the batched solve.
+
 Not ported here (ROADMAP): the device mesh / partition rules and the
-executable cache (A9); the run manifest, quarantine ladder, fault seams
-and health telemetry (A8); the farm runner of the service
-(``make_farm_runner``, ``normalize_farm_request``, A10).
+executable cache (A9); the run manifest and the health telemetry (A8);
+lane quarantine of the farm sweep (the JAX package has none either); the
+farm runner of the service (``make_farm_runner``,
+``normalize_farm_request``, A10).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from raft_tpu_torch import errors
+from raft_tpu_torch import _config, errors, recovery
 from raft_tpu_torch._config import COMPLEX, REAL, as_real, resolve_device
 from raft_tpu_torch.io.wamit import bem_coeffs
 from raft_tpu_torch.models import mooring as mr
@@ -41,16 +53,9 @@ from raft_tpu_torch.models.fowt import (
 )
 from raft_tpu_torch.ops.linalg import impedance_solve
 from raft_tpu_torch.ops.spectra import get_rms, jonswap
+from raft_tpu_torch.recovery import relax_weights
+from raft_tpu_torch.testing import faults
 from raft_tpu_torch.utils.dicttools import get_from_dict
-
-
-def relax_weights(relax) -> tuple[float, float]:
-    """(keep, relax) weights of the drag fixed point's under-relaxation
-    ``keep*XiLast + relax*Xin``.  The default 0.8 keeps the literal 0.2
-    complement (``1.0 - 0.8`` is ``0.19999...96`` in float64); a copy of
-    ``raft_tpu/recovery.py:relax_weights``."""
-    relax = float(relax)
-    return (0.2 if relax == 0.8 else 1.0 - relax), relax
 
 
 def unrolled_fixed_point(step, Xi0, nIter, tol, chunk: int = 2,
@@ -317,9 +322,142 @@ def on_device(fowt_or_design, device) -> FOWTModel:
     return state_from_numpy(fowt_or_design, device)
 
 
+def _lane_finite(Xi):
+    """(ncases,) bool tensor: the lane's response is finite everywhere."""
+    return torch.all(torch.isfinite(Xi.real) & torch.isfinite(Xi.imag),
+                     dim=-1).all(dim=-1)
+
+
+def _health_summary(phase, residual, cond, lane_ok, iters) -> dict:
+    """JSON-safe summary facts of one batch's pulled per-lane health
+    arrays (``raft_tpu/parallel/sweep.py:_health_summary`` without its
+    gauges and events, which wait for the port's metrics): non-finite
+    lanes are counted and left out of the residual and conditioning
+    aggregates, so every fact stays finite.  ``phase`` names the batch
+    for the caller's record."""
+    residual = np.asarray(residual, float)
+    cond = np.asarray(cond, float)
+    lane_ok = np.asarray(lane_ok, bool)
+    iters = np.asarray(iters)
+    nonfinite = int(np.count_nonzero(~lane_ok))
+    res_fin = residual[np.isfinite(residual)]
+    cond_fin = cond[np.isfinite(cond)]
+    if nonfinite:
+        worst = int(np.flatnonzero(~lane_ok)[0])
+    elif residual.size:
+        worst = int(np.argmax(np.where(np.isfinite(residual),
+                                       residual, np.inf)))
+    else:
+        worst = -1
+    return {"residual_rel_max": float(res_fin.max()) if res_fin.size else 0.0,
+            "residual_rel_median": (float(np.median(res_fin))
+                                    if res_fin.size else 0.0),
+            "cond_max": float(cond_fin.max()) if cond_fin.size else 0.0,
+            "nonfinite_lanes": nonfinite,
+            "iters_max": int(iters.max(initial=0)),
+            "lanes": int(residual.size), "worst_lane": worst}
+
+
+#: the lane ladder: the same solve again on the offending lanes alone
+#: (clears a transient poisoning at exact parity), then a damped restart
+#: (under-relaxation 0.5, twice the iterations, one pass a chunk); both
+#: on the configured kernel
+_LANE_LADDER = (
+    ("re_solve", {}),
+    ("damped_restart", {"nIter_mult": 2, "fp_chunk": 1, "relax": 0.5}),
+)
+_QUARANTINE_MODES = ("nonfinite", "all", "off")
+
+
+def _quarantine_lanes(fowt, Hs, Tp, beta, out, bad, kw, conv, Xi0=None):
+    """Re-solve only the lanes ``bad`` of a sweep batch down
+    `_LANE_LADDER`, splicing every finite result back into ``out``; a
+    lane still non-finite or unconverged after a rung goes on to the
+    next, and a lane no rung makes finite stays NaN and is reported as
+    quarantined.  ``conv`` is the batch's pulled convergence flags.
+    Returns ``(out, info)``; ``out["converged"]`` and ``out["iters"]``
+    come back agreeing with the spliced lanes."""
+    dev = out["Xi"].device
+    info = {"lanes": [int(i) for i in bad], "ladder": [], "recovered": [],
+            "quarantined": []}
+    out = dict(out)
+    iters = out["iters"].cpu().numpy().copy()
+    conv = np.array(conv, bool)
+    remaining = np.asarray(bad, int)
+    step_from = "batched"
+    for name, mods in _LANE_LADDER:
+        if remaining.size == 0:
+            break
+        kw2 = dict(kw)
+        if "nIter_mult" in mods:
+            kw2["nIter"] = int(kw.get("nIter", 10)) * mods["nIter_mult"]
+        if "fp_chunk" in mods:
+            kw2["fp_chunk"] = mods["fp_chunk"]
+        if "relax" in mods:
+            kw2["relax"] = mods["relax"]
+        idx = torch.as_tensor(remaining, device=dev)
+        sub = make_case_solver(fowt, **kw2).batched(
+            Hs[idx], Tp[idx], beta[idx],
+            Xi0=None if Xi0 is None else Xi0[idx])
+        # one pull of the re-solved lanes' summary
+        ok, sconv, siters = torch.stack([
+            _lane_finite(sub["Xi"]).to(torch.int32),
+            sub["converged"].to(torch.int32),
+            sub["iters"].to(torch.int32)]).cpu().numpy()
+        ok, sconv = ok.astype(bool), sconv.astype(bool)
+        saved = remaining[ok]
+        if saved.size:
+            gsel = torch.as_tensor(np.flatnonzero(ok), device=dev)
+            gidx = torch.as_tensor(saved, device=dev)
+            out["Xi"] = out["Xi"].index_copy(0, gidx, sub["Xi"][gsel])
+            out["std"] = out["std"].index_copy(0, gidx, sub["std"][gsel])
+            iters[saved] = siters[ok]
+            conv[saved] = sconv[ok]
+            info["recovered"] = sorted(set(info["recovered"])
+                                       | {int(i) for i in saved})
+        attempt = recovery.RecoveryAttempt(
+            phase="sweep", case=",".join(str(int(i)) for i in remaining),
+            step_from=step_from, step_to=name,
+            outcome="recovered" if saved.size else "failed",
+            error="NonFiniteResult",
+            detail=f"{int(saved.size)}/{int(remaining.size)} lanes "
+                   "recovered")
+        recovery.record_attempt(attempt)
+        info["ladder"].append(attempt.to_dict())
+        step_from = name
+        # lanes still non-finite or not converged walk on
+        remaining = remaining[~(ok & sconv)]
+    out["converged"] = torch.as_tensor(conv, device=dev)
+    out["iters"] = torch.as_tensor(iters, dtype=torch.int32, device=dev)
+    info["quarantined"] = sorted(set(info["lanes"]) - set(info["recovered"]))
+    return out, info
+
+
+def _sweep_seam(out, ncases):
+    """The ``sweep`` fault seam: ``nan@sweep:lane=K`` poisons lane K,
+    ``raise@sweep`` fails the batch with an injected KernelFailure."""
+    inject = []
+    for i in range(ncases):
+        action = faults.fire("sweep", lane=i)
+        if action == "raise":
+            raise errors.KernelFailure("injected sweep failure",
+                                       injected=True, lane=i)
+        if action == "nan":
+            inject.append(i)
+    if not inject:
+        return out
+    ij = torch.as_tensor(inject, device=out["Xi"].device)
+    out = dict(out)
+    for k in ("Xi", "std"):
+        out[k] = out[k].index_fill(0, ij, float("nan"))
+    out["converged"] = out["converged"].index_fill(0, ij, False)
+    return out
+
+
 def sweep_cases(fowt_or_design, Hs, Tp, beta, nIter: int = 10,
                 tol: float = 0.01, XiStart: float = 0.1, fp_chunk: int = 2,
-                relax: float = 0.8, r6=None, Xi0=None, device=None):
+                relax: float = 0.8, r6=None, Xi0=None, device=None,
+                quarantine: str = "nonfinite"):
     """Solve a batch of load cases of one floating turbine.
 
     ``fowt_or_design``: a FOWTModel, a design dict, or the name of a
@@ -327,14 +465,139 @@ def sweep_cases(fowt_or_design, Hs, Tp, beta, nIter: int = 10,
     (ncases,) [m, s, rad].  Runs on the card unless ``device="cpu"``
     (``device=None`` with no card raises).  Returns ``Xi`` (nc, 6, nw)
     complex, ``std`` (nc, 6), ``converged`` (nc,) bool, ``iters`` (nc,)
-    int32 — tensors on the device — and ``fp_chunks``, the number of
-    fixed-point chunks that ran."""
+    int32 — tensors on the device — ``fp_chunks``, the number of
+    fixed-point chunks that ran, and ``quarantine``: None on a clean
+    batch, else the lane-quarantine record (``lanes``, ``ladder``,
+    ``recovered``, ``quarantined``).
+
+    ``quarantine`` picks the lanes re-solved down `_LANE_LADDER`: the
+    non-finite ones (default), also the unconverged ones (``"all"``), or
+    none (``"off"``, the lanes stay as solved).  With
+    ``RAFT_TPU_RECOVERY=0`` nothing is re-solved and every offending lane
+    is reported quarantined."""
+    if quarantine not in _QUARANTINE_MODES:
+        raise errors.ModelConfigError(
+            f"quarantine {quarantine!r} not in {_QUARANTINE_MODES}")
     dev = resolve_device(device)
     fowt = on_device(fowt_or_design, dev)
-    solver = make_case_solver(fowt, nIter=nIter, tol=tol, XiStart=XiStart,
-                              r6=r6, fp_chunk=fp_chunk, relax=relax)
-    return solver.batched(as_real(Hs, dev), as_real(Tp, dev),
-                          as_real(beta, dev), Xi0=Xi0)
+    kw = dict(nIter=nIter, tol=tol, XiStart=XiStart, r6=r6,
+              fp_chunk=fp_chunk, relax=relax)
+    Hs, Tp, beta = (as_real(x, dev).reshape(-1) for x in (Hs, Tp, beta))
+    if Xi0 is not None:
+        Xi0 = torch.as_tensor(Xi0, device=dev).to(COMPLEX)
+    out = make_case_solver(fowt, **kw).batched(Hs, Tp, beta, Xi0=Xi0)
+    if faults.any_active():
+        out = _sweep_seam(out, int(Hs.shape[0]))
+    # one pull: the per-lane finite flags beside the convergence flags
+    lane_ok, conv = torch.stack([_lane_finite(out["Xi"]),
+                                 out["converged"]]).cpu().numpy()
+    if quarantine == "all":
+        bad = np.flatnonzero(~lane_ok | ~conv)
+    elif quarantine == "off":
+        bad = np.zeros(0, int)
+    else:
+        bad = np.flatnonzero(~lane_ok)
+    info = None
+    if bad.size and recovery.enabled():
+        out, info = _quarantine_lanes(fowt, Hs, Tp, beta, out, bad, kw,
+                                      conv, Xi0)
+    elif bad.size:
+        info = {"lanes": [int(i) for i in bad], "ladder": [],
+                "recovered": [], "quarantined": [int(i) for i in bad]}
+    out = dict(out)
+    out["quarantine"] = info
+    return out
+
+
+def _host_f64(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, float).reshape(-1)
+
+
+def sweep_cases_chunked(fowt_or_design, Hs, Tp, beta, *, store, key: str,
+                        chunk: int, **kw) -> tuple[dict, dict]:
+    """Resumable sweep of a large case table: the table splits into
+    chunks of ``chunk`` cases, each solved by `sweep_cases` (``kw`` goes
+    to it, ``Xi0`` excepted) and persisted in ``store`` (a
+    ``serve.checkpoint.CheckpointStore``) under ``(key, chunk index)``,
+    so a killed sweep re-solves only its unfinished chunks on the next
+    call with the same key.
+
+    A chunk is reused only when its stored content guard matches: a
+    digest of the chunk's own (Hs, Tp, beta) rows, the chunk index, the
+    table length, the model's content digest, the scalar ``kw``, the
+    precision mode and the device type; an edited row re-solves its
+    chunk alone.  The store's integrity checks come on top (a corrupt
+    chunk is deleted and re-solved).  A put that hits ENOSPC
+    (``StorageExhausted``) sheds persistence: the sweep keeps solving
+    and stores nothing more.
+
+    Returns ``(out, info)``: ``out`` the host numpy ``Xi``, ``std``,
+    ``iters`` and ``converged`` over the whole table; ``info`` the
+    census ``{"chunks", "resumed", "solved", "ckpt_shed"}``.  Stored
+    chunks stay (``store.delete(key)`` drops them), so a repeated call
+    is a pure read."""
+    import json
+
+    from raft_tpu_torch.ledger import digest_metrics
+    from raft_tpu_torch.parallel import exec_cache
+
+    if "Xi0" in kw:
+        raise errors.ModelConfigError(
+            "sweep_cases_chunked takes no Xi0 (a warm start per chunk "
+            "would not be covered by the chunk's content guard)")
+    dev = resolve_device(kw.pop("device", None))
+    fowt = on_device(fowt_or_design, dev)
+    Hs, Tp, beta = _host_f64(Hs), _host_f64(Tp), _host_f64(beta)
+    n = int(Hs.shape[0])
+    chunk = int(chunk)
+    if chunk < 1 or n < 1:
+        raise errors.ModelConfigError(
+            "sweep_cases_chunked needs chunk >= 1 and a non-empty table",
+            chunk=chunk, ncases=n)
+    nchunks = -(-n // chunk)
+    info = {"chunks": nchunks, "resumed": [], "solved": [],
+            "ckpt_shed": False}
+    solver_id = digest_metrics({
+        "model": exec_cache.model_digest(fowt),
+        "kw": json.dumps({k: v for k, v in kw.items()
+                          if isinstance(v, (int, float, str, bool))},
+                         sort_keys=True),
+        "precision": [_config.precision_mode(), _config.precision_width(),
+                      _config.precision_tol()],
+        "device": dev.type})
+    fields = ("Xi", "std", "iters", "converged")
+    parts = []
+    for ci in range(nchunks):
+        sl = slice(ci * chunk, min(n, (ci + 1) * chunk))
+        guard = digest_metrics({
+            "Hs": Hs[sl], "Tp": Tp[sl], "beta": beta[sl], "chunk": ci,
+            "ncases": n, "solver": solver_id})
+        found = store.get(key, ci)
+        if found is not None:
+            _, arrays, meta = found
+            if meta.get("kind") == "sweep_chunk" \
+                    and meta.get("guard") == guard \
+                    and all(k in arrays for k in fields):
+                parts.append({k: arrays[k] for k in fields})
+                info["resumed"].append(ci)
+                continue
+        out = sweep_cases(fowt, Hs[sl], Tp[sl], beta[sl], device=dev, **kw)
+        part = {k: out[k].cpu().numpy() for k in fields}
+        parts.append(part)
+        info["solved"].append(ci)
+        if not info["ckpt_shed"]:
+            try:
+                store.put(key, ci, part,
+                          meta={"kind": "sweep_chunk", "guard": guard,
+                                "chunk": ci, "ncases": n})
+            except errors.StorageExhausted:
+                # the sweep outlives a full disk: keep solving, stop
+                # persisting
+                info["ckpt_shed"] = True
+    out = {k: np.concatenate([p[k] for p in parts]) for k in fields}
+    return out, info
 
 
 # ---------------------------------------------------------------------------
