@@ -1105,7 +1105,8 @@ def run_main(dev):
             log(f"  {name}: {len(cm)} case(s) x {model.nw} bins in "
                 f"{wall:.2f} s (statics {model.timings['statics']:.2f} s, "
                 f"dynamics {model.timings['dynamics']:.2f} s, outputs "
-                f"{model.timings['outputs']:.2f} s); last dispatch {disp}")
+                f"{model.timings['outputs']:.2f} s, journal "
+                f"{model.timings['journal']:.3f} s); last dispatch {disp}")
             log(f"    surge std per case: "
                 f"{[round(float(c[0]['surge_std']), 6) for c in cm.values()]}, "
                 f"statics iters {[model._case_records[str(i)]['statics_iters'] for i in cm]}, "
@@ -2387,22 +2388,26 @@ def run_mcf(dev):
 
 RECOVERY_TOL = 1e-12
 RECOVERY_CHUNKS = 4
+#: the chunk size of (r5)'s last call (its others take 1024 / 4)
+RECOVERY_ODD_CHUNK = 100
 
 
 @contextlib.contextmanager
 def clean_path_checks():
     """Inside: every ``Model.analyzeCases`` must end with no recovery
     attempt and no quarantined case, every ``sweep_cases`` with
-    ``out["quarantine"] is None``; the yielded dict counts both."""
+    ``out["quarantine"] is None``; the yielded dict counts both and holds
+    each Model run's case-journal seconds (``timings["journal"]``)."""
     from raft_tpu_torch.model import Model
     from raft_tpu_torch.parallel import sweep as SW
 
-    seen = {"models": 0, "sweeps": 0}
+    seen = {"models": 0, "sweeps": 0, "journal_s": []}
     analyze, sweep = Model.analyzeCases, SW.sweep_cases
 
     def checked_analyze(self, *a, **k):
         out = analyze(self, *a, **k)
         seen["models"] += 1
+        seen["journal_s"].append(self.timings["journal"])
         if self.failed_cases or self.recovery_attempts:
             fail(f"a clean Model run recorded {self.recovery_attempts} / "
                  f"quarantined {self.failed_cases}")
@@ -2519,7 +2524,8 @@ def run_recovery(dev, coarse=False, ncases=SWEEP_CASES):
         got = PATH_LAUNCHES[path]
         log(f"  {path}: {len(m.results['case_metrics'])} case(s) x {m.nw} "
             f"bins in {wall:.2f} s (statics {m.timings['statics']:.2f} s, "
-            f"dynamics {m.timings['dynamics']:.2f} s); attempts "
+            f"dynamics {m.timings['dynamics']:.2f} s, journal "
+            f"{m.timings['journal']:.3f} s); attempts "
             f"{_attempts(m)}; failed {[(c['case'], c['phase'], c['error']) for c in m.failed_cases]}; "
             f"resumed {m.resumed_cases}; solves {seen}; launches {got}")
         out[path] = dict(wall_s=wall, timings=dict(m.timings),
@@ -2578,21 +2584,27 @@ def run_recovery(dev, coarse=False, ncases=SWEEP_CASES):
     _expect("resumed ledger equals the clean run's at 1e-12", rep["ok"],
             True)
 
-    # (r2) case 0 alone, one injected kernel failure before any launch
+    # (r2) case 0 alone, one injected kernel failure before any launch;
+    # held against case 0 of (r1)'s clean run, which starts from the same
+    # state
     design1 = RC.oc3spar_design(coarse=coarse, ncases=1)
-    m3, s3, l3 = model_run("recovery_clean1", design1)
     m4, s4, l4 = model_run("recovery_kernel_once", design1,
                            "raise@kernel:case=0:once")
     log("  (r2) raise@kernel:case=0:once:")
     _expect("attempts", _attempts(m4), [("dynamics", "0", "configured",
                                          "re_solve", "recovered",
                                          "KernelFailure")])
-    rep = ledger.diff(m3.last_ledger, m4.last_ledger, tol_rel=RECOVERY_TOL)
-    _expect("ledger equals a clean one-case run at 1e-12", rep["ok"], True)
-    _expect("K1 / K2 launches equal the clean run's",
-            (l4.get(K1), l4.get(K2)), (l3.get(K1), l3.get(K2)))
+    rep = ledger.diff(m0.last_ledger, m4.last_ledger, tol_rel=RECOVERY_TOL)
+    _expect("ledger against case 0 of the clean run at 1e-12: added / "
+            "removed / moved", (rep["added"], rep["removed"],
+                                len(rep["regressions"])),
+            ([], [f"case{i}/{e}" for i in (1, 2)
+                  for e in ("fowt0", "system")], 0))
+    _expect("K1 / K2 launches equal the clean run's for case 0 (drag "
+            "passes, one system solve)", (l4.get(K1), l4.get(K2)),
+            (drag(m0, 0), 1))
     _expect("impedance_solve calls (the faulted one launched nothing)",
-            s4["passes"], s3["passes"] + 1)
+            s4["passes"], drag(m0, 0) + 1)
 
     # (r3) mixed: two failing rungs, the damped restart recovers
     spec = "nan@dynamics:case=0:times=2"
@@ -2690,7 +2702,7 @@ def run_recovery(dev, coarse=False, ncases=SWEEP_CASES):
     chunks = list(range(RECOVERY_CHUNKS))
     log(f"  (r5) sweep_cases_chunked, {RECOVERY_CHUNKS} chunks of {chunk}:")
 
-    def chunked(label, table, want):
+    def chunked(label, table, want, key=key, chunk=chunk):
         with counted(f"recovery_chunked_{label}", ()):
             t0 = time.perf_counter()
             res, info = sweep_cases_chunked(fowt, *table, store=store,
@@ -2729,6 +2741,21 @@ def run_recovery(dev, coarse=False, ncases=SWEEP_CASES):
         faults.clear()
     _expect("corrupt checkpoints deleted", store.stats()["corrupt"]
             - corrupt0, 1)
+    # another chunk size: chunks of 100 cases and a tail of 24 give the
+    # lanes of the whole-table sweep bitwise (no lane depends on the
+    # lanes solved beside it)
+    rows = min(ncases, 3 * RECOVERY_ODD_CHUNK + 24)
+    nodd = -(-rows // RECOVERY_ODD_CHUNK)
+    key_odd = f"{key}-{RECOVERY_ODD_CHUNK}"
+    store.delete(key_odd)
+    odd = chunked(f"chunk{RECOVERY_ODD_CHUNK}",
+                  (Hs[:rows], Tp[:rows], beta[:rows]),
+                  ([], list(range(nodd))), key=key_odd,
+                  chunk=RECOVERY_ODD_CHUNK)
+    _expect(f"chunks of {RECOVERY_ODD_CHUNK} over the first {rows} cases "
+            "bitwise equal to the whole-table sweep's lanes",
+            {k: bool(np.array_equal(odd[k], ref[k][:rows])) for k in ref},
+            {k: True for k in ref})
     out["checkpoint_store"] = store.stats()
     return out
 
@@ -2838,6 +2865,10 @@ def main() -> int:
     log(f"clean paths: {clean_runs['models']} Model runs and "
         f"{clean_runs['sweeps']} sweeps of phases 4-12 checked for no "
         "recovery attempt and nothing quarantined")
+    js = clean_runs["journal_s"]
+    log(f"case journal (key digest, pulls, fsync'd writes) over those "
+        f"Model runs: {sum(js):.3f} s in all, {max(js, default=0.0):.3f} s "
+        f"the most in one run")
     phases["clean_path_runs"] = clean_runs
     log("recovery: on the card")
     t0 = time.perf_counter()

@@ -78,9 +78,9 @@ class KernelFailure(RaftError, RuntimeError):
 
 class StorageExhausted(RaftError, OSError):
     """A persistence tier (the checkpoint store) hit proven resource
-    exhaustion: an ``ENOSPC`` write failure or its configured byte
-    budget.  Raised only from write paths whose caller can shed the
-    write (``sweep_cases_chunked`` keeps solving and stops persisting)."""
+    exhaustion: an ``ENOSPC`` write failure.  Raised only from write
+    paths whose caller can shed the write (``sweep_cases_chunked`` keeps
+    solving and stops persisting)."""
 
     phase = "storage"
 

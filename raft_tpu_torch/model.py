@@ -842,7 +842,9 @@ class Model:
     def analyzeCases(self, display=0, resume=False):
         """Statics + dynamics + output statistics per load case; the
         result ledger lands on ``self.last_ledger`` and the wall seconds
-        per phase (every ladder rung included) on ``self.timings``.
+        per phase (every ladder rung included) on ``self.timings``, the
+        case journal's (its key digest, reads and writes) as
+        ``timings["journal"]``.
 
         Fault tolerance: a recoverable failure of a case's statics or
         dynamics walks the degradation ladder (``recovery.py``), every
@@ -858,7 +860,8 @@ class Model:
         off."""
         nCases = len(self.design["cases"]["data"])
         self._case_records = {}
-        self.timings = {"statics": 0.0, "dynamics": 0.0, "outputs": 0.0}
+        self.timings = {"statics": 0.0, "dynamics": 0.0, "outputs": 0.0,
+                        "journal": 0.0}
         self.results["properties"] = self.results.get("properties", {})
         self.results["case_metrics"] = {}
         self.results["mean_offsets"] = []
@@ -933,7 +936,8 @@ class Model:
             self._lap(key, t0)
 
     def _analyze_cases_impl(self, nCases, display, resume):
-        journal = self._case_journal()
+        with self._timed("journal"):
+            journal = self._case_journal()
         quarantine = recovery.enabled()
         last_err = None
         for iCase in range(nCases):
@@ -942,7 +946,8 @@ class Model:
             case["iCase"] = iCase
             self._iCase = iCase
             if resume and journal is not None:
-                entry = journal.load_case(iCase)
+                with self._timed("journal"):
+                    entry = journal.load_case(iCase)
                 if entry is not None:
                     self._resume_case(iCase, entry)
                     continue
@@ -968,12 +973,14 @@ class Model:
             if ok and journal is not None:
                 # host values only: the outputs are numpy, the carry is
                 # pulled to the host
-                journal.store_case(iCase, {
-                    "case_metrics": self.results["case_metrics"][iCase],
-                    "mean_offset": np.array(
-                        self.results["mean_offsets"][iCase], float),
-                    "case_record": self._case_records.get(str(iCase), {}),
-                    "carry": self._snapshot_carry()})
+                with self._timed("journal"):
+                    journal.store_case(iCase, {
+                        "case_metrics": self.results["case_metrics"][iCase],
+                        "mean_offset": np.array(
+                            self.results["mean_offsets"][iCase], float),
+                        "case_record": self._case_records.get(
+                            str(iCase), {}),
+                        "carry": self._snapshot_carry()})
         if self.failed_cases and len(self.failed_cases) == nCases:
             # nothing survived: raise instead of an all-quarantined result
             raise last_err

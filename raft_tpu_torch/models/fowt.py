@@ -786,18 +786,31 @@ def fowt_hydro_linearization_pre(fowt: FOWTModel, pose, pre, Xi):
     submerged = r[..., 2] < 0.0
 
     iwXi = (1j * w) * Xi                                     # (...,6,nw)
-    # motion spectrum quadratic form: M[j,k] = sum_w w^2 Re(Xi_j Xi_k*).
-    # It and the quadratic forms in it are element-wise products and sums:
-    # as batched GEMMs (einsum) the card rounds them differently at
-    # different batch sizes, and a lane of a sweep must not depend on the
-    # lanes solved beside it (sweep_cases_chunked's chunks are bitwise
-    # those of the whole table)
-    re, im = iwXi.real, iwXi.imag
-    M_re = torch.sum(re[..., :, None, :] * re[..., None, :, :]
-                     + im[..., :, None, :] * im[..., None, :, :], dim=-1)
+    # The contractions over a lane's own axes are element-wise products
+    # and a sum per output, not batched GEMMs (einsum): the card rounds a
+    # batched GEMM by batch size, and a lane of a sweep should not depend
+    # on the lanes solved beside it.  On the card this makes a batch of a
+    # few dozen lanes or more give each lane bitwise what the whole table
+    # gives it (sweep_cases_chunked's chunks); below that PyTorch's sums
+    # split a reduction differently.  probe_drag_forms.py measures both.
+    xr = torch.view_as_real(iwXi)                            # (...,6,nw,2)
+
+    def re_dot(a, extra):
+        """Re(sum_w iwXi[..., j, w] conj(a[..., w])) for each DOF j, on a
+        new last axis; ``a`` has ``extra`` axes between the batch and w.
+        One DOF at a time, so no temporary is 6x the size of ``a``."""
+        ar = torch.view_as_real(a)
+        pick = (...,) + (None,) * extra + (slice(None), slice(None))
+        return torch.stack([torch.sum(ar * xr[..., j, :, :][pick],
+                                      dim=(-2, -1)) for j in range(6)],
+                           dim=-1)
+
+    # motion spectrum quadratic form: M[j,k] = sum_w w^2 Re(Xi_j Xi_k*)
+    M_re = torch.sum(xr[..., :, None, :, :] * xr[..., None, :, :, :],
+                     dim=(-2, -1))
 
     def rms_scalar(s, g, A):
-        b = torch.real(torch.einsum("...jw,...nw->...nj", iwXi, torch.conj(s)))
+        b = re_dot(s, 1)                                     # (...,N,6)
         cross = torch.sum(g * b, dim=-1)
         quad = torch.sum(g[..., :, :, None] * M_re[..., None, :, :]
                          * g[..., :, None, :], dim=(-2, -1))
@@ -808,8 +821,7 @@ def fowt_hydro_linearization_pre(fowt: FOWTModel, pose, pre, Xi):
     vRMS_p2c = rms_scalar(pre["s_p2"], pre["g_p2"], pre["A_p2"])
 
     K = pre["K"]
-    D = torch.real(torch.einsum("...jw,...ncw->...ncj", iwXi,
-                                torch.conj(pre["u_P"])))
+    D = re_dot(pre["u_P"], 2)                                # (...,N,3,6)
     cross_P = torch.sum(K * D, dim=(-2, -1))
     quad_P = torch.sum(K[..., :, :, :, None] * M_re[..., None, None, :, :]
                        * K[..., :, :, None, :], dim=(-3, -2, -1))

@@ -49,23 +49,6 @@ def fsync_write(path: str, data: bytes):
         raise
 
 
-def dir_bytes(path: str) -> int:
-    """Bytes of the regular files directly under ``path``, 0 when
-    unreadable."""
-    total = 0
-    try:
-        with os.scandir(path) as entries:
-            for e in entries:
-                try:
-                    if e.is_file(follow_symlinks=False):
-                        total += e.stat(follow_symlinks=False).st_size
-                except OSError:
-                    continue
-    except OSError:
-        return 0
-    return total
-
-
 def count_corrupt(kind: str, n: int = 1):
     """Count ``n`` corrupt entries of journal ``kind`` (never raises)."""
     if n <= 0:

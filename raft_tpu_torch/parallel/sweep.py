@@ -328,36 +328,6 @@ def _lane_finite(Xi):
                      dim=-1).all(dim=-1)
 
 
-def _health_summary(phase, residual, cond, lane_ok, iters) -> dict:
-    """JSON-safe summary facts of one batch's pulled per-lane health
-    arrays (``raft_tpu/parallel/sweep.py:_health_summary`` without its
-    gauges and events, which wait for the port's metrics): non-finite
-    lanes are counted and left out of the residual and conditioning
-    aggregates, so every fact stays finite.  ``phase`` names the batch
-    for the caller's record."""
-    residual = np.asarray(residual, float)
-    cond = np.asarray(cond, float)
-    lane_ok = np.asarray(lane_ok, bool)
-    iters = np.asarray(iters)
-    nonfinite = int(np.count_nonzero(~lane_ok))
-    res_fin = residual[np.isfinite(residual)]
-    cond_fin = cond[np.isfinite(cond)]
-    if nonfinite:
-        worst = int(np.flatnonzero(~lane_ok)[0])
-    elif residual.size:
-        worst = int(np.argmax(np.where(np.isfinite(residual),
-                                       residual, np.inf)))
-    else:
-        worst = -1
-    return {"residual_rel_max": float(res_fin.max()) if res_fin.size else 0.0,
-            "residual_rel_median": (float(np.median(res_fin))
-                                    if res_fin.size else 0.0),
-            "cond_max": float(cond_fin.max()) if cond_fin.size else 0.0,
-            "nonfinite_lanes": nonfinite,
-            "iters_max": int(iters.max(initial=0)),
-            "lanes": int(residual.size), "worst_lane": worst}
-
-
 #: the lane ladder: the same solve again on the offending lanes alone
 #: (clears a transient poisoning at exact parity), then a damped restart
 #: (under-relaxation 0.5, twice the iterations, one pass a chunk); both

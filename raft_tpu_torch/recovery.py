@@ -238,8 +238,9 @@ class CaseJournal:
     mean offset, its solver record and the carry one case hands the next
     (the stale-heading quirk, a pending mean drift, an array's free
     points), all on the host, so a resumed run reproduces a continuous
-    one.  The key covers the FOWT models, the case table, the frequency
-    grid, the solver settings, the precision mode and the device type:
+    one.  The key covers the FOWT models, an array's shared mooring, the
+    case table, the frequency grid, the solver settings, the precision
+    mode and the device type:
     the kernels and their plain versions differ at rounding, so a journal
     written on the CPU never resumes on the card, nor the reverse."""
 
@@ -253,6 +254,7 @@ class CaseJournal:
 
         digest = exec_cache.model_digest({
             "fowts": model.fowtList,
+            "array_mooring": model.arr_ms,
             "cases": model.design.get("cases"),
             "w": np.asarray(model.w),
             "nFOWT": model.nFOWT,

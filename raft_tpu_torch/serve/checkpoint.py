@@ -17,8 +17,8 @@ Integrity contract:
 - a transient read ``OSError`` (the ``eio@checkpoint`` fault) is a
   counted plain miss: deletion is kept for proven corruption.
 
-A write that fails with proven ENOSPC (or would pass ``budget_bytes``)
-raises ``errors.StorageExhausted``, which the caller sheds; every other
+A write that fails with proven ENOSPC raises
+``errors.StorageExhausted``, which the caller sheds; every other
 write failure is a counted gap.  Fault seams
 (:mod:`raft_tpu_torch.testing.faults`): ``corrupt@checkpoint[:entry=HEX]
 [:step=N]`` damages the bytes read before the checks; ``enospc@checkpoint``
@@ -82,22 +82,17 @@ def _unpack(data: bytes) -> dict:
 
 
 class CheckpointStore:
-    """One checkpoint directory (see the module docstring); thread-safe.
-
-    ``budget_bytes`` bounds the directory: a put that would pass it
-    raises the same ``StorageExhausted`` a real ENOSPC does."""
+    """One checkpoint directory (see the module docstring); thread-safe."""
 
     #: a payload younger than this with no sidecar may be a concurrent put
     #: that has not landed its sidecar yet, and is left alone; older ones
     #: are torn-put orphans and are reclaimed
     TORN_GRACE_S = 60.0
 
-    def __init__(self, ckpt_dir: str, *, budget_bytes: int = None):
+    def __init__(self, ckpt_dir: str):
         self.dir = str(ckpt_dir)
         os.makedirs(self.dir, exist_ok=True)
-        self.budget_bytes = int(budget_bytes) if budget_bytes else None
         self._lock = threading.Lock()
-        self._bytes = journalio.dir_bytes(self.dir)
         self._counts = {k: 0 for k in (
             "writes", "write_errors", "enospc", "hits", "misses",
             "corrupt", "read_errors", "deletes")}
@@ -139,7 +134,6 @@ class CheckpointStore:
         window (counted as corruption)."""
         grace = self.TORN_GRACE_S if grace is None else float(grace)
         now = time.time()
-        dropped = 0
         for p in self._orphan_paths(key):
             try:
                 if grace > 0 and now - os.path.getmtime(p) < grace:
@@ -147,13 +141,10 @@ class CheckpointStore:
                 os.unlink(p)
             except OSError:
                 continue
-            dropped += 1
             self._count("corrupt")
             journalio.count_corrupt("checkpoint")
             _LOG.warning("checkpoint: reclaimed torn-put orphan %s",
                          os.path.basename(p))
-        if dropped:
-            self._refresh_bytes()
 
     def _corrupt(self, key: str, step: int, reason: str):
         """Delete-and-miss one damaged checkpoint."""
@@ -166,12 +157,6 @@ class CheckpointStore:
         journalio.count_corrupt("checkpoint")
         _LOG.warning("checkpoint %s@step%d failed integrity (%s): deleted",
                      _stem(key)[:12], step, reason)
-        self._refresh_bytes()
-
-    def _refresh_bytes(self):
-        n = journalio.dir_bytes(self.dir)
-        with self._lock:
-            self._bytes = n
 
     # -- write path ------------------------------------------------------
 
@@ -179,19 +164,11 @@ class CheckpointStore:
             meta: dict = None) -> str | None:
         """Persist named arrays and a JSON ``meta`` under ``(key, step)``;
         returns the payload's ``sha256:<hex>``, or None on a write failure
-        that is not exhaustion.  Proven ENOSPC (a real one, the injected
-        ``enospc@checkpoint``, or the byte budget) raises
-        ``StorageExhausted``."""
+        that is not exhaustion.  Proven ENOSPC (a real one or the injected
+        ``enospc@checkpoint``) raises ``StorageExhausted``."""
         entry, sidecar = self._paths(key, step)
         data = _pack(arrays)
         cdigest = "sha256:" + hashlib.sha256(data).hexdigest()
-        with self._lock:
-            projected = self._bytes + len(data)
-        if self.budget_bytes is not None and projected > self.budget_bytes:
-            self._count("enospc")
-            raise errors.StorageExhausted(
-                "checkpoint store disk budget exceeded",
-                budget=self.budget_bytes, bytes=projected)
         try:
             if faults.fire_info("checkpoint", action="enospc",
                                 entry=_stem(key), step=int(step)):
@@ -216,7 +193,6 @@ class CheckpointStore:
                          _stem(key)[:12], step, e)
             return None
         self._count("writes")
-        self._refresh_bytes()
         return cdigest
 
     # -- read path -------------------------------------------------------
@@ -310,15 +286,9 @@ class CheckpointStore:
                 pass
         if n:
             self._count("deletes")
-            self._refresh_bytes()
 
     # -- introspection ---------------------------------------------------
 
-    def disk_bytes(self) -> int:
-        with self._lock:
-            return int(self._bytes)
-
     def stats(self) -> dict:
         with self._lock:
-            return {**self._counts, "disk_bytes": int(self._bytes),
-                    "dir": self.dir}
+            return {**self._counts, "dir": self.dir}

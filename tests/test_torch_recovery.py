@@ -9,12 +9,15 @@
   recovery is off, and lets a non-injected `KernelFailure` through at
   once; the JAX package's rung names map onto the port's;
 - the case journal round trip, its corrupt entries deleted and counted,
-  its retention; `CheckpointStore` round trip, corruption, EIO, ENOSPC
-  and its byte budget; `model_digest`;
+  its retention, its key (an edited shared mooring misses);
+  `CheckpointStore` round trip, corruption, EIO, ENOSPC (injected, and
+  from the file system, the only write failure that raises);
+  `model_digest`;
 - a non-injected `KernelFailure` (the kernel wrapper made to raise one)
   propagates out of ``Model.analyzeCases`` and ``sweep_cases`` with no
   attempt recorded and nothing quarantined.
 """
+import errno
 import os
 import pickle
 
@@ -272,6 +275,29 @@ def test_journal_default_directory(monkeypatch):
     assert recovery.journal_dir() != j_recovery.journal_dir()
 
 
+def test_journal_key_sees_an_edited_shared_mooring(tmp_path):
+    """A farm's shared mooring (``array_mooring``) is part of the journal
+    key: after its file is edited the old entries must not resume."""
+    from raft_tpu_torch.model import Model
+    from raft_tpu_torch.models import farm_cases as FC
+
+    edited = tmp_path / "shared_edited.dat"
+    text = open(FC.STANDIN_FILE).read()
+    assert text.count("10000    330") == 2
+    edited.write_text(text.replace("10000    330", "10000    340"))
+    base = str(tmp_path / "journal")
+    j = recovery.CaseJournal.for_model(
+        Model(FC.f2_design(FC.GRID), device="cpu"), base_dir=base)
+    j.store_case(0, {"case_metrics": {}, "mean_offset": np.zeros(12)})
+    assert recovery.CaseJournal.for_model(
+        Model(FC.f2_design(FC.GRID), device="cpu"),
+        base_dir=base).load_case(0) is not None
+    j2 = recovery.CaseJournal.for_model(
+        Model(FC.f2_design(FC.GRID, mooring_file=str(edited)),
+              device="cpu"), base_dir=base)
+    assert j2.key != j.key and j2.load_case(0) is None
+
+
 def _arrays():
     return {"Xi": np.arange(12.0).reshape(3, 4) * (1 + 2j),
             "iters": np.array([3, 4, 5], np.int32)}
@@ -327,16 +353,27 @@ def test_checkpoint_eio_is_a_plain_miss(tmp_path):
     assert st.get("k", 0) is not None               # not deleted
 
 
-def test_checkpoint_enospc_and_budget_raise_typed(tmp_path):
+def test_checkpoint_enospc_and_budget_raise_typed(tmp_path, monkeypatch):
     st = CheckpointStore(str(tmp_path))
     faults.install("enospc@checkpoint")
     with pytest.raises(errors.StorageExhausted):
         st.put("k", 0, _arrays())
     faults.clear()
     assert st.steps("k") == [] and st.stats()["enospc"] == 1
-    small = CheckpointStore(str(tmp_path / "small"), budget_bytes=100)
+
+    # only a proven ENOSPC from the file system is exhaustion; any other
+    # write failure is a counted gap
+    def fails_with(code):
+        def write(path, data):
+            raise OSError(code, os.strerror(code))
+        return write
+
+    monkeypatch.setattr(journalio, "fsync_write", fails_with(errno.ENOSPC))
     with pytest.raises(errors.StorageExhausted):
-        small.put("k", 0, _arrays())
+        st.put("k", 0, _arrays())
+    monkeypatch.setattr(journalio, "fsync_write", fails_with(errno.EACCES))
+    assert st.put("k", 0, _arrays()) is None
+    assert st.stats()["enospc"] == 2 and st.stats()["write_errors"] == 1
 
 
 def test_model_digest_is_by_value():

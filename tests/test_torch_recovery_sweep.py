@@ -8,7 +8,6 @@ checkpointed ``sweep_cases_chunked``, on the CPU.
   through ``recovery.JAX_STEP``) equal;
 - ``quarantine="off"`` leaving NaN, ``RAFT_TPU_RECOVERY=0`` reporting
   the lane unrecovered, ``raise@sweep`` failing the batch;
-- ``_health_summary`` facts equal to the JAX package's;
 - ``sweep_cases_chunked``: a first call against one ``sweep_cases`` over
   the table (1e-12: the CPU plain version's batched products round
   differently at other batch sizes; ``chip_smoke.py`` holds the card's
@@ -131,19 +130,6 @@ def test_quarantine_all_and_raise_at_the_seam(fowt, sweeps):
     assert exc.value.injected and exc.value.ctx == {"lane": 3}
     with pytest.raises(errors.ModelConfigError):
         _sweep(fowt, quarantine="sometimes")
-
-
-def test_health_summary_matches_jax():
-    from raft_tpu.parallel.sweep import _health_summary as j_health
-
-    rng = np.random.default_rng(3)
-    residual = rng.random(9)
-    residual[4] = np.nan
-    cond = 1 + 1e3 * rng.random(9)
-    lane_ok = np.isfinite(residual)
-    iters = rng.integers(1, 10, 9)
-    assert S._health_summary("sweep", residual, cond, lane_ok, iters) == \
-        j_health("sweep", residual, cond, lane_ok, iters)
 
 
 # ---------------------------------------------------------------------------
