@@ -43,7 +43,8 @@ Phases (any failure exits non-zero; no phase's failure is turned into a
               iters and converged equal);
  6. variants — sweep_variants on VolturnUS-S over volturn_grid's 243
               variants with the ballast trim (Hs 6, Tp 12, nIter 10,
-              newton_iters 20); 4 variants against the serial solve (rtol
+              newton_iters 20); 2 variants (the first and the last)
+              against the serial solve (rtol
               1e-9), all finite, |heave of Xeq| < 0.05;
  7. golden  — reruns both designs on the golden grid (0.02-0.2 Hz, first
               case) and diffs the ledgers against tests/golden at 1e-6
@@ -158,12 +159,29 @@ Phases (any failure exits non-zero; no phase's failure is turned into a
               256 with a CheckpointStore under --out: bitwise equal to one
               sweep, a pure read, a deleted tail, an edited row and a
               corrupt chunk each re-solving only what they must;
-14. prints the kernels JSON line, the card line, and the final JSON line.
-Each path of phases 4-13 runs with the launch counters set to 0 just
+14. obs     — observability (raft_tpu_torch/obs): (o1) OC3spar's case 0 at
+              its 80 bins with observability off (no directory, probes
+              off) and on (a directory under --out, probes sampled,
+              inside obs.transfers.guard("disallow"): any unsanctioned
+              synchronizing call raises): ledgers bitwise equal, K1/K2
+              launches equal, the span tree models/obs_cases.SPAN_TREE
+              (the JAX package's), manifest, trace, ledger and events
+              valid, the events replaying the trace, the host pulls per
+              phase models/obs_cases.pulls_per_case (the same with probes
+              off), both walls printed; (o2) phase 5's table with
+              health=True in f64 and mixed: Xi / std / iters / converged
+              bitwise phase 5's, one more K1 (K3) launch of 81,920 lanes
+              (11 against 10), health_residual at most 1e-12 (f64) /
+              1e-9 (mixed), the torch.linalg.cond time, _health_summary
+              in each sweep's manifest;
+15. prints the kernels JSON line, the card line, and the final JSON line.
+Each path of phases 4-14 runs with the launch counters set to 0 just
 before it and read just after; every kernel of a path must launch in it.
 Every Model run of phases 4-12 must end with no recovery attempt and no
-quarantined case, and every sweep_cases with no quarantined lane; the case
-journal of every run goes under --out (RAFT_TPU_JOURNAL_DIR).
+quarantined case, and every sweep_cases with no quarantined lane;
+raft_tpu_recovery_attempts_total reads 0 after them and, after phase 13,
+the rungs phase 13 recorded; the case journal of every run goes under
+--out (RAFT_TPU_JOURNAL_DIR).
 
 Options: --only-kernels stops after phase 3 (the short call after a
 kernel edit); --out DIR sets where the full
@@ -205,7 +223,7 @@ SWEEP_CASES = 1024
 SWEEP_SERIAL_LANES = 8
 SWEEP_RTOL = 1e-9
 MIXED_STD_RTOL = 1e-6
-VARIANT_SERIAL = 4
+VARIANT_SERIAL = 2   # serial variants held against the batch (the first, the last)
 QTF_TOL = 1e-12       # K5 vs plain, relative to max|Q| (node-sum order)
 BEM_FILES_TOL = 1e-9  # the port's preprocess_BEM files vs the JAX package's
 WAMIT_RERUN_TOL = 1e-12   # (b) from the cache's files vs (a)
@@ -281,33 +299,45 @@ def device_ms(fn, kernel_substr, reps=20, by_kernel=None):
     torch.cuda.synchronize()
     note = dict(kernels=subs[0])
     DEVICE_MS_LOG.append(note)
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-    except (RuntimeError, AttributeError) as e:
-        note["error"] = f"{type(e).__name__}: {e}"
-        log(f"  device_ms: no device time for {subs[0]}: {note}")
-        return None
-    tot, hits = 0.0, 0
-    for ev in events:
-        if any(sub in ev.key for sub in subs):
-            t = getattr(ev, "device_time_total", None)
-            if t is None:
-                t = getattr(ev, "cuda_time_total", 0.0)
-            tot += t
-            hits += 1
-            if by_kernel is not None:
+    # a session that sees no kernel is retried once with CPU activity
+    # too (the farm operands' row saw none in two runs); the keys it saw
+    # are logged
+    for attempt, acts in enumerate(([ProfilerActivity.CUDA],
+                                    [ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA])):
+        try:
+            with profile(activities=acts) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            events = prof.key_averages()
+        except (RuntimeError, AttributeError) as e:
+            note["error"] = f"{type(e).__name__}: {e}"
+            log(f"  device_ms: no device time for {subs[0]}: {note}")
+            return None
+        tot, hits, found = 0.0, 0, {}
+        for ev in events:
+            if any(sub in ev.key for sub in subs):
+                t = getattr(ev, "device_time_total", None)
+                if t is None:
+                    t = getattr(ev, "cuda_time_total", 0.0)
+                tot += t
+                hits += 1
                 words = ev.key.replace("(", " ").split()
                 name = next((w.split("::")[-1] for w in words
                              if any(sub in w for sub in subs)), ev.key[:60])
-                by_kernel[name] = by_kernel.get(name, 0.0) + t / reps / 1e3
-    note.update(events=len(events), matched=hits, device_us=tot)
-    if tot > 0:
-        return tot / reps / 1e3
-    log(f"  device_ms: no device time for {subs[0]}: {note}")
+                found[name] = found.get(name, 0.0) + t / reps / 1e3
+        note.update(events=len(events), matched=hits, device_us=tot,
+                    attempt=attempt)
+        if tot > 0:
+            if by_kernel is not None:
+                for name, ms in found.items():
+                    by_kernel[name] = by_kernel.get(name, 0.0) + ms
+            return tot / reps / 1e3
+        note.setdefault("unmatched_keys", []).append(
+            [ev.key[:60] for ev in events][:8])
+        log(f"  device_ms: no device time for {subs[0]} (session "
+            f"{attempt}): {note}")
     return None
 
 
@@ -1059,6 +1089,11 @@ def check_qtf(dev):
 #: launches per path, read just after it ran (counters set to 0 just
 #: before it)
 PATH_LAUNCHES: dict = {}
+#: phase 5's sweep outputs by mode, which phase 14's health sweeps must
+#: reproduce bitwise
+SWEEP_OUTS: dict = {}
+#: wall seconds of each phase (build, kernels, 4-14), for chip_smoke.json
+PHASE_WALLS: dict = {}
 
 
 def counted(path, expect):
@@ -1223,6 +1258,8 @@ def run_sweeps(dev):
         if not finite or out["std"].shape != (nc, 6):
             fail(f"sweep {mode}: non-finite or misshapen std")
         outs[mode] = out
+        SWEEP_OUTS[mode] = {k: out[k] for k in ("Xi", "std", "iters",
+                                                  "converged")}
     # 8 lanes against the serial per-case solve
     solver = make_case_solver(fowt, nIter=10, tol=0.01)
     worst = 0.0
@@ -2760,6 +2797,194 @@ def run_recovery(dev, coarse=False, ncases=SWEEP_CASES):
     return out
 
 
+OBS_RESID_TOL = {"f64": 1e-12, "mixed": 1e-9}
+
+
+def _counter(snap, name):
+    return sum(s["value"] for s in snap.get(name, {}).get("series", []))
+
+
+def run_obs(dev, coarse=False, ncases=SWEEP_CASES):
+    """Phase 14: observability on the main path.  (o1) OC3spar's case 0
+    with observability off and on (an output directory under --out,
+    probes sampled, inside transfers.guard("disallow")); (o2) phase 5's
+    table with health=True in f64 and mixed.  ``coarse``/``ncases`` cut
+    both for a rehearsal on the CPU."""
+    from raft_tpu_torch import _config, ledger, obs
+    from raft_tpu_torch.model import Model
+    from raft_tpu_torch.models import recovery_cases as RC
+    from raft_tpu_torch.models.obs_cases import (
+        JAX_PULLS_PER_CASE, SPAN_TREE, pulls_per_case)
+    from raft_tpu_torch.obs import events, transfers
+    from raft_tpu_torch.parallel.sweep import design_fowt, sweep_cases
+
+    out = {}
+    K1, K2, K3 = "impedance_gj", "gj_solve", "impedance_gj_mixed"
+    design = RC.oc3spar_design(coarse=coarse, ncases=1)
+    obs_dir = os.path.join(OUT, "obs")
+    shutil.rmtree(obs_dir, ignore_errors=True)
+    runs = {}
+    for label, on in (("off", False), ("on", True)):
+        obs.reset_all()
+        obs.configure(obs_dir if on else None)
+        _config.set_probes_mode("sampled" if on else "off")
+        m = Model(design, device=dev)
+        torch.cuda.synchronize()
+        guard = transfers.guard("disallow") if on \
+            else contextlib.nullcontext()
+        err = None
+        try:
+            with counted(f"obs_{label}", (K1, K2)), guard:
+                t0 = time.perf_counter()
+                m.analyzeCases()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        except RuntimeError as e:
+            import traceback
+            err = f"{e}\n{traceback.format_exc()[-2500:]}"
+            wall = float("nan")
+        finally:
+            _config.set_probes_mode(None)
+        runs[label] = dict(model=m, wall=wall, err=err, spans=obs.spans(),
+                           chrome=obs.chrome_trace(), snap=obs.snapshot())
+        if err:
+            fail(f"(o1) obs {label}: {err}")
+    obs.configure(None)
+    if any(r["err"] for r in runs.values()):
+        return out
+    off, on = runs["off"]["model"], runs["on"]["model"]
+    rec = on._case_records["0"]
+    log(f"  (o1) OC3spar case 0 x {on.nw} bins: wall obs off "
+        f"{runs['off']['wall']:.3f} s, obs on (directory, probes sampled, "
+        f"guard disallow) {runs['on']['wall']:.3f} s, difference "
+        f"{runs['on']['wall'] - runs['off']['wall']:+.3f} s; statics "
+        f"iters {rec['statics_iters']}, drag passes "
+        f"{rec['fowt0']['drag_iters']}")
+    _expect("ledgers bitwise equal (digest)", off.last_ledger["digest"]
+            == on.last_ledger["digest"] and bool(np.array_equal(off.Xi,
+                                                               on.Xi)),
+            True)
+    _expect("K1 / K2 launches equal", (PATH_LAUNCHES["obs_off"].get(K1),
+                                        PATH_LAUNCHES["obs_off"].get(K2)),
+            (PATH_LAUNCHES["obs_on"].get(K1), PATH_LAUNCHES["obs_on"].get(K2)))
+    for label in ("off", "on"):
+        _expect(f"span tree ({label})",
+                [[sp["name"], sp["depth"], sp["parent"]]
+                 for sp in runs[label]["spans"]], SPAN_TREE)
+    names = os.listdir(obs_dir)
+
+    def one(suffix):
+        hits = [n for n in names if n.endswith(suffix)]
+        if len(hits) != 1:
+            fail(f"(o1) expected one *{suffix}, found {hits}")
+            return None
+        return os.path.join(obs_dir, hits[0])
+
+    man = json.load(open(one(".manifest.json")))
+    trace = json.load(open(one(".trace.json")))
+    evs = events.read(one(".events.jsonl"))
+    led = json.load(open(one(".ledger.json")))
+    _expect("manifest / events / ledger problems",
+            (obs.validate_manifest(man), events.validate(evs),
+             ledger.validate_ledger(led)), ([], [], []))
+    _expect("the events replay the trace, the ledger file is the run's",
+            (events.to_chrome_trace(evs)["traceEvents"]
+             == runs["on"]["chrome"]["traceEvents"]
+             == trace["traceEvents"], led["digest"]
+             == on.last_ledger["digest"]), (True, True))
+    phases = {ph: r["events"]
+              for ph, r in man["extra"]["host_transfers"]["phases"].items()}
+    want = {**pulls_per_case(rec["statics_iters"],
+                             rec["fowt0"]["drag_iters"]), "journal": 1}
+    _expect("host pulls per phase (the pinned formula; the JAX package's "
+            f"{JAX_PULLS_PER_CASE})", phases, want)
+    off_phases = {ph: r["events"] for ph, r in
+                  off.last_manifest.extra["host_transfers"]["phases"].items()}
+    _expect("host pulls with probes off equal those with probes on",
+            off_phases, phases)
+    probes = _counter(runs["on"]["snap"], "raft_tpu_probe_events_total")
+    _expect("probe samples (statics + drag passes)", probes,
+            1 + rec["fowt0"]["drag_iters"])
+    out["o1"] = dict(wall_off_s=runs["off"]["wall"],
+                     wall_on_s=runs["on"]["wall"], pulls=phases,
+                     launches={k: PATH_LAUNCHES[f"obs_{k}"]
+                               for k in ("off", "on")},
+                     card=man["environment"].get("card"))
+
+    # (o2) phase 5's table with the health mode
+    fowt = design_fowt(RC.oc3spar_design(coarse=coarse), dev)
+    Hs, Tp, beta = sweep_inputs(ncases)
+    nw = fowt.nw
+    cond_ms = []
+    sync_point = transfers.sync_point
+
+    def timed_sync_point(fn, *a, what="", **k):
+        if what != "health_cond_check":
+            return sync_point(fn, *a, what=what, **k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sync_point(fn, *a, what=what, **k)
+        torch.cuda.synchronize()
+        cond_ms.append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    obs.reset_all()
+    obs.configure(os.path.join(obs_dir, "health"))
+    transfers.sync_point = timed_sync_point
+    try:
+        for mode, key in (("f64", K1), ("mixed", K3)):
+            _config.set_precision_mode(mode)
+            try:
+                with counted(f"obs_health_{mode}", (key,)), \
+                        solve_counts() as seen:
+                    t0 = time.perf_counter()
+                    h = sweep_cases(fowt, Hs, Tp, beta, nIter=10, tol=0.01,
+                                    health=True, device=dev)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+            finally:
+                _config.set_precision_mode(None)
+            got = PATH_LAUNCHES[f"obs_health_{mode}"].get(key, 0)
+            base = (PATH_LAUNCHES.get(f"sweep_{mode}", {}).get(key)
+                    if not coarse else None)
+            res = h["health_residual"].cpu().numpy()
+            cond = h["health_cond"].cpu().numpy()
+            log(f"  (o2) {mode}: {ncases} cases x {nw} bins with health in "
+                f"{wall:.3f} s; launches {got} (phase 5: {base}); lanes "
+                f"per launch {sorted(set(seen['sweep_lanes']))}; "
+                f"health_residual max {float(np.max(res)):.3e}, health_cond "
+                f"max {float(np.max(cond)):.6e}; torch.linalg.cond "
+                f"{cond_ms[-1]:.2f} ms")
+            if base is not None:
+                _expect(f"{mode}: launches = phase 5's + 1", got, base + 1)
+                ref = SWEEP_OUTS[mode]
+                _expect(f"{mode}: Xi / std / iters / converged bitwise "
+                        "equal to phase 5's",
+                        [bool(torch.equal(h[k], ref[k]))
+                         for k in ("Xi", "std", "iters", "converged")],
+                        [True] * 4)
+            _expect(f"{mode}: every launch at {ncases * nw} lanes",
+                    sorted(set(seen["sweep_lanes"])), [ncases * nw])
+            if not float(np.max(res)) <= OBS_RESID_TOL[mode]:
+                fail(f"(o2) {mode}: health_residual max {np.max(res):.3e} "
+                     f"above {OBS_RESID_TOL[mode]:g}")
+            out[f"o2_{mode}"] = dict(
+                wall_s=wall, launches=got, phase5_launches=base,
+                health_residual_max=float(np.max(res)),
+                health_cond_max=float(np.max(cond)),
+                cond_ms=cond_ms[-1])
+    finally:
+        transfers.sync_point = sync_point
+        obs.configure(None)
+    mans = [json.load(open(os.path.join(obs_dir, "health", n)))
+            for n in sorted(os.listdir(os.path.join(obs_dir, "health")))
+            if n.endswith(".manifest.json")]
+    _expect("(o2) sweep manifests with _health_summary",
+            sorted(len(mm["extra"].get("solve_health", {})) for mm in mans),
+            [7, 7])
+    return out
+
+
 # kernel line: (JSON name, launch key, TPU kernel it replaces, CUDA source,
 # the main-path shape its times are taken at)
 KERNELS = (
@@ -2799,7 +3024,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.load()
-    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {_build.BUILD_INFO})")
+    PHASE_WALLS["build"] = time.perf_counter() - t0
+    log(f"build: {PHASE_WALLS['build']:.1f} s (nvcc {_build.BUILD_INFO})")
     report = _build.ptxas_report()
     for sym, lines in report.items():
         if "Li12ELi6E" in sym or "qtf_k5_" in sym:
@@ -2841,7 +3067,8 @@ def main() -> int:
     t0 = time.perf_counter()
     rows = check_kernels(dev)
     check_qtf(dev)
-    log(f"kernels: {time.perf_counter() - t0:.1f} s")
+    PHASE_WALLS["kernels"] = time.perf_counter() - t0
+    log(f"kernels: {PHASE_WALLS['kernels']:.1f} s")
     if "--only-kernels" in sys.argv[1:]:
         log(f"chip_smoke: kernels only, {len(FAILURES)} failure(s)")
         return 1 if FAILURES else 0
@@ -2861,7 +3088,8 @@ def main() -> int:
             log(f"{name}: on the card")
             t0 = time.perf_counter()
             phases[name] = fn()
-            log(f"{name}: {time.perf_counter() - t0:.1f} s")
+            PHASE_WALLS[name] = time.perf_counter() - t0
+            log(f"{name}: {PHASE_WALLS[name]:.1f} s")
     log(f"clean paths: {clean_runs['models']} Model runs and "
         f"{clean_runs['sweeps']} sweeps of phases 4-12 checked for no "
         "recovery attempt and nothing quarantined")
@@ -2870,11 +3098,27 @@ def main() -> int:
         f"Model runs: {sum(js):.3f} s in all, {max(js, default=0.0):.3f} s "
         f"the most in one run")
     phases["clean_path_runs"] = clean_runs
+    from raft_tpu_torch import obs
+    attempts = _counter(obs.snapshot(), "raft_tpu_recovery_attempts_total")
+    _expect("raft_tpu_recovery_attempts_total after phases 4-12", attempts,
+            0)
     log("recovery: on the card")
     t0 = time.perf_counter()
     phases["recovery"] = run_recovery(dev)
-    phases["recovery"]["wall_s"] = time.perf_counter() - t0
+    phases["recovery"]["wall_s"] = PHASE_WALLS["recovery"] = \
+        time.perf_counter() - t0
     log(f"recovery: {phases['recovery']['wall_s']:.1f} s")
+    rungs = sum(len(r.get("attempts", [])) for r in
+                phases["recovery"].values() if isinstance(r, dict)) + len(
+        phases["recovery"]["recovery_sweep"]["quarantine"]["ladder"])
+    _expect("raft_tpu_recovery_attempts_total after phase 13 = its rungs",
+            _counter(obs.snapshot(), "raft_tpu_recovery_attempts_total"),
+            rungs)
+    log("obs: on the card")
+    t0 = time.perf_counter()
+    phases["obs"] = run_obs(dev)
+    phases["obs"]["wall_s"] = PHASE_WALLS["obs"] = time.perf_counter() - t0
+    log(f"obs: {phases['obs']['wall_s']:.1f} s")
 
     def summary(label, key, replaces, source, lanes):
         # ms is the wall time of one wrapper call on the stream (CUDA
@@ -2906,6 +3150,9 @@ def main() -> int:
                 # resumed, recovered, re-solved lanes, chunks), by path
                 "recovery_launches": {p: n for p, n in by_path.items()
                                       if p.startswith("recovery_")},
+                # phase 14: the observed runs and the health sweeps
+                "obs_launches": {p: n for p, n in by_path.items()
+                                 if p.startswith("obs_")},
                 "launch_floor_ms": floor}
 
     kernels = [summary(*k) for k in KERNELS]
@@ -2914,6 +3161,7 @@ def main() -> int:
                    "ptxas": ptx, "sass": sass,
                    "paths": PATH_LAUNCHES, "phases": phases,
                    "device_ms_log": DEVICE_MS_LOG,
+                   "phase_walls": PHASE_WALLS,
                    "wall_s": time.perf_counter() - t_start}, f, indent=1)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
         "device check")

@@ -1,6 +1,7 @@
 """Result ledger: content-addressed physics digests for cross-run diffing.
 
-The jax-free parts of ``raft_tpu/obs/ledger.py``, copied so the port
+The jax-free parts of ``raft_tpu/obs/ledger.py`` (``compare_manifests``
+apart), copied so the port
 writes the same ``raft_tpu.ledger/v1`` documents and diffs them against
 the golden ledgers in ``tests/golden/`` without importing the JAX
 package.  A ledger is the numeric fingerprint of one run: per-case
@@ -109,10 +110,50 @@ def finalize(ledger: dict) -> dict:
     return ledger
 
 
+def write_ledger(ledger: dict, path: str) -> str:
+    """Write ``ledger`` (finalized first when it has no digest) as JSON
+    at ``path`` through a tmp file and an atomic rename; returns the
+    path."""
+    if ledger.get("digest") is None:
+        finalize(ledger)
+    parent = os.path.dirname(os.path.abspath(path))
+    os.makedirs(parent, exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(ledger, f, indent=1)
+    os.replace(tmp, path)
+    return path
+
 
 def load_ledger(path: str) -> dict:
     with open(path) as f:
         return json.load(f)
+
+
+def validate_ledger(doc: dict) -> list[str]:
+    """Structural check against the v1 schema; [] == valid."""
+    problems = []
+    if not isinstance(doc, dict):
+        return ["ledger is not an object"]
+    if doc.get("schema") != SCHEMA:
+        problems.append(f"schema is {doc.get('schema')!r}, expected {SCHEMA}")
+    for k in REQUIRED_KEYS:
+        if k not in doc:
+            problems.append(f"missing key {k!r}")
+    if not isinstance(doc.get("entries"), list):
+        problems.append("entries is not a list")
+        return problems
+    seen = set()
+    for i, e in enumerate(doc["entries"]):
+        if not isinstance(e, dict) or not {"key", "metrics", "digest"} <= set(e):
+            problems.append(f"entries[{i}] missing key/metrics/digest")
+            continue
+        if e["key"] in seen:
+            problems.append(f"duplicate entry key {e['key']!r}")
+        seen.add(e["key"])
+        if digest_metrics(e["metrics"]) != e["digest"]:
+            problems.append(f"entries[{i}] ({e['key']!r}) digest mismatch")
+    return problems
 
 
 def capture_environment(model=None) -> dict:
@@ -201,6 +242,31 @@ def ledger_from_model(model, run_id: str = None) -> dict:
     # carries them
     led["extra"] = {"failed_cases": list(getattr(model, "failed_cases",
                                                  None) or [])}
+    return finalize(led)
+
+
+def ledger_from_sweep(out: dict, config: dict = None,
+                      run_id: str = None) -> dict:
+    """Ledger of one sweep batch from its host values (numpy ``std``
+    (nc, 6), ``iters`` and ``converged`` (nc,)): per-case response stds
+    and fixed-point counts, and a batch summary entry."""
+    import numpy as np
+
+    led = new_ledger(kind="sweep_cases", run_id=run_id,
+                     config=dict(config or {}),
+                     environment=capture_environment())
+    std = np.asarray(out["std"])
+    iters = np.asarray(out["iters"])
+    conv = np.asarray(out["converged"])
+    for i in range(std.shape[0]):
+        add_entry(led, f"case{i}", {
+            "std": std[i], "iters": int(iters[i]),
+            "converged": bool(conv[i])})
+    add_entry(led, "summary", {
+        "ncases": int(std.shape[0]),
+        "n_converged": int(conv.sum()),
+        "iters_max": int(iters.max(initial=0)),
+        "std_norm": float(np.linalg.norm(std))})
     return finalize(led)
 
 

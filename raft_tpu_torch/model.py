@@ -57,8 +57,18 @@ is fatal: it propagates, no rung is tried and nothing is quarantined.
 The ``statics`` and ``dynamics`` fault seams (``testing/faults.py``) sit
 after the Newton and after each drag fixed point.
 
-Not part of the port yet: ballast trim, the FLORIS coupling, and the JAX
-package's observability and probes.
+Observability (``obs/``, as the JAX package's ``analyzeCases``): nested
+spans (``analyzeCases`` > ``solveStatics`` / ``solveDynamics`` >
+``fowt_linearize`` / ``saveTurbineOutputs``), solver-health metrics, the
+flight recorder's ``case_start`` / ``case_end`` / ``quarantine`` events,
+probes, and one ``RunManifest`` per ``analyzeCases`` (``last_manifest``,
+written with the trace, the ledger and the events under
+``RAFT_TPU_OBS_DIR``).  Every host pull of the case path goes through
+``obs.transfers.device_get`` (phases ``journal``, ``statics``,
+``dynamics``, ``outputs``): one a Newton iteration and one a drag pass,
+as the port's loops decide on the host.
+
+Not part of the port yet: ballast trim and the FLORIS coupling.
 """
 from __future__ import annotations
 
@@ -71,8 +81,9 @@ import time
 import numpy as np
 import torch
 
-from raft_tpu_torch import errors, ledger as _ledger, recovery
-from raft_tpu_torch._config import COMPLEX, REAL, as_real, resolve_device
+from raft_tpu_torch import _config, errors, ledger as _ledger, obs, recovery
+from raft_tpu_torch._config import (COMPLEX, REAL, as_real, resolve_device,
+                                    to_device)
 from raft_tpu_torch.io.bem_native import solve_bem_fowt
 from raft_tpu_torch.io.wamit import bem_coeffs
 from raft_tpu_torch.models import mooring as mr
@@ -89,6 +100,7 @@ from raft_tpu_torch.models.rotor import calc_aero, calc_cavitation
 from raft_tpu_torch.ops.linalg import impedance_solve, inv_complex, last_dispatch
 from raft_tpu_torch.ops.spectra import get_psd, get_rao, get_rms
 from raft_tpu_torch.ops.transforms import transform_force, translate_matrix_6to6
+from raft_tpu_torch.obs import transfers
 from raft_tpu_torch.testing import faults
 from raft_tpu_torch.utils.dicttools import get_from_dict
 
@@ -97,15 +109,24 @@ _LOG = logging.getLogger("raft_tpu_torch.model")
 RAD2DEG = 180.0 / np.pi
 
 
-def _np(x):
-    """Host numpy copy of a tensor (or pass-through for numpy/python)."""
+def _np(x, what: str = "host_value"):
+    """Host numpy copy of a tensor, through the counted
+    ``obs.transfers.device_get`` (numpy/python pass through)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        return transfers.device_get(x, what=what)
     return np.asarray(x)
 
 
-def _f(x) -> float:
-    return float(_np(x))
+def _f(x, what: str = "host_value") -> float:
+    return float(_np(x, what))
+
+
+def _hnp(x):
+    """Numpy view of a result computed on the host from host values (a
+    CPU tensor; no transfer, nothing counted).  A card tensor raises."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().numpy()
+    return np.asarray(x)
 
 
 def _dyn_solve_core(Zinv, Z_sys, F_all):
@@ -392,7 +413,13 @@ class Model:
 
     def solveStatics(self, case, display=0):
         """Mean-offset equilibrium over all 6N DOFs (reference:
-        raft_model.py:479-849)."""
+        raft_model.py:479-849): span ``solveStatics``, its host pulls in
+        the ``statics`` phase (one a Newton iteration, one at the end)."""
+        with obs.span("solveStatics", case=self._case_label()) as sp, \
+                transfers.phase("statics"):
+            return self._solve_statics_impl(case, sp)
+
+    def _solve_statics_impl(self, case, sp):
         N = self.nFOWT
         for i, fowt in enumerate(self.fowtList):
             self._case_constants(fowt, self._case_for_fowt(case, i),
@@ -416,9 +443,9 @@ class Model:
             # the previous statics solve's free points (as the JAX Model)
             xf = self._arr_xf
         else:
-            xf = self._t(arr.r0)[torch.as_tensor(
+            xf = self._t(arr.r0)[to_device(
                 np.flatnonzero(np.asarray(arr.attach) == ma.ATTACH_FREE),
-                device=self.device)]
+                self.device)]
         eval_FK = self._statics_eval(F0s, K_hss, Ucur)
         eval_batch = torch.func.vmap(eval_FK, in_dims=(0, None))
         alphas = self._t(self._NEWTON_ALPHAS)
@@ -431,23 +458,41 @@ class Model:
             kdiag = torch.diagonal(K)
             kfix = torch.where(kdiag == 0.0, torch.mean(kdiag), kdiag)
             Kg = K + torch.diag(kfix - kdiag)
-            dX = torch.clamp(torch.linalg.solve(Kg, F), -db, db)
+            # solve_ex: torch.linalg.solve's error check would read the
+            # card; its info comes back with this iteration's one pull
+            step, info = torch.linalg.solve_ex(Kg, F)
+            dX = torch.clamp(step, -db, db)
             merit0 = torch.sum(F ** 2)
             Fa, Ka, xfa = eval_batch(X + alphas[:, None] * dX, xf)
             merits = torch.sum(Fa ** 2, dim=1)
             # first sufficient candidate wins; none improving -> the full
-            # clipped step (candidate 0, a = 1)
+            # clipped step (candidate 0, a = 1); the candidate is gathered
+            # by index_select (x[i] with a 0-d tensor i reads i on the host)
             suff = torch.isfinite(merits) & (merits < merit0)
             anys = torch.any(suff)
-            idx = torch.where(anys, torch.argmax(suff.to(torch.int32)), 0)
-            X = X + torch.where(anys, alphas[idx], 1.0) * dX
-            F, K, xf = Fa[idx], Ka[idx], xfa[idx]
+            idx = torch.where(anys, torch.argmax(suff.to(torch.int32)),
+                              0).reshape(1)
+            X = X + torch.where(anys, alphas.index_select(0, idx)[0],
+                                1.0) * dX
+            F, K, xf = (Fa.index_select(0, idx)[0],
+                        Ka.index_select(0, idx)[0],
+                        xfa.index_select(0, idx)[0])
             n_iters += 1
-            # convergence on the UNDAMPED Newton step of this iteration
-            if bool(torch.all(torch.abs(dX) < tol)):
+            # convergence on the UNDAMPED Newton step of this iteration,
+            # pulled beside the solve's info
+            conv, info = _np(torch.stack([
+                torch.all(torch.abs(dX) < tol).to(torch.int32),
+                info.to(torch.int32)]), "statics_newton_step")
+            if info > 0:
+                raise torch.linalg.LinAlgError(
+                    "torch.linalg.solve: The solver failed because the "
+                    f"input matrix is singular (info {int(info)}).")
+            if conv:
                 break
-        residual = _f(torch.sqrt(torch.sum(F ** 2)))
-        Xh = _np(X)
+        res_h, Xh = transfers.device_get(
+            (torch.sqrt(torch.sum(F ** 2)), X), what="statics_newton")
+        residual = float(res_h)
+        obs.probes.probe("statics_newton", iters=n_iters, residual=residual)
         # fault seam: nan@statics poisons the pose, raise@statics raises
         if faults.maybe_raise("statics", case=self._iCase) == "nan":
             Xh = np.full_like(Xh, np.nan)
@@ -455,7 +500,17 @@ class Model:
             raise errors.StaticsDivergence(
                 "statics Newton produced a non-finite pose",
                 case=self._iCase, iters=n_iters, residual=residual)
-        rec = self._case_records.setdefault(self._case_label(), {})
+        case_lbl = self._case_label()
+        sp.set(newton_iters=n_iters, residual_norm=residual)
+        obs.histogram(
+            "raft_statics_newton_iterations",
+            "damped-Newton iterations to mean-offset equilibrium",
+            buckets=obs.ITER_BUCKETS).observe(n_iters, case=case_lbl)
+        obs.gauge(
+            "raft_statics_residual_norm",
+            "|F| at the accepted statics equilibrium [N]",
+            ).set(residual, case=case_lbl)
+        rec = self._case_records.setdefault(case_lbl, {})
         rec["statics_iters"] = n_iters
         rec["statics_residual"] = residual
 
@@ -496,7 +551,19 @@ class Model:
 
     def solveEigen(self, display=0):
         """Undamped natural frequencies and modes (reference:
-        raft_model.py:391-476), host NumPy with the DOF-claiming sort."""
+        raft_model.py:391-476), host NumPy with the DOF-claiming sort;
+        span ``solveEigen``, the frequencies in ``raft_eigen_fn_hz``."""
+        with obs.span("solveEigen", case=self._case_label()) as sp, \
+                transfers.phase("eigen"):
+            fns, modes = self._solve_eigen_impl()
+            sp.set(fn_min_hz=float(np.min(fns)), fn_max_hz=float(np.max(fns)))
+            g = obs.gauge("raft_eigen_fn_hz",
+                          "undamped natural frequency per system DOF [Hz]")
+            for idof, fn in enumerate(np.asarray(fns)):
+                g.set(float(fn), dof=str(idof))
+        return fns, modes
+
+    def _solve_eigen_impl(self):
         nDOF = self.nDOF
         M_tot = np.zeros((nDOF, nDOF))
         C_tot = np.zeros((nDOF, nDOF))
@@ -551,11 +618,27 @@ class Model:
         own 6x6 impedance (the reference leaves the array mooring out of
         the linearization); the block-diagonal (nw, 6N, 6N) system plus
         the array mooring's stiffness then gives the coupled response of
-        every heading."""
+        every heading.  Span ``solveDynamics`` (one ``fowt_linearize`` per
+        FOWT), its host pulls in the ``dynamics`` phase."""
+        with obs.span("solveDynamics", case=self._case_label()) as sp, \
+                transfers.phase("dynamics"):
+            return self._solve_dynamics_impl(case, tol, sp)
+
+    def _record_dyn_residual(self, ih, rel):
+        """Record one heading's system-solve relative residual."""
+        obs.gauge(
+            "raft_dynamics_solve_residual",
+            "relative residual |Z Xi - F|/|F| of the system RAO solve",
+            ).set(rel, case=self._case_label(), heading=str(ih))
+        return rel
+
+    def _solve_dynamics_impl(self, case, tol, sp):
         N = self.nFOWT
         nw = self.nw
         for i in range(N):
-            self._fowt_linearize(i, self._case_for_fowt(case, i), tol=tol)
+            with obs.span("fowt_linearize", fowt=i, case=self._case_label()):
+                self._fowt_linearize(i, self._case_for_fowt(case, i),
+                                     tol=tol)
 
         Z_sys = _block_diag([st["Z"].movedim(-1, 0)          # (nw,6N,6N)
                              for st in self._state])
@@ -569,12 +652,37 @@ class Model:
         #: promoted lanes), for the last case
         self.last_system_dispatch = last_dispatch()
 
-        # conditioning telemetry of the impedance stack
-        if bool(torch.all(torch.isfinite(Z_sys.real)
-                          & torch.isfinite(Z_sys.imag))):
-            cond = torch.linalg.cond(Z_sys)
+        # conditioning telemetry of the impedance stack, on the card by
+        # default (the SVD's error check is one counted read; an
+        # identity stands in for a non-finite stack, which records
+        # nothing), on the host under RAFT_TPU_TELEMETRY=full
+        if _config.telemetry_mode() == "full":
+            Z_host = _np(Z_sys, "impedance_stack")
+            finite = bool(np.all(np.isfinite(Z_host)))
+            if finite:
+                cond = np.linalg.cond(Z_host)
+                cond_max, cond_med = float(cond.max()), float(np.median(cond))
+        else:
+            fin_t = torch.all(torch.isfinite(Z_sys.real)
+                              & torch.isfinite(Z_sys.imag))
+            eye = torch.eye(Z_sys.shape[-1], dtype=Z_sys.dtype,
+                            device=Z_sys.device)
+            cond = transfers.sync_point(
+                torch.linalg.cond, torch.where(fin_t, Z_sys, eye),
+                what="cond_check")
+            finite, cond_max, cond_med = _np(
+                torch.stack([fin_t.to(cond.dtype), torch.max(cond),
+                             torch.median(cond)]), "cond_estimate")
+            finite = bool(finite)
+        if finite:
+            cond_max, cond_med = float(cond_max), float(cond_med)
+            sp.set(cond_max=cond_max, cond_median=cond_med)
+            obs.gauge(
+                "raft_dynamics_condition_number",
+                "max condition number of the 6Nx6N impedance over "
+                "frequencies").set(cond_max, case=self._case_label())
             self._case_records.setdefault(self._case_label(), {})[
-                "cond_max"] = _f(torch.max(cond))
+                "cond_max"] = cond_max
 
         nWaves = self._state[0]["seastate"]["nWaves"]
         for fowt, st in zip(self.fowtList, self._state):
@@ -614,9 +722,11 @@ class Model:
                     beta = float(seastate["beta"][ih])
                     RAO_h = get_rao(Xi_d[ih, 6 * i:6 * i + 6],
                                     seastate["zeta"][ih])
-                    qtf_h = qt.calc_qtf_slender_body(
-                        fowt, st["pose_eq"], beta, Xi0=RAO_h,
-                        M_struc=st["statics"]["M_struc"])[:, :, None, :]
+                    with obs.span("calcQTF_slenderBody", fowt=i,
+                                  case=self._case_label()):
+                        qtf_h = qt.calc_qtf_slender_body(
+                            fowt, st["pose_eq"], beta, Xi0=RAO_h,
+                            M_struc=st["statics"]["M_struc"])[:, :, None, :]
                     st["Fhydro_2nd_mean"][ih], st["Fhydro_2nd"][ih] = \
                         qt.hydro_force_2nd(qtf_h, [beta], fowt.w1_2nd, beta,
                                            seastate["S"][ih], self.w)
@@ -627,15 +737,16 @@ class Model:
             Xi_d = torch.cat([Xi_d[:1], Xi2_d[1:]])
             self._lap("second_order_fp", t0)
         rec = self._case_records.setdefault(self._case_label(), {})
-        rel_h = [float(r) for r in _np(rel_d)]
-        rel2_h = None if rel2 is None else [float(r) for r in _np(rel2)]
+        rel_h = [float(r) for r in _np(rel_d, "solve_residual")]
+        rel2_h = None if rel2 is None else [
+            float(r) for r in _np(rel2, "solve_residual")]
         # per heading: the first solve, then (when present) its re-solve
         rec["dyn_solve_residual"] = [
-            r for ih in range(nWaves)
+            self._record_dyn_residual(ih, r) for ih in range(nWaves)
             for r in ([rel_h[ih]] + ([rel2_h[ih]] if rel2_h and ih else []))]
 
         Xi_sys = np.zeros((nWaves + 1, 6 * N, nw), dtype=complex)
-        Xi_sys[:nWaves] = _np(Xi_d)
+        Xi_sys[:nWaves] = _np(Xi_d, "response")
         bad = ~np.isfinite(Xi_sys)
         if bad.any():
             raise errors.NonFiniteResult(
@@ -732,7 +843,11 @@ class Model:
                      + C_lin[:, :, None]).to(COMPLEX)
                 Xi = impedance_solve(w, M_lin, B_tot, C_lin, F_lin + F_drag)
                 tolCheck = torch.abs(Xi - XiLast) / (torch.abs(Xi) + tol)
-                conv = bool(torch.all(tolCheck < tol))
+                # one pull a pass: the largest relative update (all below
+                # tol <=> its max below tol; a NaN fails both)
+                res = float(_np(torch.max(tolCheck), "drag_fixed_point_step"))
+                conv = bool(res < tol)
+                obs.probes.probe("drag_fixed_point", it=ii, residual=res)
                 if not conv:
                     XiLast = keep * XiLast + relax * Xi
                 ii += 1
@@ -759,9 +874,32 @@ class Model:
             self._lap("second_order_fp", t0)
             state["qtf"] = qtf4
 
-        Xi_np, XiLast_np = _np(Xi), _np(XiLast)
+        Xi_np, XiLast_np = transfers.device_get((Xi, XiLast),
+                                                what="drag_fixed_point")
         residual = float(np.max(np.abs(Xi_np - XiLast_np)
                                 / (np.abs(Xi_np) + tol)))
+        lbl = dict(fowt=ifowt, case=self._case_label())
+        obs.histogram(
+            "raft_fixed_point_iterations",
+            "drag-linearization fixed-point iterations per load case",
+            buckets=obs.ITER_BUCKETS).observe(ii, **lbl)
+        obs.gauge(
+            "raft_fixed_point_last_iterations",
+            "iterations of the most recent drag fixed point",
+            ).set(ii, **lbl)
+        obs.gauge(
+            "raft_fixed_point_residual",
+            "final relative update of the drag fixed point "
+            "(|Xi_n - Xi_{n-1}| / (|Xi_n| + tol), max over DOF x freq)",
+            ).set(residual, **lbl)
+        if not converged:
+            obs.counter(
+                "raft_fixed_point_nonconverged_total",
+                "drag fixed points that hit nIter without converging",
+                ).inc(1, **lbl)
+        cur = obs.current_span()
+        if cur is not None:
+            cur.set(iterations=ii, residual=residual, converged=converged)
         rec = self._case_records.setdefault(self._case_label(), {})
         rec[f"fowt{ifowt}"] = {"drag_iters": ii, "drag_residual": residual,
                                "drag_converged": converged}
@@ -790,7 +928,7 @@ class Model:
             if self._iCase is not None:
                 tag += f"_Case{self._iCase + 1}"
             tag += f"_WT{ifowt}"
-            RAO_np = _np(RAO)
+            RAO_np = _np(RAO, "first_order_rao")
             qt.write_rao_4(os.path.join(self.outFolderQTF,
                                         f"raos-slender_body_{tag}.4"),
                            self.w, beta0, RAO_np)
@@ -804,13 +942,15 @@ class Model:
                 if hit:
                     qd = qt.read_qtf_12d(cache_path, rho=fowt.rho_water,
                                          g=fowt.g)
-                    w2 = _np(fowt.w1_2nd)
+                    w2 = _np(fowt.w1_2nd, "qtf_grid")
                     if len(qd.w) == len(w2) and np.allclose(qd.w, w2,
                                                             rtol=1e-6):
                         return torch.as_tensor(qd.qtf, dtype=COMPLEX,
                                                device=self.device)
-        qtf4 = qt.calc_qtf_slender_body(fowt, pose_eq, beta0, Xi0=RAO,
-                                        M_struc=M_struc)[:, :, None, :]
+        with obs.span("calcQTF_slenderBody", fowt=ifowt,
+                      case=self._case_label()):
+            qtf4 = qt.calc_qtf_slender_body(fowt, pose_eq, beta0, Xi0=RAO,
+                                            M_struc=M_struc)[:, :, None, :]
         if cache_path is not None:
             qt.write_qtf_12d(cache_path, _np(qtf4), _np(fowt.w1_2nd),
                              [beta0], rho=fowt.rho_water, g=fowt.g)
@@ -836,8 +976,12 @@ class Model:
         self.results.setdefault("properties", {})
         self.solveStatics(None)
         self.results["properties"]["offset_unloaded"] = self._state[0]["Xi0"]
-        self.C_moor0 = _np(self._state[0]["C_moor"]).copy()
-        self.F_moor0 = _np(self._state[0]["F_moor0"]).copy()
+        with transfers.phase("statics"):
+            C, F = transfers.device_get(
+                (self._state[0]["C_moor"], self._state[0]["F_moor0"]),
+                what="unloaded_mooring")
+        self.C_moor0 = np.array(C)
+        self.F_moor0 = np.array(F)
 
     def analyzeCases(self, display=0, resume=False):
         """Statics + dynamics + output statistics per load case; the
@@ -857,8 +1001,26 @@ class Model:
         this model's journal holds (``self.resumed_cases``) and re-runs
         the others.  A kernel that fails to build, load or launch raises
         at once; ``RAFT_TPU_RECOVERY=0`` turns ladder and quarantine
-        off."""
+        off.
+
+        Observability: span ``analyzeCases`` around the case loop, the
+        ``case_start`` / ``case_end`` / ``quarantine`` events, and a
+        ``RunManifest`` (``self.last_manifest``: the config, the phase
+        walls, the metrics, the host transfers of this run per phase and
+        per case, the failed cases, the ladder's attempts, the resumed
+        cases, ``timings``) finished at the end and written, with the
+        Chrome trace, the ledger and the event stream, under
+        ``obs.out_dir()`` when one is set."""
         nCases = len(self.design["cases"]["data"])
+        obs.device.jit_cache_delta(scope="analyzeCases")   # baseline
+        manifest = obs.RunManifest.begin(kind="analyzeCases", config={
+            "nCases": nCases, "nFOWT": self.nFOWT, "nw": self.nw,
+            "nDOF": self.nDOF, "nIter": self.nIter, "depth": self.depth,
+            "device": str(self.device)})
+        obs.record_build_info(run_id=manifest.run_id)
+        #: the run manifest of the most recent analyzeCases
+        self.last_manifest = manifest
+        transfers0 = transfers.snapshot()
         self._case_records = {}
         self.timings = {"statics": 0.0, "dynamics": 0.0, "outputs": 0.0,
                         "journal": 0.0}
@@ -871,12 +1033,45 @@ class Model:
         self.recovery_attempts = []
         #: the cases this run restored from the journal
         self.resumed_cases = []
+        status = "failed"
+        ledger = None
         try:
-            self._analyze_cases_impl(nCases, display, resume)
+            with obs.span("analyzeCases", nCases=nCases, nFOWT=self.nFOWT):
+                self._analyze_cases_impl(nCases, display, resume)
+            status = "ok"
+            ledger = self.last_ledger = _ledger.ledger_from_model(
+                self, run_id=manifest.run_id)
         finally:
             self._iCase = None
-        self.last_ledger = _ledger.ledger_from_model(self)
+            self._finish_manifest(manifest, status, ledger, transfers0,
+                                  nCases)
         return self.results
+
+    def _finish_manifest(self, manifest, status, ledger, transfers0,
+                         nCases):
+        """Fold this run's facts into ``manifest`` and finish it (written
+        under ``obs.out_dir()`` with the trace, ``ledger`` and events)."""
+        xfers = transfers.delta(transfers0, transfers.snapshot())
+        xfers["per_case"] = {ph: round(rec["events"] / max(nCases, 1), 3)
+                             for ph, rec in xfers["phases"].items()}
+        manifest.extra["host_transfers"] = xfers
+        manifest.extra["failed_cases"] = list(self.failed_cases)
+        # the dispatch facts without their tensors (a read would sync)
+        manifest.extra["solver"] = {
+            k: v for k, v in last_dispatch().items()
+            if not isinstance(v, torch.Tensor)}
+        if self.recovery_attempts:
+            manifest.extra["recovery"] = {
+                "attempts": [a.to_dict() for a in self.recovery_attempts]}
+        if self.resumed_cases:
+            manifest.extra["resumed_cases"] = list(self.resumed_cases)
+        manifest.extra["timings"] = dict(self.timings)
+        if status == "ok":
+            obs.device.collect(manifest, scope="analyzeCases")
+        paths = obs.finish_run(manifest, status=status, ledger=ledger)
+        if paths["manifest"]:
+            _LOG.info("run manifest: %s  trace: %s  ledger: %s",
+                      paths["manifest"], paths["trace"], paths["ledger"])
 
     # ---- cross-case carry state (retry and resume bookkeeping) ----------
 
@@ -892,9 +1087,10 @@ class Model:
                 else list(st["_stored_heading"]) for st in self._state],
             "F_meandrift": [
                 None if "F_meandrift" not in st
-                else _np(st["F_meandrift"]).copy() for st in self._state],
+                else np.array(_np(st["F_meandrift"], "carry"))
+                for st in self._state],
             "arr_xf": (None if self._arr_xf is None
-                       else _np(self._arr_xf).copy()),
+                       else np.array(_np(self._arr_xf, "carry"))),
         }
 
     def _restore_carry(self, carry: dict):
@@ -936,7 +1132,7 @@ class Model:
             self._lap(key, t0)
 
     def _analyze_cases_impl(self, nCases, display, resume):
-        with self._timed("journal"):
+        with self._timed("journal"), transfers.phase("journal"):
             journal = self._case_journal()
         quarantine = recovery.enabled()
         last_err = None
@@ -952,7 +1148,11 @@ class Model:
                     self._resume_case(iCase, entry)
                     continue
             self.results["case_metrics"][iCase] = {}
-            carry0 = self._snapshot_carry()
+            with transfers.phase("journal"):
+                carry0 = self._snapshot_carry()
+            # per-case progress on the flight recorder, as it happens
+            obs.events.emit("case_start", case=iCase, n_cases=nCases)
+            t_case = time.perf_counter()
             ok = False
             try:
                 with faults.context(case=iCase):
@@ -964,6 +1164,9 @@ class Model:
                 last_err = e
                 self._quarantine_case(iCase, e)
             finally:
+                obs.events.emit(
+                    "case_end", case=iCase, n_cases=nCases, ok=ok,
+                    s=round(time.perf_counter() - t_case, 3))
                 # keep the mean-offset list aligned with the case index (a
                 # failed case may have appended 0 or 1 entries)
                 offs = self.results["mean_offsets"]
@@ -973,7 +1176,7 @@ class Model:
             if ok and journal is not None:
                 # host values only: the outputs are numpy, the carry is
                 # pulled to the host
-                with self._timed("journal"):
+                with self._timed("journal"), transfers.phase("journal"):
                     journal.store_case(iCase, {
                         "case_metrics": self.results["case_metrics"][iCase],
                         "mean_offset": np.array(
@@ -1018,11 +1221,13 @@ class Model:
                        recovery.statics_ladder())
             for st in self._state:
                 st.pop("F_meandrift", None)
-        with self._timed("outputs"):
+        with self._timed("outputs"), transfers.phase("outputs"):
             for i in range(self.nFOWT):
                 self.results["case_metrics"][iCase][i] = {}
-                self.saveTurbineOutputs(
-                    self.results["case_metrics"][iCase][i], i, case)
+                with obs.span("saveTurbineOutputs", fowt=i,
+                              case=str(iCase)):
+                    self.saveTurbineOutputs(
+                        self.results["case_metrics"][iCase][i], i, case)
             if self.arr_ms is not None:
                 self.results["case_metrics"][iCase]["array_mooring"] = \
                     self._array_tension_stats(iCase)
@@ -1044,21 +1249,42 @@ class Model:
         # The advanced _stored_heading stays, as in the clean flow.
         for state in self._state:
             state.pop("F_meandrift", None)
+        obs.counter(
+            "raft_tpu_cases_failed_total",
+            "load cases quarantined by analyzeCases after the "
+            "degradation ladder was exhausted, by phase").inc(
+            1.0, phase=rec.get("phase", "unknown"))
+        obs.events.emit(
+            "quarantine", case=int(iCase),
+            phase=rec.get("phase", "unknown"),
+            error=rec.get("error", type(err).__name__))
+        cur = obs.current_span()
+        if cur is not None:
+            cur.set(failed_cases=len(self.failed_cases))
         _LOG.error("case %d quarantined: %s", iCase, err)
 
     def _resume_case(self, iCase, entry):
         """Restore one journaled case: its metrics, ledger record and the
-        carry it handed on; its solves do not run."""
-        self.results["case_metrics"][iCase] = entry["case_metrics"]
-        offs = self.results["mean_offsets"]
-        del offs[iCase:]
-        while len(offs) < iCase:
-            offs.append(np.full(self.nDOF, np.nan))
-        offs.append(np.array(entry["mean_offset"], float))
-        if entry.get("case_record"):
-            self._case_records[str(iCase)] = entry["case_record"]
-        self._restore_carry(entry["carry"])
+        carry it handed on; its solves do not run (span
+        ``case_resumed``)."""
+        with obs.span("case_resumed", case=str(iCase)):
+            self.results["case_metrics"][iCase] = entry["case_metrics"]
+            offs = self.results["mean_offsets"]
+            del offs[iCase:]
+            while len(offs) < iCase:
+                offs.append(np.full(self.nDOF, np.nan))
+            offs.append(np.array(entry["mean_offset"], float))
+            if entry.get("case_record"):
+                self._case_records[str(iCase)] = entry["case_record"]
+            self._restore_carry(entry["carry"])
         self.resumed_cases.append(int(iCase))
+        obs.events.emit("case_end", case=int(iCase), ok=True,
+                        resumed=True, s=0.0,
+                        n_cases=len(self.design["cases"]["data"]))
+        obs.counter(
+            "raft_tpu_cases_resumed_total",
+            "load cases restored from the per-case journal instead of "
+            "re-solved").inc(1.0)
         _LOG.info("case %d restored from the journal", iCase)
 
     # ------------------------------------------------------------------
@@ -1086,7 +1312,7 @@ class Model:
         return {"Tmoor_avg": T0, "Tmoor_std": TRMS,
                 "Tmoor_max": T0 + 3 * TRMS, "Tmoor_min": T0 - 3 * TRMS,
                 "Tmoor_PSD": np.stack([
-                    _np(get_psd(T_amps[:, iT, :], dw, source_axis=0))
+                    _hnp(get_psd(T_amps[:, iT, :], dw, source_axis=0))
                     for iT in range(nT)])}
 
     def saveTurbineOutputs(self, results, ifowt, case):
@@ -1098,7 +1324,7 @@ class Model:
         Xi0 = state["Xi0"]
         dw = self.w[1] - self.w[0]
         rms = lambda x: float(get_rms(x))                       # noqa: E731
-        psd = lambda x, ax=0: _np(get_psd(x, dw, source_axis=ax))  # noqa: E731
+        psd = lambda x, ax=0: _hnp(get_psd(x, dw, source_axis=ax))  # noqa: E731
 
         chans = ["surge", "sway", "heave", "roll", "pitch", "yaw"]
         for idof, ch in enumerate(chans):
@@ -1116,7 +1342,7 @@ class Model:
             results[f"{ch}_RA"] = np.asarray(sig)
 
         # first-heading RAO magnitude/phase summaries per DOF
-        RAO0 = _np(get_rao(Xi[0], state["seastate"]["zeta"][0]))
+        RAO0 = _hnp(get_rao(Xi[0], state["seastate"]["zeta"][0]))
         mag = np.abs(RAO0)
         for idof, ch in enumerate(chans):
             ipk = int(np.argmax(mag[idof]))
@@ -1395,10 +1621,13 @@ class Model:
             fowt, xy, cases["Hs"], cases["Tp"], cases["beta"],
             cases["U_inf"], cases.get("wind_dir"), C_moor_t=C_moor_t,
             device=self.device, **kw)
+        with transfers.phase("farm"):
+            host = transfers.device_get(
+                {k: out[k] for k in ("std", "U_wake", "aero_power",
+                                     "wake_iters")}, what="farm_results")
         self.results["farm"] = {
             "n_turbines": n, "ncases": int(np.asarray(cases["Hs"]).size),
-            **{k: _np(out[k]) for k in ("std", "U_wake", "aero_power",
-                                        "wake_iters")}}
+            **host}
         return out
 
     def powerThrustCurve(self, speeds=None, ifowt=0):

@@ -54,7 +54,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from raft_tpu_torch._config import COMPLEX, REAL, as_real
+from raft_tpu_torch._config import COMPLEX, REAL, as_real, to_device
 from raft_tpu_torch.io.bem_native import solve_bem_fowt
 from raft_tpu_torch.io.wamit import bem_excitation, load_bem
 from raft_tpu_torch.models.member import (
@@ -446,7 +446,7 @@ def fowt_statics(fowt: FOWTModel, pose, l_fill=None, rho_fill=None):
     rCG_tow = []
     mballast = []
     pballast = []
-    gvec = torch.tensor([0.0, 0.0, -g], **f64)
+    gvec = as_real([0.0, 0.0, -g], dev)
 
     for i, (m, mtype, mname) in enumerate(zip(fowt.members, fowt.member_types,
                                               fowt.member_names)):
@@ -486,13 +486,13 @@ def fowt_statics(fowt: FOWTModel, pose, l_fill=None, rho_fill=None):
     # RNA inertia contributions (reference :467-480)
     for rot in fowt.rotors:
         rpose = rotor_pose(rot, r6)
-        Mmat = torch.diag(torch.tensor([rot.mRNA, rot.mRNA, rot.mRNA,
-                                        rot.IxRNA, rot.IrRNA, rot.IrRNA], **f64))
+        Mmat = torch.diag(as_real([rot.mRNA, rot.mRNA, rot.mRNA,
+                                   rot.IxRNA, rot.IrRNA, rot.IrRNA], dev))
         Mmat = rotate_matrix_6(Mmat, rpose["R_q"])
         r_RRP_rel = rpose["R_ptfm"] @ as_real(rot.r_rel, dev)
         r_CG_rel = r_RRP_rel + rpose["q"] * rot.xCG_RNA
         W_struc = W_struc + translate_force_3to6(
-            torch.tensor([0.0, 0.0, -g * rot.mRNA], **f64), r_CG_rel)
+            as_real([0.0, 0.0, -g * rot.mRNA], dev), r_CG_rel)
         M_struc = M_struc + translate_matrix_6to6(Mmat, r_CG_rel)
         m_center_sum = m_center_sum + r_CG_rel * rot.mRNA
 
@@ -502,7 +502,7 @@ def fowt_statics(fowt: FOWTModel, pose, l_fill=None, rho_fill=None):
 
     # built without in-place writes, so the statics run under
     # torch.func.vmap over design variants
-    e34 = torch.tensor([0.0, 0.0, 0.0, 1.0, 1.0, 0.0], **f64)
+    e34 = as_real([0.0, 0.0, 0.0, 1.0, 1.0, 0.0], dev)
     C_struc = torch.diag(e34 * (-m_all * g * rCG[2]))
     C_struc_sub = torch.diag(e34 * (-m_sub * g * rCG_sub[2]))
 
@@ -570,7 +570,8 @@ def fowt_hydro_constants(fowt: FOWTModel, pose):
     # Cm = 4i / (pi (kR)^2 H1'(kR)), blended by a cosine ramp into the
     # Morison Cm for long waves (k < pi / (5R)), zero at k <= 0; on the
     # transverse terms only, the end term stays real
-    if fowt.nodes.MCF is not None and bool(np.any(_host(fowt.nodes.MCF))):
+    if fowt.nodes.MCF is not None and bool(np.any(_host(fowt.nodes.MCF,
+                                                         "mcf_flags"))):
         k = as_real(fowt.k, dev)                      # (nw,)
         R = _nd(fowt, "R", dev)                       # (N,)
         R_safe = torch.where(R > 0, R, 1.0)
@@ -627,7 +628,7 @@ def build_seastate(fowt: FOWTModel, case: dict):
                 "wave_period — set both (or neither, for a still sea state)")
     gamma = np.atleast_1d(np.asarray(get_from_dict(case, "wave_gamma", shape=nWaves, dtype=float, default=0), float))
 
-    w = _host(fowt.w)
+    w = _host(fowt.w, "frequencies")
     dw = w[1] - w[0]
     S = np.zeros((nWaves, len(w)))
     zeta = np.zeros((nWaves, len(w)), dtype=complex)
@@ -648,9 +649,13 @@ def build_seastate(fowt: FOWTModel, case: dict):
     return dict(beta=np.deg2rad(heading), S=S, zeta=zeta, nWaves=nWaves)
 
 
-def _host(x):
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
-        else np.asarray(x)
+def _host(x, what="fowt_constant"):
+    """A host copy of ``x``; a tensor's comes through the counted
+    ``obs.transfers.device_get``."""
+    if isinstance(x, torch.Tensor):
+        from raft_tpu_torch.obs import transfers
+        return transfers.device_get(x, what=what)
+    return np.asarray(x)
 
 
 def fowt_bem_excitation(fowt: FOWTModel, seastate):
@@ -683,7 +688,7 @@ def fowt_hydro_excitation(fowt: FOWTModel, pose, seastate, hydro_consts):
     w = as_real(fowt.w, dev)
     k = as_real(fowt.k, dev)
     beta = as_real(seastate["beta"], dev).reshape(-1)
-    zeta = torch.as_tensor(seastate["zeta"], device=dev).to(COMPLEX)
+    zeta = to_device(seastate["zeta"], dev, COMPLEX)
     zeta = zeta.reshape(beta.shape[0], -1)
 
     u, ud, pDyn = wave_kinematics(zeta, beta, w, k, fowt.depth, r,

@@ -621,10 +621,12 @@ def member_hydrostatics(geom: MemberGeometry, pose, rPRP=None,
     last_cross = torch.max(torch.where(cross, idxs, -1))
     any_cross = last_cross >= 0
     sel = torch.clamp(last_cross, 0, nsec - 1)
-    AWP = torch.where(any_cross, AWP_s[sel], 0.0)
-    IWP = torch.where(any_cross, IWP_s[sel], 0.0)
-    xWP = torch.where(any_cross, xWP_s[sel], 0.0)
-    yWP = torch.where(any_cross, yWP_s[sel], 0.0)
+    # a gather, not x[sel]: indexing by a 0-d tensor reads it on the host
+    isel = sel.reshape(1)
+    AWP = torch.where(any_cross, AWP_s.index_select(0, isel)[0], 0.0)
+    IWP = torch.where(any_cross, IWP_s.index_select(0, isel)[0], 0.0)
+    xWP = torch.where(any_cross, xWP_s.index_select(0, isel)[0], 0.0)
+    yWP = torch.where(any_cross, yWP_s.index_select(0, isel)[0], 0.0)
 
     return dict(Fvec=Fvec, Cmat=Cmat, V_UW=V_UW, r_center=r_center,
                 AWP=AWP, IWP=IWP, xWP=xWP, yWP=yWP)

@@ -369,7 +369,7 @@ def line_forces(sys_: MooringSystem, r6, current=None, rF=None):
     dr = rF - rA
     f_drag = chord_drag_per_length(dr, U, sys_.d_vol, sys_.Cd_t,
                                    sys_.Cd_a, sys_.rho)
-    down = torch.tensor([0.0, 0.0, -1.0], dtype=torch.float64, device=dev)
+    down = as_real([0.0, 0.0, -1.0], dev)
     w_vec = f_drag + w[:, None] * down
     # net-buoyant lines stay on the plain vertical-plane solve
     sinking = w > 0.0
@@ -511,8 +511,7 @@ def tension_jacobian(sys_, r6, xf=None):
 def _fd_poses(r6, dx, dth):
     """The 12 centrally perturbed poses (+ then -) and the steps."""
     r6 = as_real(r6)
-    dX = torch.tensor([dx, dx, dx, dth, dth, dth], dtype=torch.float64,
-                      device=r6.device)
+    dX = as_real([dx, dx, dx, dth, dth, dth], r6.device)
     E = torch.diag(dX)
     return torch.cat([r6[None] + E, r6[None] - E]), dX
 

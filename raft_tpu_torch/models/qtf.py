@@ -162,8 +162,12 @@ def _interp_c(x, xp, fp):
 # --------------------------------------------------------------------------
 
 def _np(x):
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
-        else np.asarray(x)
+    """A host copy of ``x``; a tensor's through the counted
+    ``obs.transfers.device_get``."""
+    if isinstance(x, torch.Tensor):
+        from raft_tpu_torch.obs import transfers
+        return transfers.device_get(x, what="qtf_fields")
+    return np.asarray(x)
 
 
 def qtf_fields(fowt, pose, beta, Xi0=None, M_struc=None) -> dict:

@@ -548,12 +548,12 @@ def _hub_loads(rot: RotorModel, Np, Tp, azimuth_deg, dev):
     nS = Np.shape[0]
     f64 = dict(dtype=torch.float64, device=dev)
     r = _tab(rot, "blade_r", dev)
-    rfull = torch.cat([torch.tensor([rot.Rhub], **f64), r,
-                       torch.tensor([rot.Rtip], **f64)])
+    rfull = torch.cat([as_real([rot.Rhub], dev), r,
+                       as_real([rot.Rtip], dev)])
     curve = torch.cat([torch.zeros(1, **f64), _tab(rot, "precurve", dev),
-                       torch.tensor([rot.precurveTip], **f64)])
+                       as_real([rot.precurveTip], dev)])
     sweep = torch.cat([torch.zeros(1, **f64), _tab(rot, "presweep", dev),
-                       torch.tensor([rot.presweepTip], **f64)])
+                       as_real([rot.presweepTip], dev)])
     z1 = torch.zeros_like(Np[:, :1])
     Npf = torch.cat([z1, Np, z1], dim=1)
     Tpf = torch.cat([z1, Tp, z1], dim=1)
@@ -752,9 +752,9 @@ def calc_aero(rot: RotorModel, w, case: dict, r6=None, current=False):
                                 np.asarray(rot.Omega_rpm_ops)))
     pitch_deg = float(np.interp(Uhub, np.asarray(rot.Uhub_ops),
                                 np.asarray(rot.pitch_deg_ops)))
-    Uhub_t = torch.tensor(Uhub, **f64)
-    Om_t = torch.tensor(Omega_rpm, **f64)
-    pi_t = torch.tensor(pitch_deg, **f64)
+    Uhub_t = as_real(Uhub, dev)
+    Om_t = as_real(Omega_rpm, dev)
+    pi_t = as_real(pitch_deg, dev)
 
     loads = bem_evaluate(rot, Uhub_t, Om_t, pi_t, tilt=turbine_tilt,
                          yaw=yaw_misalign)
@@ -849,7 +849,8 @@ def _rodrigues_np(az_deg, axis):
 def _host(x):
     """A host numpy copy of a rotor table (numpy, or a tensor anywhere)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        from raft_tpu_torch.obs import transfers
+        return transfers.device_get(x, what="rotor_table")
     return np.asarray(x, float)
 
 
@@ -935,7 +936,8 @@ def calc_cavitation(rot: RotorModel, case: dict, clearance_margin=1.0,
         * _tab(rot, "blade_r", dev)[None, :] * clearance_margin
     sigma_crit = (Patm + rot.rho * 9.81 * torch.abs(z) - Pvap) \
         / torch.clamp(0.5 * rot.rho * W**2, min=1e-9)
-    cav = (sigma_crit + cpmin).cpu().numpy()
+    from raft_tpu_torch.obs import transfers
+    cav = transfers.device_get(sigma_crit + cpmin, what="cavitation")
     if np.any(cav < 0.0):
         if error_on_cavitation:
             raise ValueError("Cavitation occurred at a blade node")

@@ -77,9 +77,12 @@ def wake_velocities(xy, D, Ct, U_inf, wind_dir_deg=0.0, k_w=0.05):
     return U_inf * (1.0 - np.sqrt(ssq))
 
 
-def _host(x):
+def _host(x, what="wake_table"):
+    """A host copy of ``x``; a tensor's through the counted
+    ``obs.transfers.device_get``."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        from raft_tpu_torch.obs import transfers
+        return transfers.device_get(x, what=what)
     return np.asarray(x)
 
 
@@ -116,8 +119,9 @@ def power_thrust_curve(model, speeds=None, ifowt=0, cut_in=3.0,
         out = bem_evaluate(rot, as_real(Uh_all[i], dev),
                            as_real(om_all[i], dev), as_real(pi_all[i], dev),
                            tilt=-rot.shaft_tilt)
-        P[i] = float(out["P"])
-        T[i] = float(out["T"])
+        P[i], T[i] = _host(torch.stack([out["P"].reshape(()),
+                                        out["T"].reshape(())]),
+                           "power_curve")
     pitch[op] = pi_all[op]
     omega[op] = om_all[op]
     Cp = P / (0.5 * rho * A * speeds**3)
@@ -294,7 +298,7 @@ def wake_equilibria_torch(xy, D, curve_speed, curve_Ct, curve_power,
     done = torch.zeros(nc, dtype=torch.bool, device=dev)
     while True:
         run = (~done) & (it < max_iter)
-        if not bool(torch.any(run)):
+        if not bool(_host(torch.any(run), "wake_iteration")):
             break
         U_new = wake_velocities_torch(xy_w, D, Ct, U_inf, k_w)
         conv = torch.amax(torch.abs(U_new - U), dim=-1) < tol

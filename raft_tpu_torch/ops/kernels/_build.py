@@ -10,7 +10,10 @@ then linked into one library.  ``-Xptxas -v`` output (registers and spills
 per kernel) is kept beside the library in ``ptxas.log``.
 
 Nothing here is imported or run at module import time of the package:
-the build happens inside the first kernel launch.
+the build happens inside the first kernel launch.  Each nvcc build and
+each load of the library is counted (``obs.metrics.record_kernel_build``:
+``raft_kernel_build_events_total{event}``; ``raft_jit_cache_hits`` /
+``_misses`` when sampled).
 """
 from __future__ import annotations
 
@@ -116,7 +119,17 @@ def build() -> str:
     os.replace(lib_path + tag, lib_path)
     BUILD_INFO.update(path=lib_path, seconds=seconds, cached=False,
                       units=len(UNITS))
+    _record("compile", seconds)
     return lib_path
+
+
+def _record(event: str, seconds: float):
+    """One build-cache event in the metrics registry (never raises)."""
+    try:
+        from raft_tpu_torch.obs import metrics
+        metrics.record_kernel_build(event, seconds)
+    except Exception:                                 # pragma: no cover
+        pass
 
 
 def ptxas_log() -> str:
@@ -155,6 +168,7 @@ def load():
     with _LOCK:
         if _LIB is not None:
             return _LIB
+        t0 = time.perf_counter()
         path = build()
         try:
             lib = ctypes.CDLL(path)
@@ -185,6 +199,7 @@ def load():
         lib.raft_gj_error_string.argtypes = [I]
         lib.raft_gj_error_string.restype = ctypes.c_char_p
         _LIB = lib
+        _record("load", time.perf_counter() - t0)
         return lib
 
 

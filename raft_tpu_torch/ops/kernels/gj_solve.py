@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from raft_tpu_torch import errors
@@ -133,12 +134,25 @@ def _ladder_plain(A, rhs, refine, precision, factor_dtype, promote_tol):
     tol = DEFAULT_PROMOTE_TOL if promote_tol is None else float(promote_tol)
     x, rn = _gj_batchlast(A, rhs, refine, factor_dtype=fd, resid=True)
     mask, promoted = promotion_mask(rn, tol)
-    if bool(torch.any(mask)):
-        idx = torch.nonzero(mask).flatten()
+    idx = _promoted_lanes(mask)
+    if idx is not None:
         xh, _ = _gj_batchlast(A[..., idx], rhs[..., idx], refine)
         x = x.clone()
         x[..., idx] = xh
     return x, _stats(lanes, A.dtype, A.device, promoted, rn)
+
+
+def _promoted_lanes(mask):
+    """The indices (a tensor on the mask's device) of the lanes ``mask``
+    promotes, or None when it promotes none: the mask comes to the host
+    in one counted pull (``obs.transfers.device_get``)."""
+    from raft_tpu_torch._config import to_device
+    from raft_tpu_torch.obs import transfers
+
+    m = transfers.device_get(mask.reshape(-1), what="promotion_mask")
+    if not m.any():
+        return None
+    return to_device(np.flatnonzero(m), mask.device)
 
 
 def _stats(lanes, dtype, dev, promoted=None, rn=None):
@@ -422,8 +436,8 @@ def ladder_in_chunks(A, b, kc, solve_chunk, solve_full, promote_tol):
     x = torch.cat(xs, dim=-1)[..., :k]
     rn = (rmax / (bmax + eps)).reshape(-1)
     mask, promoted = promotion_mask(rn, promote_tol)
-    if bool(torch.any(mask)):
-        idx = torch.nonzero(mask).flatten()
+    idx = _promoted_lanes(mask)
+    if idx is not None:
         x = x.reshape(-1, n, k).clone()
         x[idx] = solve_full(A.reshape(-1, n, n)[idx], b.reshape(-1, n, k)[idx])
         x = x.reshape(batch + (n, k))

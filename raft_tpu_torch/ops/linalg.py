@@ -42,7 +42,10 @@ ladder `_mixed_ladder` with LU at the low width
 the JAX package's jnp Gauss-Jordan core, outside any kernel) and
 re-solves the promoted lanes in float64 by LU.
 
-Every decision is recorded for ``last_dispatch()``.
+Every decision is recorded for ``last_dispatch()`` and counted in
+``raft_solve_dispatch_total{backend,n,fused}``; the ladder's host reads
+(the promoted count, the promotion mask) are counted pulls
+(``obs.transfers.device_get``).
 """
 from __future__ import annotations
 
@@ -52,6 +55,7 @@ import torch
 
 from raft_tpu_torch import _config
 from raft_tpu_torch._config import COMPLEX, as_real
+from raft_tpu_torch.obs import metrics as _metrics, transfers
 from raft_tpu_torch.ops import precision as _prec
 from raft_tpu_torch.ops.kernels.gj_solve import (
     gj_solve, gj_solve_plain, impedance_gj_solve)
@@ -126,7 +130,8 @@ def _mixed_ladder(A, b, core_low, core_hi, refine, factor_dtype, tol):
     rn = (torch.amax(torch.abs(r), dim=(-2, -1))
           / (torch.amax(torch.abs(bs), dim=(-2, -1)) + eps))   # (B,)
     mask, promoted = _prec.promotion_mask(rn, tol)
-    if int(promoted) > 0:
+    # the promoted count in one counted pull
+    if int(transfers.device_get(promoted, what="promotion_count")) > 0:
         m = mask[:, None, None]
         eye = torch.eye(n, dtype=As.dtype, device=As.device).expand_as(As)
         xh = core_hi(torch.where(m, As, eye),
@@ -207,6 +212,7 @@ def _record_dispatch(backend, kernel, n, batch_elems, fused, device,
     _LAST_DISPATCH.update(backend=backend, kernel=kernel, n=int(n),
                           batch_elems=int(batch_elems), fused=bool(fused),
                           device=str(device))
+    _metrics.record_solve_dispatch(backend, n, batch_elems, fused)
     if plan is not None:
         _LAST_DISPATCH.update(
             precision=plan["mode"], solve_width=plan["solve_width"],

@@ -31,10 +31,21 @@ the offending lanes alone — splicing every finite result back;
 unfinished chunks.  The ``sweep`` fault seam (``testing/faults.py``)
 sits after the batched solve.
 
+Observability (the JAX package's): ``sweep_cases`` and ``sweep_farm``
+each finish a ``RunManifest`` (kinds ``sweep_cases`` / ``sweep_farm``)
+with their spans, metrics, ledger and counted host pulls (phases
+``sweep`` / ``farm``: one pull a fixed-point chunk, one summary pull a
+batch), and record the ``sweep_lanes`` probe from the summary pull.
+Health mode (``RAFT_TPU_HEALTH=1`` or ``health=True``): the batched
+solve also returns each lane's ``health_residual`` and ``health_cond``
+at the final drag iterate — one more drag linearization and one more
+impedance solve (one more K1 / K3 launch) a batch — folded by
+`_health_summary` into the ``raft_tpu_solve_*`` gauges, a
+``solve_health`` event and ``manifest.extra["solve_health"]``.
+
 Not ported here (ROADMAP): the device mesh / partition rules and the
-executable cache (A9); the run manifest and the health telemetry (A8);
-lane quarantine of the farm sweep (the JAX package has none either); the
-farm runner of the service (``make_farm_runner``,
+executable cache (A9); lane quarantine and the health mode of the farm
+sweep; the farm runner of the service (``make_farm_runner``,
 ``normalize_farm_request``, A10).
 """
 from __future__ import annotations
@@ -42,7 +53,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from raft_tpu_torch import _config, errors, recovery
+from raft_tpu_torch import _config, errors, ledger as _ledger, obs, recovery
 from raft_tpu_torch._config import COMPLEX, REAL, as_real, resolve_device
 from raft_tpu_torch.io.wamit import bem_coeffs
 from raft_tpu_torch.models import mooring as mr
@@ -52,6 +63,7 @@ from raft_tpu_torch.models.fowt import (
     fowt_hydro_linearization_pre, fowt_pose, fowt_statics,
 )
 from raft_tpu_torch.ops.linalg import impedance_solve
+from raft_tpu_torch.obs import transfers
 from raft_tpu_torch.ops.spectra import get_rms, jonswap
 from raft_tpu_torch.recovery import relax_weights
 from raft_tpu_torch.testing import faults
@@ -65,7 +77,7 @@ def unrolled_fixed_point(step, Xi0, nIter, tol, chunk: int = 2,
     under-relaxation, the reference's raft_model.py:961-991 scheme).
 
     The passes are cut into chunks of ``chunk``; before each chunk one
-    host check skips it when every item has converged.  That is exact: a
+    host check (a counted pull) skips it when every item has converged.  That is exact: a
     frozen pass is an identity on the whole carry.  ``chunk=nIter`` (or
     0) runs every pass.
 
@@ -83,7 +95,8 @@ def unrolled_fixed_point(step, Xi0, nIter, tol, chunk: int = 2,
     while remaining > 0:
         count = min(chunk, remaining)
         remaining -= count
-        if bool(torch.all(done)):
+        if bool(transfers.device_get(torch.all(done),
+                                     what="sweep_fp_chunk")):
             continue
         for _ in range(count):
             Xin = step(XiLast)
@@ -102,10 +115,19 @@ def unrolled_fixed_point(step, Xi0, nIter, tol, chunk: int = 2,
 
 def make_case_solver(fowt: FOWTModel, nIter: int = 10, tol: float = 0.01,
                      XiStart: float = 0.1, r6=None, fp_chunk: int = 2,
-                     relax: float = 0.8):
+                     relax: float = 0.8, health: bool = False):
     """Per-case response solver (no aero; wave loading) on the model's
     device: ``solve(Hs, Tp, beta)`` for one case, ``solve.batched(Hs, Tp,
-    beta, Xi0=None)`` for a batch.  Hs, Tp [m, s], beta [rad]."""
+    beta, Xi0=None)`` for a batch.  Hs, Tp [m, s], beta [rad].
+
+    ``health``: the batched solve also returns ``health_residual`` (nc,),
+    each lane's relative residual |Z Xi - F| / |F| of one more impedance
+    solve at the drag linearization of its final iterate (the linear
+    solve's accuracy, not the fixed point's convergence), and
+    ``health_cond`` (nc,), the largest condition number of its impedance
+    over the frequencies (inf where a bin is not finite).  It only adds
+    outputs: ``Xi``, ``std``, ``iters`` and ``converged`` are those of the
+    solve without it."""
     if fowt.potSecOrder > 0:
         import warnings
         warnings.warn(
@@ -180,7 +202,7 @@ def make_case_solver(fowt: FOWTModel, nIter: int = 10, tol: float = 0.01,
         pose constants are computed once per distinct pose (one host read
         of ``r6_b``), the sea state per lane, and every pose-dependent
         entry carries the lane axis."""
-        r6_h = r6_b.detach().cpu().numpy()
+        r6_h = transfers.device_get(r6_b, what="lane_poses")
         uniq, inv = np.unique(r6_h, axis=0, return_inverse=True)
         inv = inv.reshape(-1)
         parts, order = [], []
@@ -277,8 +299,44 @@ def make_case_solver(fowt: FOWTModel, nIter: int = 10, tol: float = 0.01,
         _, Xi, done, iters, chunks = unrolled_fixed_point(
             lambda XiLast: drag_step(st, XiLast), Xi0, nIter, tol,
             chunk=fp_chunk, relax=relax)
-        return dict(Xi=Xi, std=get_rms(Xi, axis=-1), converged=done,
-                    iters=iters, fp_chunks=chunks)
+        out = dict(Xi=Xi, std=get_rms(Xi, axis=-1), converged=done,
+                   iters=iters, fp_chunks=chunks)
+        if health:
+            out.update(health_lanes(st, Xi))
+        return out
+
+    def health_lanes(st, Xi):
+        """(health_residual, health_cond) of each lane at the drag
+        linearization of ``Xi``: one more drag pass and impedance solve
+        (K1, or K3 under mixed), then the residual of that solve,
+        contracted element-wise per lane (a batched product would round
+        by batch size, and a chunk of lanes must give the table's lanes),
+        and the conditioning over the frequency stack with the identity
+        in place of a non-finite bin."""
+        B6_h, Bmat_h = fowt_hydro_linearization_pre(
+            fowt, st["pose"], st["drag_pre"], Xi)
+        F_h = st["F_lin"] + fowt_drag_excitation(fowt, st["pose"], Bmat_h,
+                                                 st["u0"])
+        B_h = B6_h[..., None] + st["B_BEM"]
+        Xi_h = impedance_solve(w, st["M_lin"], B_h, st["C_lin"], F_h)
+        Z_h = (-w ** 2 * st["M_lin"] + 1j * w * B_h
+               + st["C_lin"][..., None]).to(COMPLEX)
+        R_h = torch.sum(Z_h * Xi_h[..., None, :, :], dim=-2) - F_h
+        num = torch.sqrt(torch.sum(torch.abs(R_h) ** 2, dim=(-2, -1)))
+        den = torch.sqrt(torch.sum(torch.abs(F_h) ** 2, dim=(-2, -1)))
+        Zs = Z_h.movedim(-1, -3)                          # (..., nw, 6, 6)
+        bin_ok = torch.all(torch.all(torch.isfinite(Zs.real)
+                                     & torch.isfinite(Zs.imag), dim=-1),
+                           dim=-1)
+        eye = torch.eye(Zs.shape[-1], dtype=Zs.dtype, device=Zs.device)
+        # the SVD's error check reads the card: one counted read
+        conds = transfers.sync_point(
+            torch.linalg.cond, torch.where(bin_ok[..., None, None], Zs, eye),
+            what="health_cond_check")
+        inf = torch.full_like(conds, float("inf"))
+        return dict(health_residual=num / (den + 1e-300),
+                    health_cond=torch.amax(torch.where(bin_ok, conds, inf),
+                                           dim=-1))
 
     solve.batched = solve_batched
     solve.setup = setup
@@ -339,19 +397,22 @@ _LANE_LADDER = (
 _QUARANTINE_MODES = ("nonfinite", "all", "off")
 
 
-def _quarantine_lanes(fowt, Hs, Tp, beta, out, bad, kw, conv, Xi0=None):
+def _quarantine_lanes(fowt, Hs, Tp, beta, out, bad, kw, conv, iters,
+                      Xi0=None):
     """Re-solve only the lanes ``bad`` of a sweep batch down
     `_LANE_LADDER`, splicing every finite result back into ``out``; a
     lane still non-finite or unconverged after a rung goes on to the
     next, and a lane no rung makes finite stays NaN and is reported as
-    quarantined.  ``conv`` is the batch's pulled convergence flags.
-    Returns ``(out, info)``; ``out["converged"]`` and ``out["iters"]``
-    come back agreeing with the spliced lanes."""
+    quarantined.  ``conv`` and ``iters`` are the batch's pulled
+    convergence flags and iteration counts.  Returns ``(out, info)``;
+    ``out["converged"]`` and ``out["iters"]`` come back agreeing with the
+    spliced lanes.  Each rung is a ``sweep_quarantine_resolve`` span with
+    one counted pull; the outcome is a ``quarantine`` event."""
     dev = out["Xi"].device
     info = {"lanes": [int(i) for i in bad], "ladder": [], "recovered": [],
             "quarantined": []}
     out = dict(out)
-    iters = out["iters"].cpu().numpy().copy()
+    iters = np.array(iters, np.int32)
     conv = np.array(conv, bool)
     remaining = np.asarray(bad, int)
     step_from = "batched"
@@ -365,20 +426,22 @@ def _quarantine_lanes(fowt, Hs, Tp, beta, out, bad, kw, conv, Xi0=None):
             kw2["fp_chunk"] = mods["fp_chunk"]
         if "relax" in mods:
             kw2["relax"] = mods["relax"]
-        idx = torch.as_tensor(remaining, device=dev)
-        sub = make_case_solver(fowt, **kw2).batched(
-            Hs[idx], Tp[idx], beta[idx],
-            Xi0=None if Xi0 is None else Xi0[idx])
-        # one pull of the re-solved lanes' summary
-        ok, sconv, siters = torch.stack([
-            _lane_finite(sub["Xi"]).to(torch.int32),
-            sub["converged"].to(torch.int32),
-            sub["iters"].to(torch.int32)]).cpu().numpy()
+        idx = _config.to_device(remaining, dev)
+        with obs.span("sweep_quarantine_resolve", step=name,
+                      lanes=int(remaining.size)):
+            sub = make_case_solver(fowt, **kw2).batched(
+                Hs[idx], Tp[idx], beta[idx],
+                Xi0=None if Xi0 is None else Xi0[idx])
+            # one pull of the re-solved lanes' summary
+            ok, sconv, siters = transfers.device_get(torch.stack([
+                _lane_finite(sub["Xi"]).to(torch.int32),
+                sub["converged"].to(torch.int32),
+                sub["iters"].to(torch.int32)]), what="quarantine_summary")
         ok, sconv = ok.astype(bool), sconv.astype(bool)
         saved = remaining[ok]
         if saved.size:
-            gsel = torch.as_tensor(np.flatnonzero(ok), device=dev)
-            gidx = torch.as_tensor(saved, device=dev)
+            gsel = _config.to_device(np.flatnonzero(ok), dev)
+            gidx = _config.to_device(saved, dev)
             out["Xi"] = out["Xi"].index_copy(0, gidx, sub["Xi"][gsel])
             out["std"] = out["std"].index_copy(0, gidx, sub["std"][gsel])
             iters[saved] = siters[ok]
@@ -397,9 +460,12 @@ def _quarantine_lanes(fowt, Hs, Tp, beta, out, bad, kw, conv, Xi0=None):
         step_from = name
         # lanes still non-finite or not converged walk on
         remaining = remaining[~(ok & sconv)]
-    out["converged"] = torch.as_tensor(conv, device=dev)
-    out["iters"] = torch.as_tensor(iters, dtype=torch.int32, device=dev)
+    out["converged"] = _config.to_device(conv, dev)
+    out["iters"] = _config.to_device(iters, dev, torch.int32)
     info["quarantined"] = sorted(set(info["lanes"]) - set(info["recovered"]))
+    obs.events.emit("quarantine", phase="sweep", lanes=info["lanes"],
+                    recovered=info["recovered"],
+                    quarantined=info["quarantined"])
     return out, info
 
 
@@ -416,7 +482,7 @@ def _sweep_seam(out, ncases):
             inject.append(i)
     if not inject:
         return out
-    ij = torch.as_tensor(inject, device=out["Xi"].device)
+    ij = _config.to_device(inject, out["Xi"].device)
     out = dict(out)
     for k in ("Xi", "std"):
         out[k] = out[k].index_fill(0, ij, float("nan"))
@@ -424,10 +490,55 @@ def _sweep_seam(out, ncases):
     return out
 
 
+def _health_summary(phase, residual, cond, lane_ok, iters) -> dict:
+    """Fold one batch's pulled per-lane health arrays into JSON-safe
+    summary facts, the ``raft_tpu_solve_*`` gauges and a worst-lane
+    ``solve_health`` flight-recorder event (``raft_tpu/parallel/sweep.py:
+    _health_summary``).  Non-finite lanes are left out of the residual
+    and conditioning aggregates and counted as ``nonfinite_lanes``, so
+    every fact stays finite and serializable."""
+    residual = np.asarray(residual, float)
+    cond = np.asarray(cond, float)
+    lane_ok = np.asarray(lane_ok, bool)
+    iters = np.asarray(iters)
+    nonfinite = int(np.count_nonzero(~lane_ok))
+    res_fin = residual[np.isfinite(residual)]
+    cond_fin = cond[np.isfinite(cond)]
+    res_max = float(res_fin.max()) if res_fin.size else 0.0
+    res_med = float(np.median(res_fin)) if res_fin.size else 0.0
+    cond_max = float(cond_fin.max()) if cond_fin.size else 0.0
+    iters_max = int(iters.max(initial=0))
+    if nonfinite:
+        worst = int(np.flatnonzero(~lane_ok)[0])
+    elif residual.size:
+        worst = int(np.argmax(np.where(np.isfinite(residual),
+                                       residual, np.inf)))
+    else:
+        worst = -1
+    facts = {"residual_rel_max": res_max, "residual_rel_median": res_med,
+             "cond_max": cond_max, "nonfinite_lanes": nonfinite,
+             "iters_max": iters_max, "lanes": int(residual.size),
+             "worst_lane": worst}
+    obs.record_solve_health(phase, res_max, res_med, nonfinite,
+                            cond_max=cond_max, iters_max=iters_max)
+    obs.events.emit("solve_health", phase=str(phase), worst_lane=worst,
+                    residual_rel_max=res_max, cond_max=cond_max,
+                    nonfinite_lanes=nonfinite)
+    return facts
+
+
+def _solver_facts() -> dict:
+    """The last solve dispatch's facts without their tensors (reading
+    one would be a host pull)."""
+    from raft_tpu_torch.ops.linalg import last_dispatch
+    return {k: v for k, v in last_dispatch().items()
+            if not isinstance(v, torch.Tensor)}
+
+
 def sweep_cases(fowt_or_design, Hs, Tp, beta, nIter: int = 10,
                 tol: float = 0.01, XiStart: float = 0.1, fp_chunk: int = 2,
                 relax: float = 0.8, r6=None, Xi0=None, device=None,
-                quarantine: str = "nonfinite"):
+                quarantine: str = "nonfinite", health: bool = None):
     """Solve a batch of load cases of one floating turbine.
 
     ``fowt_or_design``: a FOWTModel, a design dict, or the name of a
@@ -444,39 +555,137 @@ def sweep_cases(fowt_or_design, Hs, Tp, beta, nIter: int = 10,
     non-finite ones (default), also the unconverged ones (``"all"``), or
     none (``"off"``, the lanes stay as solved).  With
     ``RAFT_TPU_RECOVERY=0`` nothing is re-solved and every offending lane
-    is reported quarantined."""
+    is reported quarantined.
+
+    ``health`` (default: the ``RAFT_TPU_HEALTH`` knob, off) adds
+    ``health_residual`` and ``health_cond`` (nc,) to the outputs (see
+    `make_case_solver`) and their summary to the manifest.
+
+    Observability: spans ``sweep_cases`` > ``sweep_build`` /
+    ``sweep_execute`` (/ ``sweep_quarantine_resolve``), the sweep
+    metrics, the ``sweep_lanes`` probe, and a ``RunManifest`` (kind
+    ``sweep_cases``) with the batch's ledger, written under
+    ``obs.out_dir()`` when one is set.  Host pulls: one a fixed-point
+    chunk and one summary pull (``std``, the lane flags, ``iters`` and
+    the health lanes), phase ``sweep``."""
     if quarantine not in _QUARANTINE_MODES:
         raise errors.ModelConfigError(
             f"quarantine {quarantine!r} not in {_QUARANTINE_MODES}")
+    health = _config.health_enabled() if health is None else bool(health)
     dev = resolve_device(device)
     fowt = on_device(fowt_or_design, dev)
     kw = dict(nIter=nIter, tol=tol, XiStart=XiStart, r6=r6,
               fp_chunk=fp_chunk, relax=relax)
-    Hs, Tp, beta = (as_real(x, dev).reshape(-1) for x in (Hs, Tp, beta))
-    if Xi0 is not None:
-        Xi0 = torch.as_tensor(Xi0, device=dev).to(COMPLEX)
-    out = make_case_solver(fowt, **kw).batched(Hs, Tp, beta, Xi0=Xi0)
-    if faults.any_active():
-        out = _sweep_seam(out, int(Hs.shape[0]))
-    # one pull: the per-lane finite flags beside the convergence flags
-    lane_ok, conv = torch.stack([_lane_finite(out["Xi"]),
-                                 out["converged"]]).cpu().numpy()
-    if quarantine == "all":
-        bad = np.flatnonzero(~lane_ok | ~conv)
-    elif quarantine == "off":
-        bad = np.zeros(0, int)
-    else:
-        bad = np.flatnonzero(~lane_ok)
-    info = None
-    if bad.size and recovery.enabled():
-        out, info = _quarantine_lanes(fowt, Hs, Tp, beta, out, bad, kw,
-                                      conv, Xi0)
-    elif bad.size:
-        info = {"lanes": [int(i) for i in bad], "ladder": [],
-                "recovered": [], "quarantined": [int(i) for i in bad]}
-    out = dict(out)
-    out["quarantine"] = info
-    return out
+    ncases = int(np.size(Hs)) if not isinstance(Hs, torch.Tensor) \
+        else int(Hs.numel())
+    manifest = obs.RunManifest.begin(kind="sweep_cases", config={
+        "ncases": ncases, "nw": fowt.nw, "sharded": False,
+        "mesh_devices": 0, "device": str(dev), "quarantine": quarantine,
+        **({"health": True} if health else {}),
+        **{k: v for k, v in kw.items() if isinstance(v, (int, float, str))}})
+    obs.record_build_info(run_id=manifest.run_id)
+    obs.device.jit_cache_delta(scope="sweep_cases")
+    transfers0 = transfers.snapshot()
+    status = "failed"
+    ledger = None
+    try:
+        with obs.span("sweep_cases", ncases=ncases, sharded=False) as sp, \
+                transfers.phase("sweep"):
+            with obs.span("sweep_build", ncases=ncases):
+                solver = make_case_solver(fowt, health=health, **kw)
+                Hs, Tp, beta = (as_real(x, dev).reshape(-1)
+                                for x in (Hs, Tp, beta))
+                if Xi0 is not None:
+                    Xi0 = _config.to_device(Xi0, dev, COMPLEX)
+            with obs.span("sweep_execute", ncases=ncases):
+                out = solver.batched(Hs, Tp, beta, Xi0=Xi0)
+            if faults.any_active():
+                out = _sweep_seam(out, ncases)
+            # ONE summary pull: the lane flags, the iteration counts, the
+            # stds (for the ledger) and, in health mode, the health lanes
+            pull = (torch.stack([_lane_finite(out["Xi"]).to(torch.int32),
+                                 out["converged"].to(torch.int32),
+                                 out["iters"].to(torch.int32)]),
+                    out["std"])
+            if health:
+                pull = pull + (out["health_residual"], out["health_cond"])
+            pulled = transfers.device_get(pull, what="sweep_summary")
+            flags, std_h = pulled[0], pulled[1]
+            lane_ok, conv = flags[0].astype(bool), flags[1].astype(bool)
+            iters = flags[2]
+            obs.probes.probe("sweep_lanes", finite=lane_ok, converged=conv,
+                             iters=iters)
+            if quarantine == "all":
+                bad = np.flatnonzero(~lane_ok | ~conv)
+            elif quarantine == "off":
+                bad = np.zeros(0, int)
+            else:
+                bad = np.flatnonzero(~lane_ok)
+            info = None
+            if bad.size and recovery.enabled():
+                out, info = _quarantine_lanes(fowt, Hs, Tp, beta, out, bad,
+                                              kw, conv, iters, Xi0)
+                std_h, iters, conv = transfers.device_get(
+                    (out["std"], out["iters"], out["converged"]),
+                    what="sweep_ledger")
+            elif bad.size:
+                info = {"lanes": [int(i) for i in bad], "ladder": [],
+                        "recovered": [], "quarantined": [int(i) for i in bad]}
+            n_conv = int(np.count_nonzero(conv))
+            fp_chunks = int(out["fp_chunks"])
+            iters_max = int(np.max(iters, initial=0))
+            sp.set(converged=n_conv, iters_max=iters_max,
+                   fp_chunks=fp_chunks)
+            obs.histogram(
+                "raft_sweep_fixed_point_iterations",
+                "per-case drag fixed-point iterations in the batched sweep",
+                buckets=obs.ITER_BUCKETS).observe_many(iters)
+            obs.gauge(
+                "raft_sweep_converged_cases",
+                "cases whose drag fixed point converged within nIter",
+                ).set(n_conv, sharded="false")
+            obs.gauge(
+                "raft_sweep_batch_cases",
+                "case-batch size of the most recent sweep",
+                ).set(ncases, sharded="false")
+            obs.gauge(
+                "raft_sweep_fixed_point_chunks",
+                "drag fixed-point chunks actually executed by the "
+                "adaptive unroll (chunked early exit)",
+                ).set(fp_chunks)
+            # set every sweep (0 when clean) so a healthy batch clears
+            # the previous run's reading
+            obs.gauge(
+                "raft_tpu_sweep_quarantined_lanes",
+                "sweep lanes the batch-quarantine ladder could not "
+                "recover (left NaN in the batch outputs)").set(float(
+                    len((info or {}).get("quarantined", []))))
+            health_info = None
+            if health:
+                health_info = _health_summary(
+                    "sweep", pulled[2], pulled[3], lane_ok, iters)
+                sp.set(health_residual_max=health_info["residual_rel_max"],
+                       health_nonfinite=health_info["nonfinite_lanes"])
+        if info is not None:
+            manifest.extra["quarantine"] = info
+        manifest.extra["solver"] = _solver_facts()
+        if health_info is not None:
+            manifest.extra["solve_health"] = health_info
+        manifest.extra["fixed_point"] = {"chunks_run": fp_chunks,
+                                         "iters_max": iters_max}
+        manifest.extra["host_transfers"] = transfers.delta(
+            transfers0, transfers.snapshot())
+        obs.device.collect(manifest, scope="sweep_cases")
+        ledger = _ledger.ledger_from_sweep(
+            {"std": std_h, "iters": iters, "converged": conv},
+            config=dict(manifest.config), run_id=manifest.run_id)
+        status = "ok"
+        out = dict(out)
+        out["quarantine"] = info
+        return out
+    finally:
+        obs.finish_run(manifest, status=status, write_trace=False,
+                       ledger=ledger)
 
 
 def _host_f64(x) -> np.ndarray:
@@ -504,10 +713,13 @@ def sweep_cases_chunked(fowt_or_design, Hs, Tp, beta, *, store, key: str,
     and stores nothing more.
 
     Returns ``(out, info)``: ``out`` the host numpy ``Xi``, ``std``,
-    ``iters`` and ``converged`` over the whole table; ``info`` the
-    census ``{"chunks", "resumed", "solved", "ckpt_shed"}``.  Stored
-    chunks stay (``store.delete(key)`` drops them), so a repeated call
-    is a pure read."""
+    ``iters`` and ``converged`` (with ``health`` on, also
+    ``health_residual`` and ``health_cond``) over the whole table;
+    ``info`` the census ``{"chunks", "resumed", "solved", "ckpt_shed"}``.
+    Stored chunks stay (``store.delete(key)`` drops them), so a repeated
+    call is a pure read.  Each solved chunk comes to the host in one
+    counted pull (phase ``sweep``); a shed is a ``storage_degraded``
+    event."""
     import json
 
     from raft_tpu_torch.ledger import digest_metrics
@@ -518,6 +730,8 @@ def sweep_cases_chunked(fowt_or_design, Hs, Tp, beta, *, store, key: str,
             "sweep_cases_chunked takes no Xi0 (a warm start per chunk "
             "would not be covered by the chunk's content guard)")
     dev = resolve_device(kw.pop("device", None))
+    health = kw.pop("health", None)
+    health = _config.health_enabled() if health is None else bool(health)
     fowt = on_device(fowt_or_design, dev)
     Hs, Tp, beta = _host_f64(Hs), _host_f64(Tp), _host_f64(beta)
     n = int(Hs.shape[0])
@@ -536,8 +750,12 @@ def sweep_cases_chunked(fowt_or_design, Hs, Tp, beta, *, store, key: str,
                          sort_keys=True),
         "precision": [_config.precision_mode(), _config.precision_width(),
                       _config.precision_tol()],
-        "device": dev.type})
+        "device": dev.type,
+        # only when on: health-off guards stay those of earlier stores
+        **({"health": True} if health else {})})
     fields = ("Xi", "std", "iters", "converged")
+    if health:
+        fields = fields + ("health_residual", "health_cond")
     parts = []
     for ci in range(nchunks):
         sl = slice(ci * chunk, min(n, (ci + 1) * chunk))
@@ -553,8 +771,11 @@ def sweep_cases_chunked(fowt_or_design, Hs, Tp, beta, *, store, key: str,
                 parts.append({k: arrays[k] for k in fields})
                 info["resumed"].append(ci)
                 continue
-        out = sweep_cases(fowt, Hs[sl], Tp[sl], beta[sl], device=dev, **kw)
-        part = {k: out[k].cpu().numpy() for k in fields}
+        out = sweep_cases(fowt, Hs[sl], Tp[sl], beta[sl], device=dev,
+                          health=health, **kw)
+        with transfers.phase("sweep"):
+            part = transfers.device_get({k: out[k] for k in fields},
+                                        what="sweep_chunk_checkpoint")
         parts.append(part)
         info["solved"].append(ci)
         if not info["ckpt_shed"]:
@@ -562,10 +783,12 @@ def sweep_cases_chunked(fowt_or_design, Hs, Tp, beta, *, store, key: str,
                 store.put(key, ci, part,
                           meta={"kind": "sweep_chunk", "guard": guard,
                                 "chunk": ci, "ncases": n})
-            except errors.StorageExhausted:
+            except errors.StorageExhausted as e:
                 # the sweep outlives a full disk: keep solving, stop
-                # persisting
+                # persisting, and say so
                 info["ckpt_shed"] = True
+                obs.events.emit("storage_degraded", component="checkpoint",
+                                chunk=ci, error=str(e)[:200])
     out = {k: np.concatenate([p[k] for p in parts]) for k in fields}
     return out, info
 
@@ -735,7 +958,14 @@ def sweep_farm(fowt_or_design, xy, Hs, Tp, beta, U_inf, wind_dir=None,
     to `make_farm_solver`.  Runs on the card unless ``device="cpu"``.
     Returns (N, ncases, ...) tensors ``Xi``, ``std``, ``converged``,
     ``iters``, ``U_wake``, ``Ct_wake``, ``aero_power``, the per-case
-    ``wake_iters`` and ``fp_chunks``."""
+    ``wake_iters`` and ``fp_chunks``.
+
+    Observability as `sweep_cases`': spans ``sweep_farm`` >
+    ``farm_build`` / ``farm_execute``, the sweep metrics and the wake
+    iterations, and a ``RunManifest`` (kind ``sweep_farm``) with the
+    flattened lanes' ledger; host pulls in phase ``farm`` (the lane
+    poses, one a wake iteration, one a fixed-point chunk, one summary
+    pull)."""
     dev = resolve_device(device) if device is not None or not isinstance(
         fowt_or_design, FOWTModel) else fowt_or_design.device
     fowt = on_device(fowt_or_design, dev)
@@ -754,7 +984,82 @@ def sweep_farm(fowt_or_design, xy, Hs, Tp, beta, U_inf, wind_dir=None,
             "sweep_farm case arrays must share one length",
             ncases=ncases, Tp=int(Tp.shape[0]), beta=int(beta.shape[0]),
             U_inf=int(U_inf.shape[0]), wind_dir=int(wind_dir.shape[0]))
-    solver = make_farm_solver(fowt, xy, **kw)
-    out = solver(_farm_lane_tile(Hs, nt), _farm_lane_tile(Tp, nt),
-                 _farm_lane_tile(beta, nt), U_inf, wind_dir)
-    return _farm_reshape(out, nt, ncases)
+    from raft_tpu_torch.parallel import exec_cache
+    ldig = exec_cache.model_digest({"layout": xy})
+    manifest = obs.RunManifest.begin(kind="sweep_farm", config={
+        "ncases": ncases, "n_turbines": nt, "nw": fowt.nw,
+        "layout_digest": ldig, "sharded": False, "mesh_devices": 0,
+        "device": str(dev),
+        **{k: v for k, v in kw.items()
+           if isinstance(v, (int, float, str))}})
+    obs.record_build_info(run_id=manifest.run_id)
+    obs.device.jit_cache_delta(scope="sweep_farm")
+    transfers0 = transfers.snapshot()
+    status = "failed"
+    ledger = None
+    try:
+        with obs.span("sweep_farm", ncases=ncases, n_turbines=nt,
+                      sharded=False) as sp, transfers.phase("farm"):
+            with obs.span("farm_build", ncases=ncases, n_turbines=nt):
+                solver = make_farm_solver(fowt, xy, **kw)
+            with obs.span("farm_execute", ncases=ncases):
+                out = solver(_farm_lane_tile(Hs, nt), _farm_lane_tile(Tp, nt),
+                             _farm_lane_tile(beta, nt), U_inf, wind_dir)
+            out = _farm_reshape(out, nt, ncases)
+            # ONE summary pull for the whole farm batch, the wake facts
+            # and the stds (for the ledger) in it
+            flags, wake_iters, std_h = transfers.device_get(
+                (torch.stack([_lane_finite(out["Xi"].reshape(
+                    (-1,) + tuple(out["Xi"].shape[2:]))).to(torch.int32),
+                    out["converged"].reshape(-1).to(torch.int32),
+                    out["iters"].reshape(-1).to(torch.int32)]),
+                 out["wake_iters"], out["std"]), what="farm_summary")
+            lane_ok, conv = flags[0].astype(bool), flags[1].astype(bool)
+            iters = flags[2]
+            n_conv = int(np.count_nonzero(conv))
+            n_lanes = int(conv.size)
+            fp_chunks = int(out["fp_chunks"])
+            nonfinite = int(np.count_nonzero(~lane_ok))
+            wake_max = int(np.max(wake_iters, initial=0))
+            sp.set(converged=n_conv, lanes=n_lanes,
+                   iters_max=int(np.max(iters, initial=0)),
+                   fp_chunks=fp_chunks, wake_iters_max=wake_max,
+                   nonfinite_lanes=nonfinite)
+            obs.histogram(
+                "raft_sweep_fixed_point_iterations",
+                "per-case drag fixed-point iterations in the batched sweep",
+                buckets=obs.ITER_BUCKETS).observe_many(iters)
+            obs.gauge(
+                "raft_sweep_converged_cases",
+                "cases whose drag fixed point converged within nIter",
+                ).set(n_conv, sharded="false")
+            obs.gauge(
+                "raft_sweep_batch_cases",
+                "case-batch size of the most recent sweep",
+                ).set(n_lanes, sharded="false")
+            obs.gauge(
+                "raft_tpu_farm_wake_iterations",
+                "wake-equilibrium fixed-point iterations of the most "
+                "recent farm batch (max over cases)").set(wake_max)
+        manifest.extra["farm"] = {
+            "n_turbines": nt, "ncases": ncases, "layout_digest": ldig,
+            "aero": solver.aero, "wake": solver.wake_kw,
+            "wake_iters_max": wake_max, "nonfinite_lanes": nonfinite}
+        manifest.extra["solver"] = _solver_facts()
+        manifest.extra["fixed_point"] = {
+            "chunks_run": fp_chunks,
+            "iters_max": int(np.max(iters, initial=0))}
+        manifest.extra["host_transfers"] = transfers.delta(
+            transfers0, transfers.snapshot())
+        obs.device.collect(manifest, scope="sweep_farm")
+        # the ledger walks a 1-D case axis: the flattened turbine-major
+        # lanes (lane i = turbine i // ncases, case i % ncases)
+        ledger = _ledger.ledger_from_sweep(
+            {"std": np.asarray(std_h).reshape(nt * ncases, -1),
+             "iters": iters, "converged": conv},
+            config=dict(manifest.config), run_id=manifest.run_id)
+        status = "ok"
+        return out
+    finally:
+        obs.finish_run(manifest, status=status, write_trace=False,
+                       ledger=ledger)

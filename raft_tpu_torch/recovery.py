@@ -120,7 +120,22 @@ class RecoveryAttempt:
 
 
 def record_attempt(attempt: RecoveryAttempt, recorder=None):
-    """Hand ``attempt`` to ``recorder`` (when given) and log it."""
+    """Count ``attempt`` in ``raft_tpu_recovery_attempts_total{phase,
+    from,to,outcome}``, stream it to the flight recorder as a
+    ``recovery`` event, hand it to ``recorder`` (when given) and log
+    it."""
+    try:
+        from raft_tpu_torch import obs
+        obs.counter(
+            "raft_tpu_recovery_attempts_total",
+            "degradation-ladder retries by phase, from/to step, and "
+            "outcome").inc(1.0, phase=attempt.phase,
+                           **{"from": attempt.step_from,
+                              "to": attempt.step_to},
+                           outcome=attempt.outcome)
+        obs.events.emit("recovery", **attempt.to_dict())
+    except Exception:                                 # pragma: no cover
+        pass
     if recorder is not None:
         recorder(attempt)
     log = _LOG.warning if attempt.outcome == "failed" else _LOG.info
@@ -276,7 +291,7 @@ class CaseJournal:
     def load_case(self, iCase: int) -> dict | None:
         """The journaled record of a completed case, or None.  A missing
         entry is a miss; a torn or malformed one is deleted, counted
-        (``obs.journalio.CORRUPT["case"]``) and read as a miss — it never
+        (``raft_tpu_journal_corrupt_total{kind="case"}``) and read as a miss — it never
         raises into the resume path."""
         from raft_tpu_torch.obs import journalio
 

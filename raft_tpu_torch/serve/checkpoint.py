@@ -129,6 +129,17 @@ class CheckpointStore:
                 if n.startswith(stem + ".step") and not n.endswith(".sum")
                 and not (n.endswith(".npz") and n[:-4] + ".sum" in names)]
 
+    def _count_metric(self, name: str, reason: str = None):
+        """One checkpoint-store outcome in the registry counter ``name``
+        (never raises)."""
+        try:
+            from raft_tpu_torch import obs
+            labels = {"reason": reason} if reason else {}
+            obs.counter(name, "checkpoint-store outcomes "
+                        "(serve/checkpoint.py)").inc(1.0, **labels)
+        except Exception:                             # pragma: no cover
+            pass
+
     def _reclaim_orphans(self, key: str, grace: float = None):
         """Delete the torn-put orphans of ``key`` older than the grace
         window (counted as corruption)."""
@@ -143,6 +154,8 @@ class CheckpointStore:
                 continue
             self._count("corrupt")
             journalio.count_corrupt("checkpoint")
+            self._count_metric("raft_tpu_checkpoint_corrupt_total",
+                               "torn_put")
             _LOG.warning("checkpoint: reclaimed torn-put orphan %s",
                          os.path.basename(p))
 
@@ -155,6 +168,13 @@ class CheckpointStore:
                 pass
         self._count("corrupt")
         journalio.count_corrupt("checkpoint")
+        self._count_metric("raft_tpu_checkpoint_corrupt_total", reason)
+        try:
+            from raft_tpu_torch import obs
+            obs.events.emit("ckpt_corrupt", key=_stem(key)[:12],
+                            step=int(step), reason=reason)
+        except Exception:                             # pragma: no cover
+            pass
         _LOG.warning("checkpoint %s@step%d failed integrity (%s): deleted",
                      _stem(key)[:12], step, reason)
 
@@ -193,6 +213,7 @@ class CheckpointStore:
                          _stem(key)[:12], step, e)
             return None
         self._count("writes")
+        self._count_metric("raft_tpu_checkpoint_writes_total")
         return cdigest
 
     # -- read path -------------------------------------------------------

@@ -242,7 +242,7 @@ def test_journal_roundtrip_and_corrupt_entries(tmp_path):
     doc = j.load_case(0)
     assert doc["case_metrics"][0]["surge_std"] == 1.25
     assert np.all(doc["mean_offset"] == np.arange(6.0))
-    before = journalio.CORRUPT.get("case", 0)
+    before = journalio.corrupt_count("case")
     whole = open(j._path(1), "rb").read()
     with open(j._path(1), "wb") as f:                # a torn write
         f.write(whole[: len(whole) // 2])
@@ -250,7 +250,7 @@ def test_journal_roundtrip_and_corrupt_entries(tmp_path):
         pickle.dump(["not", "a", "record"], f)
     assert j.load_case(1) is None and j.load_case(2) is None
     assert not os.path.exists(j._path(1))            # torn entry deleted
-    assert journalio.CORRUPT["case"] == before + 2
+    assert journalio.corrupt_count("case") == before + 2
     j.store_case(1, {"case_metrics": {}, "mean_offset": np.ones(6)})
     assert j.load_case(1) is not None
     j.clear()
