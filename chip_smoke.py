@@ -137,7 +137,28 @@ Phases (any failure exits non-zero; no phase's failure is turned into a
               (81,920 lanes per K1 launch, at most nIter launches) in f64
               and under RAFT_TPU_PRECISION=mixed, 4 lanes against the
               serial solve (rtol 1e-9), mixed against f64 as in phase 5;
-13. recovery — fault tolerance (raft_tpu_torch/recovery.py), every launch
+13. ballast  — the ballast trim (models/ballast_cases.py, goldens of
+              tests/golden/ballast_golden.py in tests/golden/ballast/), at
+              each design's own grid: (b1) VolturnUS-S, OC3spar and OC4semi
+              through Model.analyzeUnloaded(ballast=1) at heave_tol 1.0 and
+              analyzeUnloaded(ballast=2), (b2) the walk at heave_tol 1e-5 on
+              OC4semi and VolturnUS-S: every fill level equal to the JAX
+              package's, the unrounded fill levels at 1e-9 (each margin to
+              its rounding boundary printed), the density shift and the
+              densities at 1e-12, the unloaded offset at 1e-6, the outputs
+              the density shift drives to zero by their floor bar
+              (ballast_cases.floor_bar, printed), the trim's counted pulls
+              pinned (ballast_cases.trim_pulls) and no kernel launched;
+              (b3) run_raft(ballast=True) on VolturnUS-S (80 bins, its one
+              case) and OC3spar (80 bins, its first case, as Model ->
+              analyzeUnloaded(ballast=1) -> analyzeCases -> calcOutputs
+              inside obs.transfers.guard("disallow")) against their
+              physics records and ledger goldens (as phase 10), the trim
+              and calcOutputs' ballast densities and masses; K1 exactly
+              once per drag pass and K2 once per case; the (b1) walks of
+              these two designs are the ones inside their (b3) runs,
+              held against the (b1) goldens too;
+14. recovery — fault tolerance (raft_tpu_torch/recovery.py), every launch
               of every kernel counted and printed against its expected
               value: (r1) OC3spar's three shipped cases at its 80 bins,
               clean, then under nan@dynamics:case=1 (case 1 walks
@@ -159,7 +180,7 @@ Phases (any failure exits non-zero; no phase's failure is turned into a
               256 with a CheckpointStore under --out: bitwise equal to one
               sweep, a pure read, a deleted tail, an edited row and a
               corrupt chunk each re-solving only what they must;
-14. obs     — observability (raft_tpu_torch/obs): (o1) OC3spar's case 0 at
+15. obs     — observability (raft_tpu_torch/obs): (o1) OC3spar's case 0 at
               its 80 bins with observability off (no directory, probes
               off) and on (a directory under --out, probes sampled,
               inside obs.transfers.guard("disallow"): any unsanctioned
@@ -174,13 +195,13 @@ Phases (any failure exits non-zero; no phase's failure is turned into a
               (11 against 10), health_residual at most 1e-12 (f64) /
               1e-9 (mixed), the torch.linalg.cond time, _health_summary
               in each sweep's manifest;
-15. prints the kernels JSON line, the card line, and the final JSON line.
-Each path of phases 4-14 runs with the launch counters set to 0 just
+16. prints the kernels JSON line, the card line, and the final JSON line.
+Each path of phases 4-15 runs with the launch counters set to 0 just
 before it and read just after; every kernel of a path must launch in it.
-Every Model run of phases 4-12 must end with no recovery attempt and no
+Every Model run of phases 4-13 must end with no recovery attempt and no
 quarantined case, and every sweep_cases with no quarantined lane;
-raft_tpu_recovery_attempts_total reads 0 after them and, after phase 13,
-the rungs phase 13 recorded; the case journal of every run goes under
+raft_tpu_recovery_attempts_total reads 0 after them and, after phase 14,
+the rungs phase 14 recorded; the case journal of every run goes under
 --out (RAFT_TPU_JOURNAL_DIR).
 
 Options: --only-kernels stops after phase 3 (the short call after a
@@ -1083,13 +1104,13 @@ def check_qtf(dev):
 
 
 # ---------------------------------------------------------------------------
-# phases 4-12: the paths, each with its own launch counts
+# phases 4-13: the paths, each with its own launch counts
 # ---------------------------------------------------------------------------
 
 #: launches per path, read just after it ran (counters set to 0 just
 #: before it)
 PATH_LAUNCHES: dict = {}
-#: phase 5's sweep outputs by mode, which phase 14's health sweeps must
+#: phase 5's sweep outputs by mode, which phase 15's health sweeps must
 #: reproduce bitwise
 SWEEP_OUTS: dict = {}
 #: wall seconds of each phase (build, kernels, 4-14), for chip_smoke.json
@@ -1754,8 +1775,9 @@ MHK_SWEEP_CASES = 256   # x 400 bins = 102,400 lanes per K1 launch
 MHK_SERIAL_LANES = 4
 
 
-def _held_golden(name, m, stem, ledger_stems=None):
-    """A phase 10 or 12 model against its full-width goldens: the physics
+def _held_golden(name, m, stem, ledger_stems=None, gdir=None):
+    """A phase 10, 12 or 13 model against its full-width goldens (in
+    ``gdir``, by default tests/golden): the physics
     record (every case's metrics at 1e-6, the iteration counts exact),
     the statics residual one-sided (at most ``mhk_cases.RESIDUAL_FACTOR``
     times the larger JAX backend's), and where the model has one
@@ -1768,7 +1790,7 @@ def _held_golden(name, m, stem, ledger_stems=None):
 
     if ledger_stems is None:
         ledger_stems = MC.LEDGER_STEMS
-    gdir = os.path.join(ROOT, "tests", "golden")
+    gdir = gdir or os.path.join(ROOT, "tests", "golden")
     with open(MC.golden_file(gdir, stem, coarse=False)) as f:
         ref = json.load(f)
     live = MC.case_records(m.results, m.last_ledger)
@@ -2420,7 +2442,211 @@ def run_mcf(dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 13: fault tolerance (recovery.py, analyzeCases, sweep_cases)
+# phase 13: the ballast trim (Model.analyzeUnloaded(ballast=1|2), run_raft)
+# ---------------------------------------------------------------------------
+
+def _ballast_pulls():
+    """The trim's counted host pulls so far (ballast_cases.PULLS)."""
+    from raft_tpu_torch import obs
+    from raft_tpu_torch.models.ballast_cases import PULLS
+
+    series = obs.snapshot().get("raft_tpu_host_transfers_total",
+                                {}).get("series", [])
+    return int(sum(x["value"] for x in series
+                   if x["labels"].get("what") in PULLS))
+
+
+def _trim_held(label, gold, live):
+    """A trim record against its golden (ballast_cases.trim_deviation):
+    every fill level equal, the unrounded fill levels (their margins
+    printed), the density shift, the downstream outputs and the near-zero
+    ones by their floor bar."""
+    from raft_tpu_torch.models import ballast_cases as BC
+
+    dev = BC.trim_deviation(gold, live)
+    walk = [(w["group"], w["section"], w["branch"], w["l_new"],
+             f"{w['margin']:.2e}") for w in live["walk"]]
+    log(f"  [{label}] fills equal {dev['fills_equal']}, walk equal "
+        f"{dev['walk_equal']} (group, section, branch, l_fill, margin: "
+        f"{walk}); unrounded rel {dev['unrounded']['rel']:.2e}; imbalance "
+        f"rel {dev['imbalance']:.2e}; density rel {dev['density']:.2e}; "
+        f"downstream rel {dev['downstream']:.2e}; near zero "
+        + ", ".join(f"{k} |port - JAX| {z['dev']:.3e} (bar {z['bar']:.3e})"
+                    for k, z in dev["near_zero"].items())
+        + f"; unloaded iterations equal {dev['iters_equal']}")
+    if not dev["ok"]:
+        fail(f"{label}: the trim does not meet its golden: {dev}")
+    return dev
+
+
+@contextlib.contextmanager
+def trim_probe():
+    """Inside: the wall of every ``Model.adjustBallast`` /
+    ``adjustBallastDensity`` call (ending in a device sync) and the
+    Newton iterations of every ``analyzeUnloaded``'s statics (which
+    ``analyzeCases`` forgets), in order."""
+    from raft_tpu_torch.model import Model
+
+    seen = {"walls": [], "unloaded_iters": []}
+    saved = (Model.adjustBallast, Model.adjustBallastDensity,
+             Model.analyzeUnloaded)
+
+    def timed(fn):
+        def call(self, *a, **k):
+            t0 = time.perf_counter()
+            out = fn(self, *a, **k)
+            torch.cuda.synchronize()
+            seen["walls"].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    def unloaded(self, *a, **k):
+        out = saved[2](self, *a, **k)
+        seen["unloaded_iters"].append(
+            self._case_records["unloaded"]["statics_iters"])
+        return out
+
+    (Model.adjustBallast, Model.adjustBallastDensity,
+     Model.analyzeUnloaded) = (timed(saved[0]), timed(saved[1]), unloaded)
+    try:
+        yield seen
+    finally:
+        (Model.adjustBallast, Model.adjustBallastDensity,
+         Model.analyzeUnloaded) = saved
+
+
+def run_ballast(dev):
+    """Phase 13: the ballast trim (models/ballast_cases.py, goldens of
+    tests/golden/ballast_golden.py) at each design's own grid: (b1) and
+    (b2) through Model.analyzeUnloaded, (b3) run_raft(ballast=True) on
+    VolturnUS-S and OC3spar's first case, the latter's Model ->
+    analyzeUnloaded(ballast=1) -> analyzeCases -> calcOutputs inside
+    transfers.guard("disallow").  The (b1) walks of those two designs
+    are the walks inside their (b3) runs, held against both goldens."""
+    from raft_tpu_torch import run_raft
+    from raft_tpu_torch.ledger import _compare_values
+    from raft_tpu_torch.model import Model
+    from raft_tpu_torch.models import ballast_cases as BC
+    from raft_tpu_torch.models import mhk_cases as MC
+    from raft_tpu_torch.obs import transfers
+
+    gdir = os.path.join(ROOT, "tests", "golden", "ballast")
+    with open(os.path.join(gdir, "trims.json")) as f:
+        gold = json.load(f)
+    out = {}
+
+    # (b1), (b2): statics only, no kernel.  The walks at heave_tol 1.0 of
+    # the (b3) designs run inside (b3)'s run_raft, held there
+    in_b3 = {f"b1_{key}_walk": stem for stem, (key, _) in BC.RUNS.items()}
+    for tid, (key, ballast, tol) in BC.TRIMS.items():
+        if tid in in_b3:
+            continue
+        m = Model(BC.design(key), device=dev)
+        fowt = m.fowtList[0]
+        before = m._heave_imbalance(fowt)[1] if ballast == 2 else None
+        p0 = _ballast_pulls()
+        with counted(f"ballast_{tid}", ()), trim_probe() as probe:
+            t0 = time.perf_counter()
+            m.analyzeUnloaded(ballast=ballast, heave_tol=tol)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        pulls = _ballast_pulls() - p0
+        live = BC.run_trim_record(m, before)
+        sections = len(live["walk"])
+        log(f"  ({tid[:2]}) {tid}: analyzeUnloaded(ballast={ballast}, "
+            f"heave_tol={tol:g}) in {wall:.3f} s (trim "
+            f"{probe['walls'][0]:.3f} s, unloaded statics "
+            f"{wall - probe['walls'][0]:.3f} s), {sections} "
+            f"sections visited, trim pulls {pulls}")
+        _expect(f"{tid}: trim pulls", pulls, BC.trim_pulls(ballast, sections))
+        _expect(f"{tid}: kernel launches", PATH_LAUNCHES[f"ballast_{tid}"],
+                {})
+        out[tid] = dict(wall_s=wall, trim_s=probe["walls"][0],
+                        sections=sections, pulls=pulls,
+                        golden=_trim_held(tid, gold[tid], live))
+
+    # (b3): the main path on the trimmed designs
+    expect = ("impedance_gj", "gj_solve")
+    for stem, (key, ncases) in BC.RUNS.items():
+        design = BC.design(key, ncases=ncases)
+        guarded = stem == "oc3spar_ballast"
+        err = None
+        p0 = _ballast_pulls()
+        with counted(stem, expect), solve_counts() as seen, \
+                trim_probe() as probe:
+            t0 = time.perf_counter()
+            if guarded:
+                m = Model(design, device=dev)
+                torch.cuda.synchronize()
+                t_build = time.perf_counter() - t0
+                try:
+                    with transfers.guard("disallow"):
+                        m.analyzeUnloaded(ballast=1)
+                        m.analyzeCases()
+                        m.calcOutputs()
+                        torch.cuda.synchronize()
+                except RuntimeError as e:
+                    import traceback
+                    err = f"{e}\n{traceback.format_exc()[-2500:]}"
+            else:
+                m = run_raft(design, ballast=True, device=dev)
+                t_build = None
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if err:
+            fail(f"(b3) {stem} under the sync guard: {err}")
+            continue
+        pulls = _ballast_pulls() - p0
+        recs = m._case_records
+        nc = len(m.results["case_metrics"])
+        drag = sum(recs[str(i)]["fowt0"]["drag_iters"] for i in range(nc))
+        got = PATH_LAUNCHES[stem]
+        if seen["passes"] != drag or got.get("impedance_gj") != drag \
+                or got.get("gj_solve") != nc:
+            fail(f"(b3) {stem}: launches {got}, expected K1 {drag} (one per "
+                 f"drag pass; {seen['passes']} impedance solves), K2 {nc}")
+        sections = len(m.ballast_trim["walk"])
+        rest = wall - sum(m.timings.values())
+        log(f"  (b3) {stem}: run_raft(ballast=True)"
+            + (" as Model -> (guard disallow) analyzeUnloaded(ballast=1) -> "
+               "analyzeCases -> calcOutputs" if guarded else "")
+            + f": {nc} case(s) x {m.nw} bins in {wall:.2f} s; split "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in m.timings.items())
+            + f", build + trim + unloaded statics + calcOutputs {rest:.3f} s"
+            + f" (trim {probe['walls'][0]:.3f} s"
+            + ("" if t_build is None else f", build {t_build:.3f} s") + ")"
+            + f"; {sections} sections visited, trim pulls {pulls}; "
+            f"launches {got}")
+        _expect(f"{stem}: trim pulls", pulls, BC.trim_pulls(1, sections))
+        rec = _held_golden(f"b3 {stem}", m, stem, BC.LEDGER_STEMS, gdir)
+        with open(MC.golden_file(gdir, stem, coarse=False)) as f:
+            ref = json.load(f)
+        trim = BC.run_trim_record(m)
+        trim["unloaded_iters"] = probe["unloaded_iters"][0]
+        rec["trim"] = _trim_held(f"b3 {stem}", ref["trim"], trim)
+        tid = next(t for t, st in in_b3.items() if st == stem)
+        out[tid] = dict(in_b3=stem, sections=sections, pulls=pulls,
+                        trim_s=probe["walls"][0],
+                        golden=_trim_held(f"{tid} (in b3)", gold[tid], trim))
+        props = m.results["properties"]
+        prel = max(_compare_values(np.asarray(props[k], float).tolist(),
+                                   v)[0]
+                   for k, v in ref["properties"].items())
+        log(f"  (b3) {stem}: calcOutputs' ballast densities "
+            f"{np.asarray(props['ballast densities']).tolist()} and masses, "
+            f"rel {prel:.2e} against the JAX package's")
+        if not prel <= GOLDEN_TOL:
+            fail(f"(b3) {stem}: ballast densities / masses rel {prel:.2e}")
+        out[stem] = dict(wall_s=wall, timings=dict(m.timings),
+                         build_trim_unloaded_outputs_s=rest,
+                         trim_s=probe["walls"][0], ncases=nc, nw=m.nw,
+                         drag_passes=drag, launches=got, sections=sections,
+                         pulls=pulls, guarded=guarded, golden=rec)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: fault tolerance (recovery.py, analyzeCases, sweep_cases)
 # ---------------------------------------------------------------------------
 
 RECOVERY_TOL = 1e-12
@@ -2524,7 +2750,7 @@ def _attempts(m):
 
 
 def run_recovery(dev, coarse=False, ncases=SWEEP_CASES):
-    """Phase 13: the degradation ladder, per-case quarantine and
+    """Phase 14: the degradation ladder, per-case quarantine and
     journal/resume of ``Model.analyzeCases`` on OC3spar's three shipped
     cases, and lane quarantine and the checkpointed chunked sweep on
     phase 5's sweep (``coarse``/``ncases`` cut both for a rehearsal on
@@ -2805,7 +3031,7 @@ def _counter(snap, name):
 
 
 def run_obs(dev, coarse=False, ncases=SWEEP_CASES):
-    """Phase 14: observability on the main path.  (o1) OC3spar's case 0
+    """Phase 15: observability on the main path.  (o1) OC3spar's case 0
     with observability off and on (an output directory under --out,
     probes sampled, inside transfers.guard("disallow")); (o2) phase 5's
     table with health=True in f64 and mixed.  ``coarse``/``ncases`` cut
@@ -3084,14 +3310,15 @@ def main() -> int:
                          ("potflow", lambda: run_potflow(dev)),
                          ("mhk", lambda: run_mhk(dev)),
                          ("farm", lambda: run_farm(dev)),
-                         ("mcf", lambda: run_mcf(dev))):
+                         ("mcf", lambda: run_mcf(dev)),
+                         ("ballast", lambda: run_ballast(dev))):
             log(f"{name}: on the card")
             t0 = time.perf_counter()
             phases[name] = fn()
             PHASE_WALLS[name] = time.perf_counter() - t0
             log(f"{name}: {PHASE_WALLS[name]:.1f} s")
     log(f"clean paths: {clean_runs['models']} Model runs and "
-        f"{clean_runs['sweeps']} sweeps of phases 4-12 checked for no "
+        f"{clean_runs['sweeps']} sweeps of phases 4-13 checked for no "
         "recovery attempt and nothing quarantined")
     js = clean_runs["journal_s"]
     log(f"case journal (key digest, pulls, fsync'd writes) over those "
@@ -3100,7 +3327,7 @@ def main() -> int:
     phases["clean_path_runs"] = clean_runs
     from raft_tpu_torch import obs
     attempts = _counter(obs.snapshot(), "raft_tpu_recovery_attempts_total")
-    _expect("raft_tpu_recovery_attempts_total after phases 4-12", attempts,
+    _expect("raft_tpu_recovery_attempts_total after phases 4-13", attempts,
             0)
     log("recovery: on the card")
     t0 = time.perf_counter()
@@ -3111,7 +3338,7 @@ def main() -> int:
     rungs = sum(len(r.get("attempts", [])) for r in
                 phases["recovery"].values() if isinstance(r, dict)) + len(
         phases["recovery"]["recovery_sweep"]["quarantine"]["ladder"])
-    _expect("raft_tpu_recovery_attempts_total after phase 13 = its rungs",
+    _expect("raft_tpu_recovery_attempts_total after phase 14 = its rungs",
             _counter(obs.snapshot(), "raft_tpu_recovery_attempts_total"),
             rungs)
     log("obs: on the card")
@@ -3146,11 +3373,11 @@ def main() -> int:
                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
                 "library_ms": main["library_ms"], "lanes": lanes,
                 "device_ms": main["device_ms"], "launches_by_path": by_path,
-                # phase 13: the launches of the ladder's runs (faulted,
+                # phase 14: the launches of the ladder's runs (faulted,
                 # resumed, recovered, re-solved lanes, chunks), by path
                 "recovery_launches": {p: n for p, n in by_path.items()
                                       if p.startswith("recovery_")},
-                # phase 14: the observed runs and the health sweeps
+                # phase 15: the observed runs and the health sweeps
                 "obs_launches": {p: n for p, n in by_path.items()
                                  if p.startswith("obs_")},
                 "launch_floor_ms": floor}

@@ -68,7 +68,12 @@ written with the trace, the ledger and the events under
 ``dynamics``, ``outputs``): one a Newton iteration and one a drag pass,
 as the port's loops decide on the host.
 
-Not part of the port yet: ballast trim and the FLORIS coupling.
+Ballast trim (``analyzeUnloaded(ballast=1|2)``, ``run_raft(ballast=True)``):
+the fill-level walk runs on the host from one counted pull of the
+platform's geometry; the density shift is one tensor function shared
+with the variant sweep (``models.fowt.ballast_density_trim``).
+
+Not part of the port yet: the FLORIS coupling.
 """
 from __future__ import annotations
 
@@ -77,6 +82,7 @@ import copy
 import logging
 import os
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -89,10 +95,10 @@ from raft_tpu_torch.io.wamit import bem_coeffs
 from raft_tpu_torch.models import mooring as mr
 from raft_tpu_torch.models import mooring_array as ma
 from raft_tpu_torch.models.fowt import (
-    FOWTModel, build_fowt, build_seastate, fowt_pose, fowt_statics,
-    fowt_hydro_constants, fowt_hydro_excitation, fowt_drag_precompute,
-    fowt_hydro_linearization_pre, fowt_drag_excitation, fowt_current_loads,
-    fowt_turbine_constants, fowt_bem_excitation,
+    FOWTModel, ballast_density_trim, build_fowt, build_seastate, fowt_pose,
+    fowt_statics, fowt_hydro_constants, fowt_hydro_excitation,
+    fowt_drag_precompute, fowt_hydro_linearization_pre, fowt_drag_excitation,
+    fowt_current_loads, fowt_turbine_constants, fowt_bem_excitation,
 )
 from raft_tpu_torch.models import qtf as qt
 from raft_tpu_torch.models.member import member_inertia
@@ -103,6 +109,7 @@ from raft_tpu_torch.ops.transforms import transform_force, translate_matrix_6to6
 from raft_tpu_torch.obs import transfers
 from raft_tpu_torch.testing import faults
 from raft_tpu_torch.utils.dicttools import get_from_dict
+from raft_tpu_torch.utils.profiling import temp_verbosity
 
 _LOG = logging.getLogger("raft_tpu_torch.model")
 
@@ -233,6 +240,10 @@ class Model:
         #: analyzeCases invocation
         self.last_ledger = None
         self._case_records = {}
+        #: the last ballast trim: a fill-level walk's (`adjustBallast`)
+        #: initial heave imbalance and visited sections, one record each,
+        #: or a density shift (`adjustBallastDensity`)
+        self.ballast_trim = dict(heave0=None, walk=[], delta_rho=None)
         #: wall seconds per phase of the most recent analyzeCases
         #: (statics, dynamics, outputs; with second-order loads also
         #: first_order_fp, qtf, second_order_fp inside dynamics and the
@@ -964,15 +975,19 @@ class Model:
 
     def analyzeUnloaded(self, ballast=0, heave_tol=1.0):
         """Unloaded equilibrium (reference: raft_model.py:184-241), one FOWT
-        only, as in the reference; ballast trim is not part of the port
-        yet."""
+        only, as in the reference, optionally preceded by the ballast
+        trim: ``ballast=1`` walks fill levels until the linearized heave
+        is within ``heave_tol`` (`adjustBallast`), ``ballast=2`` shifts
+        the fill densities uniformly (`adjustBallastDensity`)."""
         if self.nFOWT > 1:
             raise errors.ModelConfigError(
                 "analyzeUnloaded only works for a single FOWT (reference: "
                 "raft_model.py:191-192)", nFOWT=self.nFOWT)
-        if ballast:
-            raise errors.ModelConfigError(
-                "ballast trim is not part of the PyTorch port yet")
+        fowt = self.fowtList[0]
+        if ballast == 1:
+            self.adjustBallast(fowt, heave_tol=heave_tol)
+        elif ballast == 2:
+            self.adjustBallastDensity(fowt)
         self.results.setdefault("properties", {})
         self.solveStatics(None)
         self.results["properties"]["offset_unloaded"] = self._state[0]["Xi0"]
@@ -982,6 +997,171 @@ class Model:
                 what="unloaded_mooring")
         self.C_moor0 = np.array(C)
         self.F_moor0 = np.array(F)
+
+    # ------------------------------------------------------------------
+    # ballast trim
+    # ------------------------------------------------------------------
+
+    def _heave_imbalance(self, fowt):
+        """(sumFz, heave, stat): net vertical force at the undisplaced pose
+        and the linearized heave offset (reference: raft_model.py:
+        1448-1453).  The mass, displacement, waterplane area and mooring
+        heave force come to the host in one counted pull."""
+        ref = np.array([fowt.x_ref, fowt.y_ref, 0, 0, 0, 0], float)
+        pose0 = fowt_pose(fowt, ref)
+        stat = fowt_statics(fowt, pose0)
+        Fz_moor = 0.0
+        if fowt.mooring is not None:
+            Fz_moor = mr.body_wrench(fowt.mooring, pose0["r6"])[2]
+        with transfers.phase("statics"):
+            m, V, AWP, Fz_moor = (float(x) for x in transfers.device_get(
+                (stat["M_struc"][0, 0], stat["V"], stat["AWP"], Fz_moor),
+                what="ballast_imbalance"))
+        sumFz = -m * fowt.g + V * fowt.rho_water * fowt.g + Fz_moor
+        heave = sumFz / (fowt.rho_water * fowt.g * AWP)
+        return sumFz, heave, stat
+
+    @staticmethod
+    def _section_fill_volume(geom, j, l_fill):
+        """Ballast volume of member section j filled to ``l_fill``, using
+        the reference's convention of interpolating the inner frustum over
+        the FULL member length (raft_model.py:1484-1492).  ``geom``
+        holds host numpy ``d`` and ``t``, the float ``l`` and
+        ``circular``."""
+        l = geom.l
+        if geom.circular:
+            dAi = float(geom.d[j] - 2 * geom.t[j])
+            dBi = float(geom.d[j + 1] - 2 * geom.t[j + 1])
+            dBf = (dBi - dAi) * (l_fill / l) + dAi
+            return np.pi / 12.0 * l_fill * (dAi**2 + dAi * dBf + dBf**2)
+        slAi = np.asarray(geom.d[j]) - 2 * geom.t[j]
+        slBi = np.asarray(geom.d[j + 1]) - 2 * geom.t[j + 1]
+        slBf = (slBi - slAi) * (l_fill / l) + slAi
+        A1 = slAi[0] * slAi[1]
+        A2 = slBf[0] * slBf[1]
+        return l_fill / 3.0 * (A1 + A2 + np.sqrt(max(A1 * A2, 0.0)))
+
+    @staticmethod
+    def _member_groups(fowt):
+        """Platform members grouped by repeated-heading pattern (one yaml
+        member entry per group, recorded at build time), mirroring the
+        reference's one-member-per-heading-group adjustment
+        (raft_model.py:1464-1467 keyed off member.headings)."""
+        if fowt.platmem_groups is not None:
+            return fowt.platmem_groups
+        return [[i] for i in range(fowt.nplatmems)]
+
+    def adjustBallast(self, fowt, heave_tol=1.0, display=0):
+        """Walk ballast fill levels member-by-member until the linearized
+        unloaded heave is within ``heave_tol`` (reference:
+        raft_model.py:1434-1566).  The reference's 1 cm stepping loop is
+        replaced by an exact bisection to the same rounded (2-decimal)
+        fill level, on the host: the platform members' geometry comes
+        over in one counted pull, each changed fill level goes back as a
+        new tensor, and each section visited costs one imbalance pull.
+        The initial heave is ``self.ballast_trim["heave0"]``, each visited
+        section's record (group, section, start and unrounded new fill
+        level, the branch taken, the heave after) in its ``"walk"``.
+        Returns the final heave."""
+        with temp_verbosity(int(display)), transfers.phase("statics"):
+            return self._adjust_ballast_impl(fowt, heave_tol)
+
+    def _adjust_ballast_impl(self, fowt, heave_tol):
+        groups = self._member_groups(fowt)
+        plat = sorted({i for group in groups for i in group})
+        pulled = transfers.device_get(
+            [(fowt.members[i].d, fowt.members[i].t,
+              fowt.members[i].l_fill, fowt.members[i].rho_fill)
+             for i in plat], what="ballast_geometry")
+        host = {}
+        for i, (d, t, lf, rf) in zip(plat, pulled):
+            m = fowt.members[i]
+            host[i] = SimpleNamespace(
+                circular=m.circular, l=m.l, d=d, t=t,
+                l_fill=np.array(np.atleast_1d(lf), float),
+                rho_fill=np.atleast_1d(np.asarray(rf, float)))
+        walk = []
+        sumFz, heave, _ = self._heave_imbalance(fowt)
+        self.ballast_trim = dict(heave0=heave, walk=walk, delta_rho=None)
+        dmass = sumFz / fowt.g
+        _LOG.info(" initial heave imbalance %.3f m", heave)
+        for ig, group in enumerate(groups):
+            geom0 = host[group[0]]
+            for j, rho_b in enumerate(geom0.rho_fill):
+                if rho_b <= 0:
+                    continue
+                dvol = dmass / rho_b
+                mdvol = dvol / len(group)
+                l = geom0.l
+                l_fill0 = float(geom0.l_fill[j])
+                V0 = self._section_fill_volume(geom0, j, l_fill0)
+                Vtarget = V0 + mdvol
+                Vmax = self._section_fill_volume(geom0, j, l)
+                if Vtarget >= Vmax:
+                    l_new, branch = l, "full"
+                elif Vtarget <= 0.0:
+                    l_new, branch = 0.0, "empty"
+                else:
+                    lo, hi = 0.0, l
+                    for _ in range(60):
+                        mid = 0.5 * (lo + hi)
+                        if self._section_fill_volume(geom0, j, mid) < Vtarget:
+                            lo = mid
+                        else:
+                            hi = mid
+                    l_new, branch = 0.5 * (lo + hi), "bisect"
+                unrounded = l_new
+                l_new = round(l_new, 2)
+                for imem in group:
+                    lf = host[imem].l_fill
+                    lf[j] = l_new
+                    fowt.members[imem].l_fill = to_device(
+                        np.array(lf), self.device, dtype=REAL)
+                sumFz, heave, _ = self._heave_imbalance(fowt)
+                walk.append(dict(
+                    group=ig, member=group[0], section=j, l_fill0=l_fill0,
+                    l_new_unrounded=unrounded, l_new=l_new, branch=branch,
+                    heave=heave))
+                _LOG.info(" member %s section %d: l_fill -> %.2f m, "
+                          "heave %.3f m", fowt.members[group[0]].name, j,
+                          l_new, heave)
+                if abs(heave) < heave_tol:
+                    return heave
+                dmass = sumFz / fowt.g
+        return heave
+
+    def adjustBallastDensity(self, fowt, display=0):
+        """Uniform ballast-density shift to zero the unloaded heave —
+        closed form (reference: raft_model.py:1569-1624;
+        ``models.fowt.ballast_density_trim``, which the variant sweep
+        shares).  Fill levels are zeroed where the fill density is zero;
+        the shift and the ballast volume come to the host in one counted
+        pull; the new fill levels and densities replace the members'
+        tensors.  Returns the density shift [kg/m^3] (also in
+        ``self.ballast_trim["delta_rho"]``)."""
+        ref = self._t([fowt.x_ref, fowt.y_ref, 0, 0, 0, 0])
+        pose0 = fowt_pose(fowt, ref)
+        with transfers.phase("statics"):
+            l_fill, rho_fill, delta, _, vb = ballast_density_trim(
+                fowt, pose0, ref)
+            delta, ballast_volume = (float(x) for x in transfers.device_get(
+                (delta, vb), what="ballast_density"))
+            for m, lf in zip(fowt.members, l_fill):
+                m.l_fill = lf
+            if ballast_volume <= 0:
+                raise errors.ModelConfigError(
+                    "adjustBallastDensity needs a platform with ballast "
+                    "volume")
+            heave = self._heave_imbalance(fowt)[1] if display else None
+            for m, rf in zip(fowt.members, rho_fill):
+                m.rho_fill = rf
+        self.ballast_trim = dict(heave0=None, walk=[], delta_rho=delta)
+        if display:
+            with temp_verbosity(max(int(display), 1)):
+                _, heave_new, _ = self._heave_imbalance(fowt)
+                _LOG.info(" ballast density shifted %+.3f kg/m3; "
+                          "heave %.3f -> %.3f m", delta, heave, heave_new)
+        return delta
 
     def analyzeCases(self, display=0, resume=False):
         """Statics + dynamics + output statistics per load case; the
@@ -1671,7 +1851,9 @@ class Model:
 
 def run_raft(design_or_path, ballast=False, device=None):
     """Convenience entry point (reference: raft_model.py:2024-2061):
-    Model -> analyzeUnloaded -> analyzeCases -> calcOutputs; a farm
+    Model -> analyzeUnloaded -> analyzeCases -> calcOutputs, with
+    ``ballast=True`` the unloaded statics preceded by the fill-level walk
+    (``analyzeUnloaded(ballast=1)``, as the JAX package's run_raft); a farm
     (nFOWT > 1) runs Model -> analyzeCases, as the reference's
     runRAFTFarm (raft_model.py:2065-2095).  A design dict, a path to a
     YAML file, or the name of a vendored design."""

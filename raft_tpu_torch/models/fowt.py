@@ -527,6 +527,40 @@ def fowt_statics(fowt: FOWTModel, pose, l_fill=None, rho_fill=None):
     )
 
 
+def ballast_density_trim(fowt: FOWTModel, pose0, ref):
+    """The uniform ballast-density shift that zeroes the linearized
+    unloaded heave, closed form (reference: raft_model.py:1569-1624), as
+    tensors with no data-dependent Python branch (it runs under
+    ``torch.func.vmap`` over design variants).
+
+    Free-flooding sections (``rho_fill == 0``) get their fill level
+    zeroed; ``sumFz`` is the net vertical force at ``pose0`` (the pose at
+    ``ref``, (6,)) with those fills, ``v_ballast`` the ballast volume and
+    ``delta = sumFz / g / v_ballast`` (0 where ``v_ballast <= 0``), added
+    to ``rho_fill`` wherever the fill level is positive.  Returns
+    ``(l_fill, rho_fill, delta, sumFz, v_ballast)``, the first two
+    per-member lists of new tensors."""
+    g, rho = fowt.g, fowt.rho_water
+    l_fill = [torch.where(torch.atleast_1d(m.rho_fill) == 0.0, 0.0,
+                          torch.atleast_1d(m.l_fill))
+              for m in fowt.members]
+    stat = fowt_statics(fowt, pose0, l_fill=l_fill)
+    Fz_moor = (mr.body_wrench(fowt.mooring, ref)[2]
+               if fowt.mooring is not None else 0.0)
+    sumFz = -stat["M_struc"][0, 0] * g + stat["V"] * rho * g + Fz_moor
+    vb = 0.0
+    for i, m in enumerate(fowt.members):
+        inert = member_inertia(m, pose0["members"][i], rPRP=ref[:3],
+                               l_fill=l_fill[i])
+        vb = vb + torch.sum(inert["vfill"])
+    delta = torch.where(vb > 0.0,
+                        sumFz / g / torch.where(vb > 0, vb, 1.0), 0.0)
+    rho_fill = [torch.where(lf > 0.0, torch.atleast_1d(m.rho_fill) + delta,
+                            torch.atleast_1d(m.rho_fill))
+                for m, lf in zip(fowt.members, l_fill)]
+    return l_fill, rho_fill, delta, sumFz, vb
+
+
 # --------------------------------------------------------------------------
 # strip-theory hydro constants (stacked nodes)
 # --------------------------------------------------------------------------

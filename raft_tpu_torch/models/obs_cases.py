@@ -3,7 +3,7 @@
 - `pulls_per_case`: the port's pinned count of host pulls of one clean
   case of ``Model.analyzeCases``, by phase, as a formula of its Newton
   iterations and drag passes (``tests/test_torch_obs_model.py`` holds it
-  on the CPU, ``chip_smoke.py`` phase 14 on the card, where the case
+  on the CPU, ``chip_smoke.py`` phase 15 on the card, where the case
   also runs under ``obs.transfers.guard("disallow")``);
 - `JAX_PULLS_PER_CASE`: the JAX package's budget for the same case
   (``docs/performance.md``, ``tests/test_device_resident.py``);

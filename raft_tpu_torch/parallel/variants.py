@@ -34,11 +34,10 @@ from raft_tpu_torch._config import COMPLEX, REAL, as_real, resolve_device
 from raft_tpu_torch.errors import ModelConfigError
 from raft_tpu_torch.models import mooring as mr
 from raft_tpu_torch.models.fowt import (
-    FOWTModel, build_fowt, fowt_drag_excitation, fowt_drag_precompute,
+    FOWTModel, ballast_density_trim, build_fowt, fowt_drag_excitation, fowt_drag_precompute,
     fowt_hydro_constants, fowt_hydro_excitation,
     fowt_hydro_linearization_pre, fowt_pose, fowt_statics, member_node_cols,
 )
-from raft_tpu_torch.models.member import member_inertia
 from raft_tpu_torch.ops.linalg import impedance_solve
 from raft_tpu_torch.ops.spectra import get_rms, jonswap
 from raft_tpu_torch.parallel.sweep import on_device, unrolled_fixed_point
@@ -220,7 +219,6 @@ def make_variant_solver(base: FOWTModel, Hs=6.0, Tp=12.0, beta=0.0,
         else as_real(A_turb, dev)
     B_t = torch.zeros((6, 6, nw), dtype=REAL, device=dev) if B_turb is None \
         else as_real(B_turb, dev)
-    g = base.g
     rho = base.rho_water
 
     def setup(theta):
@@ -230,30 +228,11 @@ def make_variant_solver(base: FOWTModel, Hs=6.0, Tp=12.0, beta=0.0,
         stat = fowt_statics(fowt, pose0)
 
         # ----- ballast density trim, closed form (reference:
-        #       raft_model.py:1569-1624, parametersweep.py:93) -----
+        #       raft_model.py:1569-1624, parametersweep.py:93); a variant
+        #       with no ballast volume keeps its densities (delta 0) -----
         if ballast:
-            # free-flooding sections (rho_fill == 0) are excluded: their
-            # fill level is zeroed before the trim, as
-            # Model.adjustBallastDensity does
-            l_fill = [torch.where(torch.atleast_1d(m.rho_fill) == 0.0, 0.0,
-                                  torch.atleast_1d(m.l_fill))
-                      for m in fowt.members]
-            stat = fowt_statics(fowt, pose0, l_fill=l_fill)
-            Fz_moor = (mr.body_wrench(fowt.mooring, ref)[2]
-                       if fowt.mooring is not None else 0.0)
-            sumFz = (-stat["M_struc"][0, 0] * g + stat["V"] * rho * g
-                     + Fz_moor)
-            vb = 0.0
-            for i, m in enumerate(fowt.members):
-                inert = member_inertia(m, pose0["members"][i], rPRP=ref[:3],
-                                       l_fill=l_fill[i])
-                vb = vb + torch.sum(inert["vfill"])
-            delta = torch.where(vb > 0.0,
-                                sumFz / g / torch.where(vb > 0, vb, 1.0), 0.0)
-            rho_fill = [torch.where(lf > 0.0,
-                                    torch.atleast_1d(m.rho_fill) + delta,
-                                    torch.atleast_1d(m.rho_fill))
-                        for m, lf in zip(fowt.members, l_fill)]
+            l_fill, rho_fill, _, _, _ = ballast_density_trim(fowt, pose0,
+                                                             ref)
             stat = fowt_statics(fowt, pose0, l_fill=l_fill,
                                 rho_fill=rho_fill)
 

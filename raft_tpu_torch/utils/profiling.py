@@ -2,9 +2,10 @@
 
 The port's copy of ``raft_tpu/utils/profiling.py``:
 
-- `get_logger(name)` / `set_verbosity(n)`: namespaced loggers under
-  "raft_tpu_torch"; ``set_verbosity`` maps the reference's integer
-  ``display`` levels onto logging levels;
+- `get_logger(name)` / `set_verbosity(n)` / `temp_verbosity(n)`:
+  namespaced loggers under "raft_tpu_torch"; ``set_verbosity`` maps the
+  reference's integer ``display`` levels onto logging levels,
+  ``temp_verbosity`` for one block;
 - `timed(name)`: a wall-time section, a shim over ``obs.span(name)``;
 - `timing_report()` / `print_timing_report()`: the span aggregate
   (``solveStatics``, ``solveDynamics``, ``fowt_linearize``, ...);
@@ -42,6 +43,24 @@ def set_verbosity(display: int):
              else logging.INFO if display == 1 else logging.DEBUG)
     get_logger()   # ensure the handler exists (it installs WARNING)
     logging.getLogger(_ROOT).setLevel(level)
+
+
+@contextlib.contextmanager
+def temp_verbosity(display: int):
+    """Per-call verbosity override mirroring the reference's ``display``
+    arguments: ``display > 0`` raises the raft_tpu_torch logger for the
+    block and restores the previous level after; ``display <= 0`` leaves
+    the ambient verbosity (a user's ``set_verbosity``) untouched."""
+    if display <= 0:
+        yield
+        return
+    root = logging.getLogger(_ROOT)
+    prev = root.level
+    set_verbosity(display)
+    try:
+        yield
+    finally:
+        root.setLevel(prev)
 
 
 @contextlib.contextmanager

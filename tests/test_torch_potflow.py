@@ -18,8 +18,8 @@ the JAX package's native-BEM solve (``tests/golden/oc4semi_bem/``).
   with the iteration counts exact.  Its ``statics_residual`` sits at the
   rounding floor of the force sum (ROADMAP C7) and is reported, not held.
 - A MacCamy-Fuchs member builds: the spar's (N, 3, 3, nw) inertia
-  coefficient against the JAX package's at 1e-12.  The ballast trim is
-  still refused.
+  coefficient against the JAX package's at 1e-12.  The ballast trim
+  runs on the spar and still refuses a platform with no ballast volume.
 """
 import json
 import os
@@ -166,10 +166,17 @@ def test_oc4semi_bem_qtf_matches_jax_metrics(cache_copy):
 
 @pytest.mark.parametrize("what", ["ballast"])
 def test_still_refused(what):
-    """The ballast trim stays refused (ROADMAP A1 waits for C7)."""
-    m = Model(PC.spar_design(1), device="cpu")
+    """The ballast trim (ROADMAP A1) runs on the spar, the density shift
+    zeroing its linearized heave, and still refuses a platform with no
+    ballast volume."""
+    d = PC.spar_design(1)
+    m = Model(d, device="cpu")
+    m.analyzeUnloaded(ballast=2)
+    assert m.ballast_trim["delta_rho"] != 0.0
+    assert abs(m._heave_imbalance(m.fowtList[0])[1]) < 1e-9
+    d["platform"]["members"][0]["l_fill"] = [0.0]
     with pytest.raises(errors.ModelConfigError, match="ballast"):
-        m.analyzeUnloaded(ballast=2)
+        Model(d, device="cpu").analyzeUnloaded(ballast=2)
 
 
 def test_mcf_spar_builds_and_matches_jax_imat():
