@@ -195,8 +195,31 @@ Phases (any failure exits non-zero; no phase's failure is turned into a
               (11 against 10), health_residual at most 1e-12 (f64) /
               1e-9 (mixed), the torch.linalg.cond time, _health_summary
               in each sweep's manifest;
-16. prints the kernels JSON line, the card line, and the final JSON line.
-Each path of phases 4-15 runs with the launch counters set to 0 just
+16. codesign — co-design gradients (parallel/optimize.py,
+              models/codesign_cases.py, goldens of
+              tests/golden/codesign_golden.py): make_design_objective on
+              VolturnUS-S at its 80 bins over {d_scale, moor_L, moor_EA,
+              moor_anchor}, the golden's 4 lanes, metric std, in f64:
+              obj.batched, then the backward inside
+              obs.transfers.guard("disallow"); values and gradients
+              against codesign/volturn80.json at 1e-6, K1 launches of the
+              forward (its fixed-point passes) and the backward (one
+              re-linearization, the adjoint passes, one pullback) pinned;
+              the gradients in the fixed point's state leaves (M_lin,
+              C_lin, F_lin) from one setup in f64 and under
+              RAFT_TPU_PRECISION=mixed (K3 in the backward), mixed
+              against f64 at 1e-6; K1 at the adjoint solve's operands
+              (M^T, -B^T, C^T per lane, 4 x 80 lanes), timed like the
+              phase 3 rows; walls and peak memory printed;
+17. prints the kernels JSON line, the card line, and the final JSON line.
+Phases 7-13 and 16 run in three worker processes on the same card (mhk;
+farm and mcf; golden, golden_mixed, qtf, potflow, ballast and codesign:
+``--worker NAMES``, WORKER_GROUPS), started after phase 3 and running
+beside phases 4-6, 14 and 15 of this process; it then joins them, replays
+their output and merges their launches, rows, walls and failures.  The
+walls and the timed rows of phases 4-16 are taken with the card and the
+host shared.
+Each path of phases 4-16 runs with the launch counters set to 0 just
 before it and read just after; every kernel of a path must launch in it.
 Every Model run of phases 4-13 must end with no recovery attempt and no
 quarantined case, and every sweep_cases with no quarantined lane;
@@ -206,7 +229,10 @@ the rungs phase 14 recorded; the case journal of every run goes under
 
 Options: --only-kernels stops after phase 3 (the short call after a
 kernel edit); --out DIR sets where the full
-record (ptxas.log, chip_smoke.json) is written (default build/chip_smoke).
+record (ptxas.log, chip_smoke.json, each worker's output and record) is
+written (default build/chip_smoke); --worker NAMES runs only those phases
+of 7-13 and 16 (comma-separated) and writes their record, as the
+workers do.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -1570,6 +1596,42 @@ def _iters(led):
             if it in e["metrics"]}
 
 
+def _operand_row(G, w, M, B, C, F, case, key, **extra):
+    """K1 at one path's own operands: the kernel against its plain
+    version on the same systems and the normwise residual, held at
+    X_TOL / RESID_TOL, then timed like the phase 3 rows (the library's
+    torch.linalg.solve on the systems broadcast to every lane) with its
+    bound; stored as ROWS[key] and logged.  ``extra`` goes into the
+    row."""
+    n = 6
+    X = G.impedance_gj_solve(w, M, B, C, F)
+    Xp = G.impedance_gj_solve_plain(w, M, B, C, F)
+    torch.cuda.synchronize()
+    rel = _rel(X, Xp)
+    lanes = F.shape[0] * F.shape[-1]
+    row = dict(lanes=lanes, case=case, rel_vs_plain=rel, rel_ill=None,
+               max_abs_err=float(torch.max(torch.abs(X - Xp))), **extra,
+               shapes=dict(M=list(M.shape), B=list(B.shape),
+                           C=list(C.shape), F=list(F.shape)))
+    Z = (-(w ** 2) * M + 1j * w * B + C[..., None]).movedim(-1, -3)
+    Fz = F.movedim(-1, -2)[..., None]
+    row["normwise_residual"] = _normwise_residual(
+        Z, X.movedim(-1, -2)[..., None], Fz)
+    if not (rel <= X_TOL and row["normwise_residual"] <= RESID_TOL
+            and bool(torch.all(torch.isfinite(X)))):
+        fail(f"impedance_gj {case} lanes={lanes}: rel={rel:.3e}, "
+             f"residual {row['normwise_residual']:.2e}")
+    Zb = torch.broadcast_to(Z, tuple(Fz.shape[:-2]) + (n, n))
+    _time_row(row, lambda: G.impedance_gj_solve(w, M, B, C, F),
+              lambda: G.impedance_gj_solve_plain(w, M, B, C, F),
+              lambda: torch.linalg.solve(Zb, Fz), KERNEL_NAMES["impedance_gj"])
+    row["bound_ms"], row["bound_by"] = bound(
+        nbytes(w, M, B, C, F, X), lanes * (gj_flops(2 * n, 1) + 8 * n * n))
+    ROWS[key] = [row]
+    _log_row("impedance_gj", row)
+    return row
+
+
 def check_impedance_bem(G, fowt):
     """K1 at the BEM sweep's operands: M(w) = M_struc + A_morison +
     A_BEM(w) and B(w) = B_BEM(w), both (6, 6, 80) and shared by 1024
@@ -1579,7 +1641,7 @@ def check_impedance_bem(G, fowt):
     from raft_tpu_torch.parallel.sweep import make_case_solver
 
     rng = np.random.default_rng(7)
-    nc, n = SWEEP_CASES, 6
+    nc = SWEEP_CASES
     w = as_real(fowt.w)
     st = make_case_solver(fowt).setup(
         as_real(1.0 + 11.0 * rng.random(nc), w.device),
@@ -1587,30 +1649,11 @@ def check_impedance_bem(G, fowt):
         as_real(np.deg2rad(360.0 * rng.random(nc)), w.device))
     M, B, C, F = st["M_lin"], st["B_BEM"], st["C_lin"], st["F_lin"]
     varies = float(torch.max(torch.abs(M - M[..., :1])))
-    X = G.impedance_gj_solve(w, M, B, C, F)
-    Xp = G.impedance_gj_solve_plain(w, M, B, C, F)
-    torch.cuda.synchronize()
-    rel = _rel(X, Xp)
-    lanes = nc * fowt.nw
-    row = dict(lanes=lanes, case="bem_operands", rel_vs_plain=rel,
-               rel_ill=None, max_abs_err=float(torch.max(torch.abs(X - Xp))),
-               M_variation=varies, shapes=dict(M=list(M.shape),
-                                               B=list(B.shape),
-                                               C=list(C.shape),
-                                               F=list(F.shape)))
-    Z = (-(w ** 2) * M + 1j * w * B + C[..., None]).movedim(-1, -3)
-    Fz = F.movedim(-1, -2)[..., None]
-    row["normwise_residual"] = _normwise_residual(
-        Z, X.movedim(-1, -2)[..., None], Fz)
-    if not (rel <= X_TOL and row["normwise_residual"] <= RESID_TOL
-            and varies > 0 and bool(torch.all(torch.isfinite(X)))):
-        fail(f"impedance_gj bem_operands lanes={lanes}: rel={rel:.3e}, "
-             f"residual {row['normwise_residual']:.2e}, max|M - M[..., :1]|"
-             f" {varies}")
-    Zb = torch.broadcast_to(Z, (nc,) + tuple(Z.shape[-3:]))
-    _time_row(row, lambda: G.impedance_gj_solve(w, M, B, C, F),
-              lambda: G.impedance_gj_solve_plain(w, M, B, C, F),
-              lambda: torch.linalg.solve(Zb, Fz), KERNEL_NAMES["impedance_gj"])
+    if not varies > 0:
+        fail(f"impedance_gj bem_operands: M does not vary with the "
+             f"frequency (max|M - M[..., :1]| {varies})")
+    row = _operand_row(G, w, M, B, C, F, "bem_operands", "impedance_gj_bem",
+                       M_variation=varies)
     # the same systems with M and B materialised once, outside the call:
     # the kernel's device time without the wrapper's fresh 47 MB copy of
     # them just ahead of it (ROADMAP B2)
@@ -1619,10 +1662,6 @@ def check_impedance_bem(G, fowt):
     row["device_ms_materialised"] = device_ms(
         lambda: G.impedance_gj_solve(w, Mc, Bc, C, F),
         KERNEL_NAMES["impedance_gj"])
-    row["bound_ms"], row["bound_by"] = bound(
-        nbytes(w, M, B, C, F, X), lanes * (gj_flops(2 * n, 1) + 8 * n * n))
-    ROWS["impedance_gj_bem"] = [row]
-    _log_row("impedance_gj", row)
     log(f"  impedance_gj             bem_operands, M and B materialised "
         f"outside the call: device {row['device_ms_materialised']} ms")
     return row
@@ -2089,32 +2128,8 @@ def check_impedance_farm(G, solver, lanes_in, xi_start):
     C = st["C_lin"].contiguous()
     F = (st["F_lin"] + fowt_drag_excitation(fowt, st["pose"], Bmat,
                                             st["u0"])).contiguous()
-    n = 6
-    X = G.impedance_gj_solve(w, M, B, C, F)
-    Xp = G.impedance_gj_solve_plain(w, M, B, C, F)
-    torch.cuda.synchronize()
-    rel = _rel(X, Xp)
-    lanes = F.shape[0] * fowt.nw
-    row = dict(lanes=lanes, case="farm_operands", rel_vs_plain=rel,
-               rel_ill=None, max_abs_err=float(torch.max(torch.abs(X - Xp))),
-               shapes=dict(M=list(M.shape), B=list(B.shape),
-                           C=list(C.shape), F=list(F.shape)))
-    Z = (-(w ** 2) * M + 1j * w * B + C[..., None]).movedim(-1, -3)
-    Fz = F.movedim(-1, -2)[..., None]
-    row["normwise_residual"] = _normwise_residual(
-        Z, X.movedim(-1, -2)[..., None], Fz)
-    if not (rel <= X_TOL and row["normwise_residual"] <= RESID_TOL
-            and bool(torch.all(torch.isfinite(X)))):
-        fail(f"impedance_gj farm_operands lanes={lanes}: rel={rel:.3e}, "
-             f"residual {row['normwise_residual']:.2e}")
-    _time_row(row, lambda: G.impedance_gj_solve(w, M, B, C, F),
-              lambda: G.impedance_gj_solve_plain(w, M, B, C, F),
-              lambda: torch.linalg.solve(Z, Fz), KERNEL_NAMES["impedance_gj"])
-    row["bound_ms"], row["bound_by"] = bound(
-        nbytes(w, M, B, C, F, X), lanes * (gj_flops(2 * n, 1) + 8 * n * n))
-    ROWS["impedance_gj_farm"] = [row]
-    _log_row("impedance_gj", row)
-    return row
+    return _operand_row(G, w, M, B, C, F, "farm_operands",
+                        "impedance_gj_farm")
 
 
 def run_farm(dev):
@@ -3211,6 +3226,154 @@ def run_obs(dev, coarse=False, ncases=SWEEP_CASES):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: co-design gradients (parallel/optimize.py)
+# ---------------------------------------------------------------------------
+
+CODESIGN_TOL = 1e-6   # the card's values and gradients against the JAX golden
+
+
+def check_impedance_adjoint(G, w, M, B, C, Xbar):
+    """K1 at an adjoint solve's operands: Z^H lam = Xbar is the impedance
+    solve of (w, M^T, -B^T, C^T), materialized before the launch, with
+    the phase's own state (every operand per lane) and right-hand side."""
+    M, B, C = (M.transpose(-3, -2).contiguous(),
+               (-B).transpose(-3, -2).contiguous(),
+               C.transpose(-2, -1).contiguous())
+    return _operand_row(G, w, M, B, C, Xbar.resolve_conj().contiguous(),
+                        "adjoint_operands", "impedance_gj_adjoint")
+
+
+def run_codesign(dev):
+    """The co-design gradient path (models/codesign_cases.py, golden of
+    tests/golden/codesign_golden.py): VolturnUS-S at its 80 bins, the
+    golden's 4 lanes, metric std, through make_design_objective's
+    obj.batched and the backward grad_guarded takes (inside
+    obs.transfers.guard("disallow")); values and gradients against
+    codesign/volturn80.json at CODESIGN_TOL, K1 launches of the forward
+    (its fixed-point passes) and of the backward (one re-linearization,
+    the adjoint passes, one pullback to the state); then, from one
+    setup, the gradients of the objective in the fixed point's state
+    leaves (M_lin, C_lin, F_lin) in f64 and under mixed (K3 in the
+    backward), mixed against f64 at MIXED_STD_RTOL; then K1 at the
+    adjoint solve's operands, timed like the phase 3 rows."""
+    from raft_tpu_torch import _config
+    from raft_tpu_torch._config import COMPLEX
+    from raft_tpu_torch.models import codesign_cases as CC
+    from raft_tpu_torch.models.fowt import fowt_hydro_linearization_pre
+    from raft_tpu_torch.obs import transfers
+    from raft_tpu_torch.ops.kernels import gj_solve as G
+    from raft_tpu_torch.parallel import optimize as opt
+    from raft_tpu_torch.parallel.variants import _STEP_STATE
+
+    K1, K3 = "impedance_gj", "impedance_gj_mixed"
+    rec = CC.load("volturn80")["std"]
+    t0 = time.perf_counter()
+    base, space = CC.build(rec, dev)
+    obj = CC.objective(rec, base, space)
+    solver = obj.solver
+    torch.cuda.synchronize()
+    res = dict(build_s=time.perf_counter() - t0, nw=base.nw,
+               lanes=len(rec["lanes"]), space=rec["space"]["names"],
+               solver=rec["solver"])
+    X = torch.tensor(CC.lanes_x(rec), dtype=torch.float64, device=dev,
+                     requires_grad=True)
+    torch.cuda.reset_peak_memory_stats()
+    with counted("codesign", (K1,)):
+        t0 = time.perf_counter()
+        v = obj.batched(X)
+        torch.cuda.synchronize()
+        res["forward_s"] = time.perf_counter() - t0
+        fwd = G.LAUNCHES[K1]
+        res["timings"] = dict(solver.timings)
+        t0 = time.perf_counter()
+        with transfers.guard("disallow"):
+            g, = torch.autograd.grad(torch.sum(v), X)
+            torch.cuda.synchronize()
+        res["backward_s"] = time.perf_counter() - t0
+        bwd = G.LAUNCHES[K1] - fwd
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    fp = dict(solver.fixed_point)
+    res.update(fixed_point=fp, k1_forward=fwd, k1_backward=bwd)
+    log(f"  codesign: {res['lanes']} lanes x {base.nw} bins on {card_line()}: "
+        f"setup {res['timings']['setup']:.2f} s, fixed point "
+        f"{res['timings']['fixed_point']:.3f} s (forward {res['forward_s']:.2f}"
+        f" s), backward {res['backward_s']:.2f} s (guarded), build "
+        f"{res['build_s']:.2f} s, peak {res['peak_gib']:.2f} GiB; passes "
+        f"{fp['passes']} forward, {fp['adjoint_passes']} adjoint")
+    _expect("K1 launches in the forward (its fixed-point passes)", fwd,
+            fp["passes"])
+    _expect("K1 launches in the backward (1 re-linearization + the adjoint "
+            "passes + 1 pullback to the state)", bwd,
+            fp["adjoint_passes"] + 2)
+    vh, gh = v.detach().cpu().numpy(), g.cpu().numpy()
+    devs = [CC.deviation(vh[i], gh[i], lane)
+            for i, lane in enumerate(rec["lanes"])]
+    res["value_rel_max"] = max(d[0] for d in devs)
+    res["grad_rel_max"] = max(d[1] for d in devs)
+    log(f"  codesign vs the JAX golden: values {vh.tolist()}, worst value "
+        f"rel {res['value_rel_max']:.2e}, worst gradient component rel "
+        f"{res['grad_rel_max']:.2e} (bar {CODESIGN_TOL:g})")
+    if not (res["value_rel_max"] <= CODESIGN_TOL
+            and res["grad_rel_max"] <= CODESIGN_TOL):
+        fail(f"codesign: values / gradients off the golden "
+             f"({res['value_rel_max']:.2e}, {res['grad_rel_max']:.2e})")
+
+    # the fixed point's state leaves, f64 and mixed, from one setup
+    with torch.no_grad():
+        st = torch.func.vmap(solver.setup)(
+            torch.func.vmap(space.to_theta)(X.detach()))
+    fn, _ = opt.make_objective(rec["objective"])
+    w = torch.as_tensor(base.w, dtype=torch.float64, device=dev)
+    Xi0 = torch.zeros((X.shape[0], 6, base.nw), dtype=COMPLEX,
+                      device=dev) + 0.1
+    names = ("M_lin", "C_lin", "F_lin")
+    grads, Xis = {}, {}
+    for mode, key in (("f64", K1), ("mixed", K3)):
+        leaves = {k: st[k].detach().clone().requires_grad_(True)
+                  for k in names}
+        state = {**{k: st[k] for k in _STEP_STATE}, **leaves}
+        record = {}
+        _config.set_precision_mode(mode)
+        try:
+            with counted(f"codesign_state_{mode}", (key,)):
+                Xi = opt.fixed_point_implicit(
+                    solver.drag_step, Xi0, state, nIter=rec["solver"]["nIter"],
+                    tol=rec["solver"]["tol"], record=record)
+                nf = G.LAUNCHES[key]
+                loss = torch.sum(fn({"Xi": Xi}, w))
+                with transfers.guard("disallow"):
+                    grads[mode] = torch.autograd.grad(
+                        loss, [leaves[k] for k in names])
+                    torch.cuda.synchronize()
+                nb = G.LAUNCHES[key] - nf
+        finally:
+            _config.set_precision_mode(None)
+        Xis[mode] = Xi.detach()
+        _expect(f"{mode}: {key} launches in the backward", nb,
+                record["adjoint_passes"] + 2)
+        res[f"state_{mode}"] = dict(record, forward=nf, backward=nb)
+    rels = {k: float(torch.max(torch.abs(a - b)) / torch.max(torch.abs(b)))
+            for k, a, b in zip(names, grads["mixed"], grads["f64"])}
+    res["state_mixed_rel"] = rels
+    log(f"  codesign state gradients, mixed vs f64 (max-abs relative): "
+        + ", ".join(f"{k} {r:.2e}" for k, r in rels.items()))
+    if not all(r <= MIXED_STD_RTOL for r in rels.values()):
+        fail(f"codesign: mixed state gradients off f64: {rels}")
+
+    # K1 at the adjoint solve's operands: the drag linearization at the
+    # f64 fixed point, the objective's gradient in Xi as right-hand side
+    Xi = Xis["f64"].clone().requires_grad_(True)
+    Xbar, = torch.autograd.grad(torch.sum(fn({"Xi": Xi}, w)), Xi)
+    with torch.no_grad():
+        B6, _ = fowt_hydro_linearization_pre(base, st["pose_eq"],
+                                             st["drag_pre"], Xis["f64"])
+        res["adjoint_row"] = check_impedance_adjoint(
+            G, w, st["M_lin"], B6[..., None].expand_as(st["M_lin"]),
+            st["C_lin"], Xbar)
+    return res
+
+
 # kernel line: (JSON name, launch key, TPU kernel it replaces, CUDA source,
 # the main-path shape its times are taken at)
 KERNELS = (
@@ -3229,6 +3392,138 @@ KERNELS = (
      "raft_tpu_torch/csrc/qtf_k5_f64.cu", 900),
 )
 
+#: the drivers of phases 4-13 and 16, by name
+PHASE_RUNS = {
+    "main": run_main, "sweep": run_sweeps, "variants": run_variants,
+    "golden": lambda dev: run_goldens(dev, "f64"),
+    "golden_mixed": lambda dev: run_goldens(dev, "mixed"),
+    "qtf": run_qtf, "potflow": run_potflow, "mhk": run_mhk,
+    "farm": run_farm, "mcf": run_mcf, "ballast": run_ballast,
+    "codesign": run_codesign}
+#: phases 4-6 (then 14 and 15) run in this process; phases 7-13 and 16
+#: run in these groups, one worker process each (``--worker``), on the
+#: same card at the same time, started after phase 3 and joined after
+#: phase 15.  Each phase is host-bound (the card is idle most of a Model
+#: run), so the groups overlap instead of queueing.
+PARENT_PHASES = ("main", "sweep", "variants")
+WORKER_GROUPS = (("mhk",), ("farm", "mcf"),
+                 ("golden", "golden_mixed", "qtf", "potflow", "ballast",
+                  "codesign"))
+WORKER_TIMEOUT_S = 900   # from their start; the script's own limit is 1200
+
+
+def run_phase(name, dev):
+    log(f"{name}: on the card")
+    t0 = time.perf_counter()
+    out = PHASE_RUNS[name](dev)
+    PHASE_WALLS[name] = time.perf_counter() - t0
+    log(f"{name}: {PHASE_WALLS[name]:.1f} s")
+    return out
+
+
+def _worker_tag(names) -> str:
+    return "worker_" + "_".join(names)
+
+
+def run_worker(names, dev) -> int:
+    """``--worker NAMES``: run the named phases of 7-13 and 16 here (each
+    Model run and sweep checked as a clean path) and write their record
+    (results, launches by path, rows, walls, failures, clean-path counts)
+    to OUT/<tag>.json."""
+    from raft_tpu_torch import obs
+
+    os.makedirs(OUT, exist_ok=True)
+    phases = {}
+    with clean_path_checks() as clean_runs:
+        for name in names:
+            phases[name] = run_phase(name, dev)
+    _expect(f"raft_tpu_recovery_attempts_total after {', '.join(names)}",
+            _counter(obs.snapshot(), "raft_tpu_recovery_attempts_total"), 0)
+    with open(os.path.join(OUT, _worker_tag(names) + ".json"), "w") as f:
+        json.dump({"phases": phases, "paths": PATH_LAUNCHES, "rows": ROWS,
+                   "walls": PHASE_WALLS, "failures": FAILURES,
+                   "device_ms_log": DEVICE_MS_LOG,
+                   "clean_runs": clean_runs}, f)
+    return 1 if FAILURES else 0
+
+
+def _die_with_parent():
+    """In a worker, before exec: SIGKILL it when its parent dies
+    (prctl PR_SET_PDEATHSIG), so no worker outlives a killed run."""
+    import ctypes
+    import signal
+    ctypes.CDLL(None).prctl(1, signal.SIGKILL)
+
+
+def start_workers() -> list:
+    """One ``chip_smoke.py --worker`` process per group of WORKER_GROUPS,
+    its stdout and stderr to files under OUT."""
+    procs = []
+    for names in WORKER_GROUPS:
+        tag = _worker_tag(names)
+        with contextlib.suppress(FileNotFoundError):
+            os.remove(os.path.join(OUT, tag + ".json"))
+        out = open(os.path.join(OUT, tag + ".out"), "w")
+        err = open(os.path.join(OUT, tag + ".err"), "w")
+        p = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--worker",
+             ",".join(names), "--out", OUT], stdout=out, stderr=err,
+            cwd=ROOT, preexec_fn=_die_with_parent)
+        out.close()
+        err.close()
+        log(f"{', '.join(names)}: in worker process {p.pid}")
+        procs.append((names, p, time.perf_counter()))
+    return procs
+
+
+def stop_workers(procs):
+    for _, p, _ in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def join_workers(procs, phases, clean_runs):
+    """Wait for every worker (killing one past WORKER_TIMEOUT_S), replay
+    its output and merge its record into this process's."""
+    for names, p, t0 in procs:
+        tag = _worker_tag(names)
+        try:
+            rc = p.wait(timeout=max(1.0, WORKER_TIMEOUT_S
+                                    - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            stop_workers(procs)
+            rc = None
+        PHASE_WALLS[tag] = time.perf_counter() - t0
+        log(f"{tag}: exit {rc} after {PHASE_WALLS[tag]:.1f} s; its output:")
+        with open(os.path.join(OUT, tag + ".out")) as f:
+            sys.stdout.write(f.read())
+        with open(os.path.join(OUT, tag + ".err")) as f:
+            sys.stderr.write(f.read())
+        sys.stdout.flush()
+        path = os.path.join(OUT, tag + ".json")
+        if rc is None or not os.path.isfile(path):
+            fail(f"{tag} " + ("ran past its time limit" if rc is None else
+                              f"exited {rc} without its record"))
+            continue
+        with open(path) as f:
+            rec = json.load(f)
+        twice = set(rec["paths"]) & set(PATH_LAUNCHES)
+        if twice:
+            fail(f"{tag}: launch paths recorded twice: {sorted(twice)}")
+        PATH_LAUNCHES.update(rec["paths"])
+        for key, rows in rec["rows"].items():
+            ROWS.setdefault(key, []).extend(rows)
+        PHASE_WALLS.update(rec["walls"])
+        DEVICE_MS_LOG.extend(rec["device_ms_log"])
+        FAILURES.extend(rec["failures"])
+        phases.update(rec["phases"])
+        for k in ("models", "sweeps"):
+            clean_runs[k] += rec["clean_runs"][k]
+        clean_runs["journal_s"].extend(rec["clean_runs"]["journal_s"])
+        if rc != 0 and not rec["failures"]:
+            fail(f"{tag} exited {rc}")
+
 
 def main() -> int:
     global OUT
@@ -3240,6 +3535,9 @@ def main() -> int:
     dev = torch.device("cuda")
     # every Model run's case journal goes under --out, never ~/.cache
     os.environ["RAFT_TPU_JOURNAL_DIR"] = os.path.join(OUT, "journal")
+    if "--worker" in sys.argv[1:]:
+        return run_worker(
+            sys.argv[sys.argv.index("--worker") + 1].split(","), dev)
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
@@ -3300,23 +3598,38 @@ def main() -> int:
         return 1 if FAILURES else 0
 
     phases = {}
-    with clean_path_checks() as clean_runs:
-        for name, fn in (("main", lambda: run_main(dev)),
-                         ("sweep", lambda: run_sweeps(dev)),
-                         ("variants", lambda: run_variants(dev)),
-                         ("golden", lambda: run_goldens(dev, "f64")),
-                         ("golden_mixed", lambda: run_goldens(dev, "mixed")),
-                         ("qtf", lambda: run_qtf(dev)),
-                         ("potflow", lambda: run_potflow(dev)),
-                         ("mhk", lambda: run_mhk(dev)),
-                         ("farm", lambda: run_farm(dev)),
-                         ("mcf", lambda: run_mcf(dev)),
-                         ("ballast", lambda: run_ballast(dev))):
-            log(f"{name}: on the card")
-            t0 = time.perf_counter()
-            phases[name] = fn()
-            PHASE_WALLS[name] = time.perf_counter() - t0
-            log(f"{name}: {PHASE_WALLS[name]:.1f} s")
+    workers = start_workers()
+    try:
+        with clean_path_checks() as clean_runs:
+            for name in PARENT_PHASES:
+                phases[name] = run_phase(name, dev)
+        from raft_tpu_torch import obs
+        attempts = _counter(obs.snapshot(),
+                            "raft_tpu_recovery_attempts_total")
+        _expect("raft_tpu_recovery_attempts_total after phases 4-6",
+                attempts, 0)
+        log("recovery: on the card")
+        t0 = time.perf_counter()
+        phases["recovery"] = run_recovery(dev)
+        phases["recovery"]["wall_s"] = PHASE_WALLS["recovery"] = \
+            time.perf_counter() - t0
+        log(f"recovery: {phases['recovery']['wall_s']:.1f} s")
+        rungs = sum(len(r.get("attempts", [])) for r in
+                    phases["recovery"].values() if isinstance(r, dict)) + len(
+            phases["recovery"]["recovery_sweep"]["quarantine"]["ladder"])
+        _expect("raft_tpu_recovery_attempts_total after phase 14 = its "
+                "rungs", _counter(obs.snapshot(),
+                                  "raft_tpu_recovery_attempts_total"), rungs)
+        log("obs: on the card")
+        t0 = time.perf_counter()
+        phases["obs"] = run_obs(dev)
+        phases["obs"]["wall_s"] = PHASE_WALLS["obs"] = \
+            time.perf_counter() - t0
+        log(f"obs: {phases['obs']['wall_s']:.1f} s")
+    except BaseException:
+        stop_workers(workers)
+        raise
+    join_workers(workers, phases, clean_runs)
     log(f"clean paths: {clean_runs['models']} Model runs and "
         f"{clean_runs['sweeps']} sweeps of phases 4-13 checked for no "
         "recovery attempt and nothing quarantined")
@@ -3325,27 +3638,6 @@ def main() -> int:
         f"Model runs: {sum(js):.3f} s in all, {max(js, default=0.0):.3f} s "
         f"the most in one run")
     phases["clean_path_runs"] = clean_runs
-    from raft_tpu_torch import obs
-    attempts = _counter(obs.snapshot(), "raft_tpu_recovery_attempts_total")
-    _expect("raft_tpu_recovery_attempts_total after phases 4-13", attempts,
-            0)
-    log("recovery: on the card")
-    t0 = time.perf_counter()
-    phases["recovery"] = run_recovery(dev)
-    phases["recovery"]["wall_s"] = PHASE_WALLS["recovery"] = \
-        time.perf_counter() - t0
-    log(f"recovery: {phases['recovery']['wall_s']:.1f} s")
-    rungs = sum(len(r.get("attempts", [])) for r in
-                phases["recovery"].values() if isinstance(r, dict)) + len(
-        phases["recovery"]["recovery_sweep"]["quarantine"]["ladder"])
-    _expect("raft_tpu_recovery_attempts_total after phase 14 = its rungs",
-            _counter(obs.snapshot(), "raft_tpu_recovery_attempts_total"),
-            rungs)
-    log("obs: on the card")
-    t0 = time.perf_counter()
-    phases["obs"] = run_obs(dev)
-    phases["obs"]["wall_s"] = PHASE_WALLS["obs"] = time.perf_counter() - t0
-    log(f"obs: {phases['obs']['wall_s']:.1f} s")
 
     def summary(label, key, replaces, source, lanes):
         # ms is the wall time of one wrapper call on the stream (CUDA
@@ -3380,6 +3672,9 @@ def main() -> int:
                 # phase 15: the observed runs and the health sweeps
                 "obs_launches": {p: n for p, n in by_path.items()
                                  if p.startswith("obs_")},
+                # phase 16: the gradient path, forward and backward
+                "codesign_launches": {p: n for p, n in by_path.items()
+                                      if p.startswith("codesign")},
                 "launch_floor_ms": floor}
 
     kernels = [summary(*k) for k in KERNELS]

@@ -1,6 +1,6 @@
 """Complex solves through the real block embedding, and their dispatch.
 
-Port of ``raft_tpu/ops/linalg.py`` (forward only).  The frequency-domain
+Port of ``raft_tpu/ops/linalg.py``.  The frequency-domain
 impedance solves Z X = F run through the real 2n x 2n embedding
 
     [Re Z  -Im Z] [Re X]   [Re F]
@@ -46,10 +46,20 @@ Every decision is recorded for ``last_dispatch()`` and counted in
 ``raft_solve_dispatch_total{backend,n,fused}``; the ladder's host reads
 (the promoted count, the promotion mask) are counted pulls
 (``obs.transfers.device_get``).
+
+Differentiation (``raft_tpu/ops/linalg.py:453-517``, the JAX package's
+``custom_vjp``): ``impedance_solve`` is the `torch.autograd.Function`
+`ImpedanceSolve`.  Its forward is the dispatch above, run without a
+graph, so the plain version is never differentiated natively; its
+backward is ONE adjoint impedance solve through the same dispatch (K1 on
+the card, K3 under ``mixed``, the plain version on the CPU, LU above
+2n > 16), recorded with ``adjoint: True`` in ``last_dispatch()``.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 
@@ -65,6 +75,12 @@ from raft_tpu_torch.testing import faults
 _GJ_MAX_N = 16
 
 _LAST_DISPATCH: dict = {}
+
+#: set while `ImpedanceSolve.backward` solves: the dispatch it records is
+#: an adjoint solve.  Thread-local, as the JAX package's flag: PyTorch runs
+#: a CUDA backward on its own device thread, and a solve of another thread
+#: in the meantime is no adjoint.
+_ADJOINT = threading.local()
 
 _COMPLEX_OF = {torch.float64: torch.complex128, torch.float32: torch.complex64}
 
@@ -175,8 +191,9 @@ def _solve_unchecked(A, b):
 def last_dispatch() -> dict:
     """Most recent solve dispatch: ``{"backend", "kernel", "n",
     "batch_elems", "fused", "device", "precision", "solve_width",
-    "factor_width", "promote_tol"}``, plus ``precision_degenerate`` for a
-    mixed request that could not narrow, and under the mixed ladder the
+    "factor_width", "promote_tol"}``, plus ``adjoint: True`` for the
+    adjoint solve of `ImpedanceSolve.backward`, ``precision_degenerate``
+    for a mixed request that could not narrow, and under the mixed ladder the
     promotion stats ``promoted``, ``lanes``, ``resid_max`` (``promoted``
     and ``resid_max`` are tensors on the solve's device, read without a
     sync); empty before any solve."""
@@ -212,6 +229,8 @@ def _record_dispatch(backend, kernel, n, batch_elems, fused, device,
     _LAST_DISPATCH.update(backend=backend, kernel=kernel, n=int(n),
                           batch_elems=int(batch_elems), fused=bool(fused),
                           device=str(device))
+    if getattr(_ADJOINT, "active", False):
+        _LAST_DISPATCH["adjoint"] = True
     _metrics.record_solve_dispatch(backend, n, batch_elems, fused)
     if plan is not None:
         _LAST_DISPATCH.update(
@@ -290,9 +309,95 @@ def impedance_solve(w, M, B, C, F):
     ladder), which assembles the embedding itself; larger systems
     assemble Z and solve by LU (the ladder around LU under mixed).
 
+    Differentiable in all five inputs through `ImpedanceSolve`: its
+    backward is one adjoint solve through this same dispatch.
+
     The ``kernel`` fault seam sits before any launch: ``raise@kernel``
     raises an injected ``KernelFailure`` and the call launches
-    nothing."""
+    nothing (the adjoint solve's seam too)."""
+    return ImpedanceSolve.apply(as_real(w, M.device), M, B, C, F)
+
+
+def _unbroadcast(x, shape):
+    """Sum a gradient down to its input's (broadcast) shape
+    (``raft_tpu/ops/linalg.py:_unbroadcast``)."""
+    if tuple(x.shape) == tuple(shape):
+        return x
+    extra = x.ndim - len(shape)
+    if extra > 0:
+        x = torch.sum(x, dim=tuple(range(extra)))
+    dims = tuple(i for i, (a, b) in enumerate(zip(x.shape, shape)) if a != b)
+    if dims:
+        x = torch.sum(x, dim=dims, keepdim=True)
+    return x.reshape(shape)
+
+
+@contextlib.contextmanager
+def _adjoint_scope():
+    prev = getattr(_ADJOINT, "active", False)
+    _ADJOINT.active = True
+    try:
+        yield
+    finally:
+        _ADJOINT.active = prev
+
+
+class ImpedanceSolve(torch.autograd.Function):
+    """`impedance_solve` with the JAX package's implicit adjoint
+    (``raft_tpu/ops/linalg.py:_impedance_solve_bwd``).
+
+    PyTorch's gradient of a complex tensor is the conjugate of JAX's
+    cotangent.  For X = Z^-1 F and an incoming gradient G the backward
+    solves Z^H lam = G, Z^H = -w^2 M^T - i w B^T + C^T: the same kernel on
+    (w, M^T, -B^T, C^T), whose transposes and negation are materialized
+    before the launch (by the wrapper's ``contiguous``).  Then
+    Zbar = -lam X^H per frequency, and the real inputs take JAX's
+    gradients: M -w^2 Re Zbar, B w Im Zbar, C the frequency sum of
+    Re Zbar, w Re sum(conj(Zbar) (-2 w M + i B)); F takes lam, the
+    conjugate of JAX's cotangent.  Each is summed down to its input's
+    shape (a shared M, B or C gets the sum over the lanes)."""
+
+    @staticmethod
+    def forward(w, M, B, C, F):
+        return _impedance_solve_impl(w, M, B, C, F)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        w, M, B, C, _ = inputs
+        ctx.save_for_backward(w, M, B, C, output)
+        ctx.shapes = [tuple(t.shape) for t in inputs]
+
+    @staticmethod
+    def backward(ctx, Xbar):
+        need = ctx.needs_input_grad
+        if not any(need):
+            return (None,) * 5
+        w, M, B, C, X = ctx.saved_tensors
+        with _adjoint_scope():
+            lam = _impedance_solve_impl(
+                w, M.transpose(-3, -2), -B.transpose(-3, -2),
+                C.transpose(-2, -1), Xbar.resolve_conj())
+        Zbar = -lam[..., :, None, :] * X.conj()[..., None, :, :]
+        sw, sM, sB, sC, sF = ctx.shapes
+        gw = gM = gB = gC = gF = None
+        if need[0]:
+            dZ = -2.0 * w * M + 1j * B
+            gw = _unbroadcast(torch.sum(
+                torch.real(Zbar.conj() * dZ),
+                dim=tuple(range(Zbar.ndim - 1))), sw)
+        if need[1]:
+            gM = _unbroadcast(-w ** 2 * Zbar.real, sM)
+        if need[2]:
+            gB = _unbroadcast(w * Zbar.imag, sB)
+        if need[3]:
+            gC = _unbroadcast(torch.sum(Zbar.real, dim=-1), sC)
+        if need[4]:
+            gF = _unbroadcast(lam, sF)
+        return gw, gM, gB, gC, gF
+
+
+def _impedance_solve_impl(w, M, B, C, F):
+    """The dispatch of `impedance_solve`, without a graph."""
     faults.maybe_raise("kernel")
     n = M.shape[-3]
     nw = M.shape[-1]

@@ -71,15 +71,15 @@ from raft_tpu_torch.utils.dicttools import get_from_dict
 
 
 def unrolled_fixed_point(step, Xi0, nIter, tol, chunk: int = 2,
-                         relax: float = 0.8):
+                         relax: float = 0.8, what: str = "sweep_fp_chunk"):
     """Drag-linearization fixed point over a leading batch axis: ``nIter``
     passes of ``step`` with per-item convergence freezing (0.2/0.8
     under-relaxation, the reference's raft_model.py:961-991 scheme).
 
     The passes are cut into chunks of ``chunk``; before each chunk one
-    host check (a counted pull) skips it when every item has converged.  That is exact: a
-    frozen pass is an identity on the whole carry.  ``chunk=nIter`` (or
-    0) runs every pass.
+    host check (a counted pull, labelled ``what``) skips it when every
+    item has converged.  That is exact: a frozen pass is an identity on
+    the whole carry.  ``chunk=nIter`` (or 0) runs every pass.
 
     Returns (XiLast, Xi, done, iters, chunks_run): ``iters`` is the
     per-item count of executed (non-frozen) passes and ``chunks_run`` the
@@ -95,8 +95,7 @@ def unrolled_fixed_point(step, Xi0, nIter, tol, chunk: int = 2,
     while remaining > 0:
         count = min(chunk, remaining)
         remaining -= count
-        if bool(transfers.device_get(torch.all(done),
-                                     what="sweep_fp_chunk")):
+        if bool(transfers.device_get(torch.all(done), what=what)):
             continue
         for _ in range(count):
             Xin = step(XiLast)

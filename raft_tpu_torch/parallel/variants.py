@@ -19,16 +19,21 @@ hand with an explicit variant axis, as in JAX.
 
 Strip node counts and station fractions stay those of the base design;
 lengths, positions, diameters, areas and volumes are tensors computed
-from θ.  Not ported here: ``implicit_diff`` (ROADMAP A9), the device
-mesh and the executable cache (A9).
+from θ.  ``make_variant_solver(implicit_diff=True)`` makes the pipeline
+differentiable in θ by implicit differentiation (``parallel/optimize.py``:
+the Newton through ``newton_implicit``, ``solve.implicit`` /
+``solve.implicit_batched`` through ``fixed_point_implicit``, whose
+adjoint passes launch K1 / K3).  Not ported here: the device mesh (A9).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from raft_tpu_torch._config import COMPLEX, REAL, as_real, resolve_device
 from raft_tpu_torch.errors import ModelConfigError
@@ -40,6 +45,8 @@ from raft_tpu_torch.models.fowt import (
 )
 from raft_tpu_torch.ops.linalg import impedance_solve
 from raft_tpu_torch.ops.spectra import get_rms, jonswap
+from raft_tpu_torch.parallel.optimize import (
+    fixed_point_implicit, newton_implicit)
 from raft_tpu_torch.parallel.sweep import on_device, unrolled_fixed_point
 
 # --------------------------------------------------------------------------
@@ -192,15 +199,32 @@ def statics_newton(net_force, X0, iters: int = 20):
 # per-variant pipeline
 # --------------------------------------------------------------------------
 
+#: the setup outputs one drag pass reads (the fixed point's state)
+_STEP_STATE = ("pose_eq", "drag_pre", "u0", "M_lin", "C_lin", "F_lin")
+
+
 def make_variant_solver(base: FOWTModel, Hs=6.0, Tp=12.0, beta=0.0,
                         F_env=None, A_turb=None, B_turb=None,
                         ballast: bool = True, nIter: int = 10,
                         tol: float = 0.01, XiStart: float = 0.1,
                         newton_iters: int = 20, fp_chunk: int = 2,
-                        chunk_size=None):
-    """The per-variant function θ -> outputs, on the base model's device:
-    ``solve(theta)`` for one variant, ``solve.batched(thetas)`` for a
-    batch (leading variant axis on every θ leaf).
+                        chunk_size=None, implicit_diff: bool = False,
+                        adjoint_iters=None):
+    """The per-variant function θ -> outputs, on the base model's device
+    (``solve.device``): ``solve(theta)`` for one variant,
+    ``solve.batched(thetas)`` for a batch (leading variant axis on every
+    θ leaf).
+
+    ``implicit_diff``: ``solve.implicit(theta)`` /
+    ``solve.implicit_batched(thetas)`` exist: the pipeline differentiable
+    in θ, its statics Newton through ``optimize.newton_implicit`` (the
+    same values; the gradient one solve with its tangent stiffness), its
+    drag fixed point through ``optimize.fixed_point_implicit``
+    (``nIter`` passes, ``adjoint_iters`` adjoint passes, default
+    ``2 * nIter``).  After a call ``solve.fixed_point`` holds the passes
+    it ran (``passes``, and ``adjoint_passes`` once its backward ran) and
+    ``solve.timings`` its walls.  The values of ``solve`` and
+    ``solve.batched`` do not change with the flag.
 
     F_env: constant environmental force (mean thrust + current drag) from
     the base design; A_turb/B_turb: (6,6,nw) aero added mass/damping.
@@ -221,7 +245,11 @@ def make_variant_solver(base: FOWTModel, Hs=6.0, Tp=12.0, beta=0.0,
         else as_real(B_turb, dev)
     rho = base.rho_water
 
-    def setup(theta):
+    def setup(theta, implicit: bool = False):
+        """One variant's statics, equilibrium and dynamics state;
+        ``implicit``: the Newton through ``newton_implicit`` (the
+        differentiable path only, so ``solve`` / ``solve.batched`` never
+        pay its tangent solve)."""
         fowt = variant_fowt(base, theta)
         ref = torch.zeros(6, dtype=REAL, device=dev)
         pose0 = fowt_pose(fowt, ref)
@@ -245,7 +273,10 @@ def make_variant_solver(base: FOWTModel, Hs=6.0, Tp=12.0, beta=0.0,
                 F = F + mr.body_wrench(fowt.mooring, X)
             return F
 
-        Xeq = statics_newton(net_force, ref, iters=newton_iters)
+        if implicit:
+            Xeq = newton_implicit(net_force, ref, iters=newton_iters)
+        else:
+            Xeq = statics_newton(net_force, ref, iters=newton_iters)
 
         # ----- dynamics state: drag precompute + the linear system -----
         hc = fowt_hydro_constants(fowt, pose0)
@@ -335,7 +366,42 @@ def make_variant_solver(base: FOWTModel, Hs=6.0, Tp=12.0, beta=0.0,
                              fixed_point=time.perf_counter() - t1)
         return out
 
+    def implicit_batched(thetas):
+        """A batch of variants, differentiable in θ: the vmapped setup,
+        then the implicit drag fixed point over the variant axis (the
+        port's form of the JAX package's ``vmap(solve.implicit)``)."""
+        thetas = pytree.tree_map(lambda v: as_real(v, dev), thetas)
+        t0 = time.perf_counter()
+        st = torch.func.vmap(functools.partial(setup, implicit=True),
+                             chunk_size=chunk_size)(thetas)
+        _sync()
+        t1 = time.perf_counter()
+        nv = st["Xeq"].shape[0]
+        Xi0 = torch.zeros((nv, 6, nw), dtype=COMPLEX, device=dev) + XiStart
+        record = {}
+        Xi = fixed_point_implicit(
+            drag_step, Xi0, {k: st[k] for k in _STEP_STATE}, nIter=nIter,
+            tol=tol, adjoint_iters=adjoint_iters, chunk=fp_chunk,
+            record=record)
+        solve.fixed_point = record
+        out = finish(st, Xi)
+        _sync()
+        solve.timings = dict(setup=t1 - t0,
+                             fixed_point=time.perf_counter() - t1)
+        return out
+
+    def implicit(theta):
+        """One variant, differentiable in θ (``solve.implicit_batched``
+        on a batch of one)."""
+        out = implicit_batched(pytree.tree_map(lambda v: v[None], theta))
+        return {k: v[0] for k, v in out.items()}
+
     solve.batched = solve_batched
+    if implicit_diff:
+        solve.implicit = implicit
+        solve.implicit_batched = implicit_batched
+        solve.fixed_point = {}
+    solve.device = dev
     solve.setup = setup
     solve.drag_step = drag_step
     solve.finish = finish

@@ -473,3 +473,57 @@ def test_farm_sweep_on_the_card_matches_cpu(card):
         assert _rel(gpu[k].cpu(), cpu[k]) < 1e-12, k
     for k in ("iters", "converged", "wake_iters"):
         assert torch.equal(gpu[k].cpu(), cpu[k]), k
+
+
+@pytest.mark.cuda
+def test_impedance_adjoint_on_the_card_matches_cpu(card):
+    """The backward of ops.linalg.impedance_solve on the card (one adjoint
+    K1 launch) against the CPU's (the plain version): the gradients in w,
+    M, B, C (shared by the cases) and F."""
+    from raft_tpu_torch.ops import linalg
+
+    rng = np.random.default_rng(31)
+    nb, n, nw = 3, 6, 80
+    args = (np.linspace(0.03, 2.5, nw),
+            rng.standard_normal((nb, n, n, nw)) + 5.0 * np.eye(n)[:, :, None],
+            0.1 * rng.standard_normal((nb, n, n, nw)),
+            10.0 * (rng.standard_normal((n, n)) + 5.0 * np.eye(n)),
+            rng.standard_normal((nb, n, nw)) + 1j * rng.standard_normal(
+                (nb, n, nw)))
+    c = torch.tensor(rng.standard_normal((n, nw))
+                     + 1j * rng.standard_normal((n, nw)))
+    grads = {}
+    for dev in ("cpu", card):
+        ts = [torch.tensor(a, device=dev, requires_grad=True) for a in args]
+        G.reset_launches()
+        X = linalg.impedance_solve(*ts)
+        torch.sum(torch.real(c.to(dev) * X) + torch.abs(X) ** 2).backward()
+        grads[str(dev)] = [t.grad.cpu() for t in ts]
+        launches = {k: v for k, v in G.LAUNCHES.items() if v}
+    assert launches == {"impedance_gj": 2}
+    d = linalg.last_dispatch()
+    assert (d["backend"], d.get("adjoint")) == ("cuda_fused", True)
+    for name, a, b in zip("wMBCF", grads[str(card)], grads["cpu"]):
+        assert _rel(a, b) < 1e-10, name
+
+
+@pytest.mark.cuda
+def test_codesign_gradients_on_the_card(card):
+    """make_design_objective / grad_guarded on the card: the small
+    cylinder's std golden (tests/golden/codesign/cylinder.json) at the CPU
+    tests' bars, with K1 launched in the forward and the backward."""
+    from raft_tpu_torch.models import codesign_cases as CC
+    from raft_tpu_torch.parallel import optimize as opt
+
+    rec = CC.load("cylinder")["std"]
+    base, space = CC.build(rec, card)
+    obj = CC.objective(rec, base, space)
+    G.reset_launches()
+    v, g, fin = opt.grad_guarded(obj)(CC.lanes_x(rec))
+    fp = obj.solver.fixed_point
+    assert G.LAUNCHES["impedance_gj"] == fp["passes"] \
+        + fp["adjoint_passes"] + 2
+    assert fin.all()
+    for i, lane in enumerate(rec["lanes"]):
+        v_rel, g_rel = CC.deviation(float(v[i]), g[i].cpu().numpy(), lane)
+        assert v_rel <= 1e-9 and g_rel <= 1e-7, (i, v_rel, g_rel)

@@ -68,6 +68,14 @@ def test_probe_covers_the_potential_flow_modules(probed_modules):
         assert name in probed_modules, name
 
 
+def test_probe_covers_the_codesign_modules(probed_modules):
+    """The implicit-diff gradient layer and its shared cases are among
+    the probed modules."""
+    for name in ("raft_tpu_torch.parallel.optimize",
+                 "raft_tpu_torch.models.codesign_cases"):
+        assert name in probed_modules, name
+
+
 def _sources():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "raft_tpu_torch")):
