@@ -211,15 +211,37 @@ Phases (any failure exits non-zero; no phase's failure is turned into a
               against f64 at 1e-6; K1 at the adjoint solve's operands
               (M^T, -B^T, C^T per lane, 4 x 80 lanes), timed like the
               phase 3 rows; walls and peak memory printed;
-17. prints the kernels JSON line, the card line, and the final JSON line.
-Phases 7-13 and 16 run in three worker processes on the same card (mhk;
-farm and mcf; golden, golden_mixed, qtf, potflow, ballast and codesign:
-``--worker NAMES``, WORKER_GROUPS), started after phase 3 and running
+17. descent — the batched design descent (parallel/optimize.py
+              optimize_designs -> make_descent, parallel/optimizers.py,
+              models/descent_cases.py, goldens of
+              tests/golden/descent_golden.py) on VolturnUS-S over
+              {d_scale, moor_L, moor_EA, moor_anchor}, std, newton_iters
+              20: (d1) Adam at its 80 bins over the codesign lanes and a
+              NaN lane, 2 steps; (d2) L-BFGS with the zoom linesearch at
+              10 bins (0.02-0.2 Hz) over 2 of those lanes, 1 step; each
+              optimize_designs call whole inside
+              obs.transfers.guard("disallow"): x, objective and its
+              trace at 1e-8 relative, the gradient norm at 1e-6, steps
+              counted, masks and the best lane exactly against
+              descent/volturn80.json and volturn10.json; K1 launches
+              pinned per gradient (its forward passes, one
+              re-linearization, its adjoint passes, one pullback), and
+              each step's gradients and linesearch trials, from the
+              descent's spans; per step its wall; host pulls by what,
+              peak memory and descents per minute printed; then the
+              descent once more through make_descent's segment, one
+              step at a time: per-step x and step size at 1e-8, gradient
+              norms at 1e-6, masks and linesearch steps exactly;
+18. prints the kernels JSON line, the card line, and the final JSON line.
+Phases 7-13, 16 and 17 run in four worker processes on the same card
+(mhk; farm and mcf; golden, golden_mixed, qtf, potflow, ballast and
+codesign; descent: ``--worker NAMES``, WORKER_GROUPS), started after
+phase 3 and running
 beside phases 4-6, 14 and 15 of this process; it then joins them, replays
 their output and merges their launches, rows, walls and failures.  The
-walls and the timed rows of phases 4-16 are taken with the card and the
+walls and the timed rows of phases 4-17 are taken with the card and the
 host shared.
-Each path of phases 4-16 runs with the launch counters set to 0 just
+Each path of phases 4-17 runs with the launch counters set to 0 just
 before it and read just after; every kernel of a path must launch in it.
 Every Model run of phases 4-13 must end with no recovery attempt and no
 quarantined case, and every sweep_cases with no quarantined lane;
@@ -231,7 +253,7 @@ Options: --only-kernels stops after phase 3 (the short call after a
 kernel edit); --out DIR sets where the full
 record (ptxas.log, chip_smoke.json, each worker's output and record) is
 written (default build/chip_smoke); --worker NAMES runs only those phases
-of 7-13 and 16 (comma-separated) and writes their record, as the
+of 7-13, 16 and 17 (comma-separated) and writes their record, as the
 workers do.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -3374,6 +3396,115 @@ def run_codesign(dev):
     return res
 
 
+def run_descent(dev):
+    """The batched design descent (models/descent_cases.py, goldens of
+    tests/golden/descent_golden.py): optimize_designs on VolturnUS-S, (d1)
+    Adam at its 80 bins over descent/volturn80.json's lanes (the codesign
+    lanes and a NaN lane), (d2) L-BFGS at 10 bins over volturn10.json's 2
+    lanes (the JAX package's 80-bin L-BFGS program did not compile in one
+    CPU process: LLVM ran out of memory maps after 40 minutes); each
+    optimize_designs call whole inside obs.transfers.guard("disallow");
+    its result held against the golden at descent_cases.CARD_BARS; K1
+    launches pinned to the fixed points' passes (forward passes, and per
+    gradient one re-linearization, the adjoint passes and one pullback)
+    and the gradients and linesearch trials of each step to the record,
+    all read from the descent's spans; per step its wall; pulls by what,
+    peak memory, descents per minute.  Then the same descent once more
+    through make_descent's own segment, one step at a time
+    (descent_cases.stepped), for the per-step iterates, gradient norms,
+    masks and linesearch steps at the card bars."""
+    from raft_tpu_torch.models import descent_cases as DC
+    from raft_tpu_torch.obs import tracing, transfers
+    from raft_tpu_torch.ops.kernels import gj_solve as G
+    from raft_tpu_torch.parallel import optimize as opt
+
+    K1 = "impedance_gj"
+    card = card_line()
+    out = {}
+    for tag, fname, name in (("d1", "volturn80", "adam"),
+                             ("d2", "volturn10", "lbfgs")):
+        rec = DC.load(fname)[name]
+        t0 = time.perf_counter()
+        base, space = DC.build(rec, dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        pulls0 = DC.pulls_by_what()
+        n0 = len(tracing.spans())
+        with counted(f"descent_{tag}", (K1,)):
+            with transfers.guard("disallow"):
+                result = opt.optimize_designs(base, space,
+                                              **DC.call_kwargs(rec))
+            launches = G.LAUNCHES[K1]
+        pulls = DC.pulls_between(pulls0, DC.pulls_by_what())
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steps, tot = DC.spans_since(n0)     # the final gradient in tot
+        t1 = time.perf_counter()
+        facts = DC.stepped(base, space, rec)
+        stepped_s = time.perf_counter() - t1
+        dev_ = DC.deviations(rec, result, facts)
+        bad = DC.failures(dev_, DC.CARD_BARS)
+        prov = result["provenance"]
+        nl = len(rec["x0"])
+        grads = tot["gradients"]
+        r = dict(method=rec["method"], lanes=nl, steps=rec["steps"],
+                 nw=base.nw, build_s=build_s, wall_s=prov["wall_s"],
+                 totals=tot, stepped_s=stepped_s,
+                 descents_per_min=60.0 * nl / prov["wall_s"],
+                 peak_gib=peak, k1=launches, gradients=grads,
+                 linesearch_trials=tot["linesearch_trials"], pulls=pulls,
+                 value_rel_max=max(dev_["value"].values()),
+                 grad_rel_max=max(dev_["grad"].values()),
+                 exact_differs=dev_["exact"], per_step=steps,
+                 iters=result["iters"].tolist(),
+                 nonfinite=result["nonfinite"].tolist(),
+                 lane_best=int(result["lane_best"]),
+                 f_best=result["f_best"])
+        for i, st in enumerate(steps):
+            log(f"  descent {tag} ({rec['method']}) step {i}: wall "
+                f"{st['wall_s']:.2f} s, gradients {st['gradients']}, "
+                f"linesearch trials {st['linesearch_trials']}, setup "
+                f"{st['setup_s']:.2f} s, fixed point "
+                f"{st['fixed_point_s']:.3f} s, backward "
+                f"{st['backward_s']:.2f} s; passes {st['passes']} "
+                f"forward, {st['adjoint_passes']} adjoint; {card}")
+        log(f"  descent {tag}: {nl} lanes x {base.nw} bins, {rec['steps']} "
+            f"step(s) of {rec['method']} on {card}: wall {prov['wall_s']:.2f}"
+            f" s ({r['descents_per_min']:.3f} descents/min), {grads} "
+            f"gradients ({tot['linesearch_trials']} linesearch trials, 1 "
+            f"final), setup {tot['setup_s']:.2f} s, backward "
+            f"{tot['backward_s']:.2f} s, build {build_s:.2f} s, peak "
+            f"{peak:.2f} GiB; pulls {pulls}; the stepped rerun "
+            f"{stepped_s:.2f} s")
+        log(f"  descent {tag} vs the JAX golden: worst value rel "
+            f"{r['value_rel_max']:.2e}, worst gradient-norm rel "
+            f"{r['grad_rel_max']:.2e} (bars {DC.CARD_BARS}); iters "
+            f"{r['iters']}, nonfinite {r['nonfinite']}, best lane "
+            f"{r['lane_best']}; linesearch steps "
+            f"{[f['ls_steps'].tolist() for f in facts if 'ls_steps' in f]}")
+        if bad:
+            fail(f"descent {tag}: off the golden: {bad}")
+        _expect(f"descent {tag}: K1 launches (forward passes + per gradient"
+                " 1 re-linearization + the adjoint passes + 1 pullback)",
+                launches, tot["passes"] + tot["adjoint_passes"] + 2 * grads)
+        trials = (DC.expected_trials(rec) if rec["method"] == "lbfgs"
+                  else [0] * rec["steps"])
+        _expect(f"descent {tag}: linesearch trials a step (the slowest "
+                "live lane's steps)",
+                [st["linesearch_trials"] for st in steps], trials)
+        _expect(f"descent {tag}: gradients a step (1, and 1 a linesearch "
+                "trial)", [st["gradients"] for st in steps],
+                [1 + t for t in trials])
+        _expect(f"descent {tag}: gradients (1 a step, 1 a linesearch trial,"
+                " 1 final)", grads, rec["steps"] + sum(trials) + 1)
+        _expect(f"descent {tag}: host pulls by what", pulls,
+                DC.expected_pulls(rec, grads, ls_tests=(
+                    sum(trials) + rec["steps"]
+                    if rec["method"] == "lbfgs" else 0)))
+        out[tag] = r
+    return out
+
+
 # kernel line: (JSON name, launch key, TPU kernel it replaces, CUDA source,
 # the main-path shape its times are taken at)
 KERNELS = (
@@ -3392,23 +3523,23 @@ KERNELS = (
      "raft_tpu_torch/csrc/qtf_k5_f64.cu", 900),
 )
 
-#: the drivers of phases 4-13 and 16, by name
+#: the drivers of phases 4-13, 16 and 17, by name
 PHASE_RUNS = {
     "main": run_main, "sweep": run_sweeps, "variants": run_variants,
     "golden": lambda dev: run_goldens(dev, "f64"),
     "golden_mixed": lambda dev: run_goldens(dev, "mixed"),
     "qtf": run_qtf, "potflow": run_potflow, "mhk": run_mhk,
     "farm": run_farm, "mcf": run_mcf, "ballast": run_ballast,
-    "codesign": run_codesign}
-#: phases 4-6 (then 14 and 15) run in this process; phases 7-13 and 16
-#: run in these groups, one worker process each (``--worker``), on the
+    "codesign": run_codesign, "descent": run_descent}
+#: phases 4-6 (then 14 and 15) run in this process; phases 7-13, 16 and
+#: 17 run in these groups, one worker process each (``--worker``), on the
 #: same card at the same time, started after phase 3 and joined after
 #: phase 15.  Each phase is host-bound (the card is idle most of a Model
 #: run), so the groups overlap instead of queueing.
 PARENT_PHASES = ("main", "sweep", "variants")
 WORKER_GROUPS = (("mhk",), ("farm", "mcf"),
                  ("golden", "golden_mixed", "qtf", "potflow", "ballast",
-                  "codesign"))
+                  "codesign"), ("descent",))
 WORKER_TIMEOUT_S = 900   # from their start; the script's own limit is 1200
 
 
@@ -3426,7 +3557,7 @@ def _worker_tag(names) -> str:
 
 
 def run_worker(names, dev) -> int:
-    """``--worker NAMES``: run the named phases of 7-13 and 16 here (each
+    """``--worker NAMES``: run the named phases of 7-13, 16, 17 here (each
     Model run and sweep checked as a clean path) and write their record
     (results, launches by path, rows, walls, failures, clean-path counts)
     to OUT/<tag>.json."""
@@ -3675,6 +3806,9 @@ def main() -> int:
                 # phase 16: the gradient path, forward and backward
                 "codesign_launches": {p: n for p, n in by_path.items()
                                       if p.startswith("codesign")},
+                # phase 17: the descents, every gradient and trial
+                "descent_launches": {p: n for p, n in by_path.items()
+                                     if p.startswith("descent")},
                 "launch_floor_ms": floor}
 
     kernels = [summary(*k) for k in KERNELS]

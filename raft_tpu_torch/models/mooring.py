@@ -6,8 +6,8 @@ raft/raft_fowt.py:166-189, 275-288 and raft/raft_model.py:801-803).  A
 mooring system is a static `MooringSystem` of per-line arrays; each
 line's fairlead force comes from the two-branch elastic catenary
 (frictionless seabed) solved by a FIXED 40-step Newton loop, so the 6x6
-coupled stiffness and the tension Jacobian are exact
-``torch.func.jacfwd``s of the wrench.  Topologies with free points or
+coupled stiffness and the tension Jacobian are exact autodiff Jacobians
+of the wrench.  Topologies with free points or
 multi-segment lines build a single-body ``mooring_array.ArrayMooring``
 (the same catenary plus a free-point equilibrium); every body-level
 function below takes either system.  Multi-body shared moorings are not
@@ -443,7 +443,10 @@ def coupled_stiffness_rotvec(sys_, r6, xf=None, current=None):
     wrench under the parameterization R(delta) @ R0.  The general
     topology has no current-loaded line profiles: a ``current`` given
     there is ignored with a warning (current reaches it through the
-    lumped `current_wrench`)."""
+    lumped `current_wrench`).  The simple topology's Jacobian is taken
+    in reverse mode (``torch.func.jacrev``): the JAX package's ``jacfwd``
+    to rounding, at a sixth of forward mode's cost through the catenary
+    (see ``parallel/variants.statics_newton``)."""
     if _is_general(sys_):
         if current is not None:
             import warnings
@@ -467,7 +470,7 @@ def coupled_stiffness_rotvec(sys_, r6, xf=None, current=None):
         F, rFo, _ = line_forces(sys_, r6, current=current, rF=rF)
         return torch.sum(translate_force_3to6(F, rFo - base), dim=0)
 
-    return -torch.func.jacfwd(wrench)(torch.zeros(6, dtype=torch.float64,
+    return -torch.func.jacrev(wrench)(torch.zeros(6, dtype=torch.float64,
                                                   device=r6.device))
 
 

@@ -172,21 +172,28 @@ _ALPHAS = (1.0, 0.5, 0.25, 0.125, 0.0625)
 
 
 def statics_newton(net_force, X0, iters: int = 20):
-    """Damped Newton equilibrium with the exact forward-mode Jacobian
-    (``torch.func.jacfwd``) and a line search on |F|^2 over five step
-    lengths; a fixed number of steps, each accepting the best candidate
-    only if it improves on X (``raft_tpu/parallel/variants.py:
-    statics_newton``).  Runs under ``torch.func.vmap``."""
+    """Damped Newton equilibrium with the exact Jacobian and a line search
+    on |F|^2 over five step lengths; a fixed number of steps, each
+    accepting the best candidate only if it improves on X
+    (``raft_tpu/parallel/variants.py:statics_newton``).  Runs under
+    ``torch.func.vmap``.
+
+    The Jacobian is taken in reverse mode (``torch.func.jacrev``; the JAX
+    package's ``jacfwd`` to rounding, ~2e-15): in forward mode every op
+    between a dual and a constant of the 40-step catenary makes PyTorch
+    build a zero tangent whose shape it works out in Python, which makes
+    ``jacfwd`` ~7x the cost of ``jacrev`` here."""
     X = as_real(X0)
     dev = X.device
-    db = torch.tensor(_DB, dtype=REAL, device=dev)
-    alphas = torch.tensor(_ALPHAS, dtype=REAL, device=dev)
+    # non-blocking copies and solve_ex (no error check): no host wait
+    db = as_real(_DB, dev)
+    alphas = as_real(_ALPHAS, dev)
     eye = torch.eye(6, dtype=REAL, device=dev)
     merit_of = torch.func.vmap(lambda x: torch.sum(net_force(x) ** 2))
     for _ in range(int(iters)):
         F = net_force(X)
-        J = -torch.func.jacfwd(net_force)(X) + 1e-6 * eye
-        dX = torch.clamp(torch.linalg.solve(J, F), -db, db)
+        J = -torch.func.jacrev(net_force)(X) + 1e-6 * eye
+        dX = torch.clamp(torch.linalg.solve_ex(J, F)[0], -db, db)
         cands = X[None, :] + alphas[:, None] * dX[None, :]
         merit = merit_of(cands)
         merit = torch.where(torch.isfinite(merit), merit, torch.inf)
@@ -223,7 +230,8 @@ def make_variant_solver(base: FOWTModel, Hs=6.0, Tp=12.0, beta=0.0,
     (``nIter`` passes, ``adjoint_iters`` adjoint passes, default
     ``2 * nIter``).  After a call ``solve.fixed_point`` holds the passes
     it ran (``passes``, and ``adjoint_passes`` once its backward ran) and
-    ``solve.timings`` its walls.  The values of ``solve`` and
+    ``solve.timings`` its host-clock walls (no wait for the card: its
+    queued setup work falls to the fixed point's first counted pull).  The values of ``solve`` and
     ``solve.batched`` do not change with the flag.
 
     F_env: constant environmental force (mean thrust + current drag) from
@@ -236,7 +244,7 @@ def make_variant_solver(base: FOWTModel, Hs=6.0, Tp=12.0, beta=0.0,
     dev = base.device
     w = as_real(base.w, dev)
     nw = base.nw
-    dw = float(w[1] - w[0])
+    dw = w[1] - w[0]               # left on the device: no host wait
     F_env = torch.zeros(6, dtype=REAL, device=dev) if F_env is None \
         else as_real(F_env, dev)
     A_t = torch.zeros((6, 6, nw), dtype=REAL, device=dev) if A_turb is None \
@@ -374,7 +382,6 @@ def make_variant_solver(base: FOWTModel, Hs=6.0, Tp=12.0, beta=0.0,
         t0 = time.perf_counter()
         st = torch.func.vmap(functools.partial(setup, implicit=True),
                              chunk_size=chunk_size)(thetas)
-        _sync()
         t1 = time.perf_counter()
         nv = st["Xeq"].shape[0]
         Xi0 = torch.zeros((nv, 6, nw), dtype=COMPLEX, device=dev) + XiStart
@@ -385,7 +392,6 @@ def make_variant_solver(base: FOWTModel, Hs=6.0, Tp=12.0, beta=0.0,
             record=record)
         solve.fixed_point = record
         out = finish(st, Xi)
-        _sync()
         solve.timings = dict(setup=t1 - t0,
                              fixed_point=time.perf_counter() - t1)
         return out

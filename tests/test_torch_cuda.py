@@ -527,3 +527,27 @@ def test_codesign_gradients_on_the_card(card):
     for i, lane in enumerate(rec["lanes"]):
         v_rel, g_rel = CC.deviation(float(v[i]), g[i].cpu().numpy(), lane)
         assert v_rel <= 1e-9 and g_rel <= 1e-7, (i, v_rel, g_rel)
+
+
+@pytest.mark.cuda
+def test_descent_on_the_card(card):
+    """optimize_designs on the card: the small cylinder's Adam descent
+    (tests/golden/descent/cylinder.json, a NaN lane among three) at the
+    CPU tests' bars, the whole call under the sync guard, K1 launched
+    once per fixed-point pass and twice more per gradient (the counts
+    from its descent spans)."""
+    from raft_tpu_torch.models import descent_cases as DC
+    from raft_tpu_torch.obs import tracing, transfers
+    from raft_tpu_torch.parallel import optimize as opt
+
+    rec = DC.load("cylinder")["adam"]
+    base, space = DC.build(rec, card)
+    G.reset_launches()
+    n0 = len(tracing.spans())
+    with transfers.guard("disallow"):
+        res = opt.optimize_designs(base, space, **DC.call_kwargs(rec))
+    _, tot = DC.spans_since(n0)
+    assert G.LAUNCHES["impedance_gj"] == tot["passes"] \
+        + tot["adjoint_passes"] + 2 * tot["gradients"]
+    dev = DC.deviations(rec, res)
+    assert not DC.failures(dev, DC.CPU_BARS), dev

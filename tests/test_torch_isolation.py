@@ -1,9 +1,10 @@
-"""The port stands alone: no JAX, nothing of the JAX package.
+"""The port stands alone: no JAX, nothing of the JAX package, no optax.
 
 ``raft_tpu_torch`` (every module of it) and ``chip_smoke.py`` are
-imported in a fresh interpreter, which must then hold no ``jax*`` module
-and no ``raft_tpu`` / ``raft_tpu.*`` module (the pattern does not match
-``raft_tpu_torch``); and their sources must not import either.
+imported in a fresh interpreter, which must then hold no ``jax*`` module,
+no ``optax`` module (it imports JAX; the port writes its optimizers
+itself) and no ``raft_tpu`` / ``raft_tpu.*`` module (the pattern does not
+match ``raft_tpu_torch``); and their sources must not import any.
 """
 import json
 import os
@@ -14,9 +15,9 @@ import sys
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = re.compile(r"^(jax|jaxlib|raft_tpu)(\.|$)")
+FORBIDDEN = re.compile(r"^(jax|jaxlib|optax|raft_tpu)(\.|$)")
 IMPORT_RE = re.compile(
-    r"^\s*(?:import|from)\s+(jax|jaxlib|raft_tpu)(?:\.|\s|$)", re.M)
+    r"^\s*(?:import|from)\s+(jax|jaxlib|optax|raft_tpu)(?:\.|\s|$)", re.M)
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -76,6 +77,15 @@ def test_probe_covers_the_codesign_modules(probed_modules):
         assert name in probed_modules, name
 
 
+def test_probe_covers_the_descent_modules(probed_modules):
+    """The optimizers, the descent and its shared cases are among the
+    probed modules."""
+    for name in ("raft_tpu_torch.parallel.optimizers",
+                 "raft_tpu_torch.parallel.optimize",
+                 "raft_tpu_torch.models.descent_cases"):
+        assert name in probed_modules, name
+
+
 def _sources():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "raft_tpu_torch")):
@@ -94,5 +104,6 @@ def test_source_has_no_jax_import(path):
 def test_forbidden_pattern_spares_the_port():
     assert FORBIDDEN.match("raft_tpu") and FORBIDDEN.match("raft_tpu.model")
     assert FORBIDDEN.match("jax.numpy") and FORBIDDEN.match("jaxlib")
+    assert FORBIDDEN.match("optax") and FORBIDDEN.match("optax._src.alias")
     assert not FORBIDDEN.match("raft_tpu_torch")
     assert not FORBIDDEN.match("raft_tpu_torch.model")
