@@ -34,6 +34,11 @@ Phases (any failure exits non-zero; no phase's failure is turned into a
               at nw2 = 30 and 80 (N = 177, nm = 7), relative error <=
               1e-12 of max|Q| and a second call bitwise equal, timed at
               each (device time: the three kernels summed per call);
+              K1 with its operands on cuda:0 inside and outside a
+              torch.cuda.device(0) guard, bitwise equal (the wrappers
+              make the operands' device current for each launch), and
+              with two cards K1 on cuda:1 with cuda:0 current against
+              its plain version;
  4. main    — run_raft on OC3spar (its own 80-bin grid, 3 cases) and
               VolturnUS-S (80 bins, 1 case);
  5. sweep   — sweep_cases on OC3spar at its 80-bin grid, 1024 seeded cases
@@ -137,6 +142,10 @@ Phases (any failure exits non-zero; no phase's failure is turned into a
               (81,920 lanes per K1 launch, at most nIter launches) in f64
               and under RAFT_TPU_PRECISION=mixed, 4 lanes against the
               serial solve (rtol 1e-9), mixed against f64 as in phase 5;
+              (c4) five diameter variants of (c1) at 10 bins through
+              sweep_variants, on one device and on phase 18's mesh of
+              two shards, against the JAX package's sweep_variants
+              (tests/golden/variants/oc4semi_mcf_coarse.json) at 1e-9;
 13. ballast  — the ballast trim (models/ballast_cases.py, goldens of
               tests/golden/ballast_golden.py in tests/golden/ballast/), at
               each design's own grid: (b1) VolturnUS-S, OC3spar and OC4semi
@@ -231,11 +240,34 @@ Phases (any failure exits non-zero; no phase's failure is turned into a
               peak memory and descents per minute printed; then the
               descent once more through make_descent's segment, one
               step at a time: per-step x and step size at 1e-8, gradient
-              norms at 1e-6, masks and linesearch steps exactly;
-18. prints the kernels JSON line, the card line, and the final JSON line.
-Phases 7-13, 16 and 17 run in four worker processes on the same card
-(mhk; farm and mcf; golden, golden_mixed, qtf, potflow, ballast and
-codesign; descent: ``--worker NAMES``, WORKER_GROUPS), started after
+              norms at 1e-6, masks and linesearch steps exactly; (d3)
+              d1's call with checkpoint_every=1 into a CheckpointStore
+              under --out, bitwise equal to d1's result in this process;
+              then a child process (descent_cases.child_command) runs it
+              under RAFT_TPU_FAULTS=kill@optimize:step=1 and must exit
+              137, and this process resumes from the child's checkpoint
+              (resumed_from_step 1), bitwise equal to d1 again; then
+              under corrupt@checkpoint:once (the segmented run's
+              checkpoint dropped and counted, the resume falls back to
+              step 0) and under enospc@checkpoint (checkpointing shed,
+              nothing written), each bitwise equal to d1; every call
+              inside obs.transfers.guard("disallow");
+18. partition — the partition layer (parallel/partition.py,
+              models/partition_cases.py) on a mesh of two shards: two
+              cards when there are, else cuda:0 twice (said on its own
+              line): phase 5's 1024-case OC3spar sweep_cases in f64 and
+              mixed, a sweep_variants of the first 16 volturn_grid
+              VolturnUS-S variants, (f3)'s sweep_farm (4 turbines x 256
+              cases) and a 1-step optimize_designs of d1's lanes (5,
+              padded to 6), each against its unsharded call (floats
+              within 1e-12, variants 1e-12 relative on top; iters,
+              converged, fp_chunks exact; the descent against d1's
+              golden step 0 at 1e-8) with the counted pulls the
+              unsharded call's, the K1 / K3 launches per shard printed;
+19. prints the kernels JSON line, the card line, and the final JSON line.
+Phases 7-13 and 16-18 run in four worker processes on the same card
+(mhk; farm, mcf and partition; golden, golden_mixed, qtf, potflow,
+ballast and codesign; descent: ``--worker NAMES``, WORKER_GROUPS), started after
 phase 3 and running
 beside phases 4-6, 14 and 15 of this process; it then joins them, replays
 their output and merges their launches, rows, walls and failures.  The
@@ -984,6 +1016,40 @@ def check_gj_every_shape(G, g, dev):
         + str(all(r.get("promoted") == r.get("promoted_plain")
                   for r in rows)))
     return rows
+
+
+def check_device_guard(dev):
+    """K1 at 80 lanes with its operands on cuda:0 outside and inside a
+    torch.cuda.device(0) guard: bitwise equal (on one card the wrapper's
+    own device guard changes nothing); with two cards, K1 on cuda:1 with
+    cuda:0 current against its plain version (X_TOL)."""
+    from raft_tpu_torch.ops.kernels import gj_solve as G
+
+    g = torch.Generator().manual_seed(77)
+    d0 = torch.device("cuda", 0)
+    (w, M, B, C, F), _ = impedance_inputs(g, 1, 80, 6, "random", d0)
+    out = G.impedance_gj_solve(w, M, B, C, F)
+    with torch.cuda.device(0):
+        inside = G.impedance_gj_solve(w, M, B, C, F)
+    same = bool(torch.equal(out, inside))
+    log(f"  device guard: K1 on cuda:0 outside and inside "
+        f"torch.cuda.device(0) bitwise equal: {same}")
+    if not same:
+        fail("K1 differs inside a torch.cuda.device(0) guard")
+    if torch.cuda.device_count() >= 2:
+        d1 = torch.device("cuda", 1)
+        ops = [t.to(d1) for t in (w, M, B, C, F)]
+        with torch.cuda.device(0):
+            X = G.impedance_gj_solve(*ops)
+            torch.cuda.synchronize(d1)
+        rel = _rel(X, G.impedance_gj_solve_plain(*ops))
+        log(f"  device guard: K1 on cuda:1 with cuda:0 current vs plain "
+            f"rel {rel:.2e}")
+        if not rel <= X_TOL:
+            fail(f"K1 on cuda:1 with cuda:0 current: rel {rel:.2e}")
+    else:
+        log("  device guard: one card, the cuda:1 launch not run")
+    return same
 
 
 def check_kernels(dev):
@@ -2279,6 +2345,8 @@ def run_farm(dev):
         fail(f"f3 curve: rel {crel:.2e}")
     c = FC.f3_cases()
     nt, nc = len(FC.F3_LAYOUT), FC.F3_NCASES
+    F3_INPUTS.update(fowt=fowt, curve=curve, cases=c, nIter=m1.nIter,
+                     XiStart=m1.XiStart)
     solver = TS.make_farm_solver(fowt, FC.F3_LAYOUT, curve=curve,
                                  nIter=m1.nIter, XiStart=m1.XiStart)
     lane = lambda x: TS._farm_lane_tile(  # noqa: E731
@@ -2475,6 +2543,47 @@ def run_mcf(dev):
         if not 0 < n <= FC.SWEEP_NITER:
             fail(f"(c3) MCF sweep {mode}: {n} {kind} launches of "
                  f"{len(Hs) * fowt.nw} lanes, not 1..{FC.SWEEP_NITER}")
+    out["mcf_variants"] = run_mcf_variants(dev)
+    return out
+
+
+def run_mcf_variants(dev):
+    """(c4): five diameter variants of (c1) on the coarse grid through
+    sweep_variants on the card, on one device and on phase 18's mesh of
+    two shards, against the JAX package's golden
+    (tests/golden/variants/oc4semi_mcf_coarse.json) at
+    mcf_cases.VARIANT_CARD_RTOL."""
+    from raft_tpu_torch.models import mcf_cases as FC
+    from raft_tpu_torch.parallel import partition
+    from raft_tpu_torch.parallel.sweep import design_fowt
+    from raft_tpu_torch.parallel.variants import sweep_variants
+
+    with open(os.path.join(ROOT, "tests", "golden", "variants",
+                           "oc4semi_mcf_coarse.json")) as f:
+        gold = json.load(f)
+    devs = _shard_devices()
+    fowt = design_fowt(FC.mcf_design(coarse=True), devs[0])
+    th = FC.variant_thetas(len(fowt.members))
+    out = {}
+    for tag, kw in (("", dict(device=devs[0])),
+                    ("_mesh", dict(mesh=partition.make_mesh(
+                        (2,), ("variants",), devs)))):
+        with counted(f"mcf_variants{tag}", ("impedance_gj",)):
+            t0 = time.perf_counter()
+            res = sweep_variants(fowt, th, **kw, **FC.VARIANT_KW)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        dev_ = FC.variant_deviation(res, gold)
+        worst = max(dev_.values())
+        out[f"deviation{tag}"] = dev_
+        out[f"wall{tag}_s"] = wall
+        log(f"  (c4) MCF variants{' on the mesh' if tag else ''}: "
+            f"{len(FC.VARIANT_SCALES)} x {fowt.nw} bins in {wall:.2f} s; vs "
+            f"the JAX package worst rel {worst:.2e} (bar "
+            f"{FC.VARIANT_CARD_RTOL:g}): "
+            + ", ".join(f"{k} {v:.1e}" for k, v in dev_.items()))
+        if not worst <= FC.VARIANT_CARD_RTOL:
+            fail(f"(c4) MCF variants{tag}: worst rel {worst:.2e}")
     return out
 
 
@@ -3502,6 +3611,274 @@ def run_descent(dev):
                     sum(trials) + rec["steps"]
                     if rec["method"] == "lbfgs" else 0)))
         out[tag] = r
+        RESULTS[tag] = result
+    out["d3"] = run_descent_ckpt(dev, RESULTS["d1"])
+    return out
+
+
+#: optimize_designs results of phase 17 by tag (d3 holds d1's)
+RESULTS: dict = {}
+
+
+def run_descent_ckpt(dev, mono):
+    """(d3): d1's call with checkpoint_every=1 into a CheckpointStore
+    under --out, bitwise equal to d1's monolithic result ``mono``; a child
+    process killed by kill@optimize:step=1 (exit 137) after its step-1
+    checkpoint; this process's resume from it, bitwise equal to d1; the
+    segmented run's checkpoint read corrupt (the resume falls back to
+    step 0) and an ENOSPC shed (no checkpoint written), each bitwise equal
+    to d1.  Every call of this process whole inside
+    obs.transfers.guard("disallow")."""
+    from raft_tpu_torch.models import descent_cases as DC
+    from raft_tpu_torch.obs import transfers
+    from raft_tpu_torch.parallel import optimize as opt
+    from raft_tpu_torch.serve.checkpoint import CheckpointStore
+    from raft_tpu_torch.testing import faults
+
+    K1 = "impedance_gj"
+    card = card_line()
+    rec = DC.load("volturn80")["adam"]
+    base, space = DC.build(rec, dev)
+    store_dir = os.path.join(OUT, "descent_d3_ckpt")
+    shutil.rmtree(store_dir, ignore_errors=True)
+    r = {}
+    # the segmented run keeps its step-1 checkpoint for the corrupt
+    # fallback below (a finished descent deletes its checkpoints)
+    keep = CheckpointStore(store_dir)
+    keep.delete = lambda key, step=None: None
+    pulls0 = DC.pulls_by_what()
+    with counted("descent_d3", (K1,)):
+        t0 = time.perf_counter()
+        with transfers.guard("disallow"):
+            seg = opt.optimize_designs(
+                base, space, checkpoint_every=1, ckpt_store=keep,
+                ckpt_key="sha256:d3segmented", **DC.call_kwargs(rec))
+        r["segmented_wall_s"] = time.perf_counter() - t0
+    r["segmented_pulls"] = DC.pulls_between(pulls0, DC.pulls_by_what())
+    r["segmented_differs"] = DC.bitwise_differs(seg, mono)
+    prov = seg["provenance"]
+    log(f"  descent d3: segmented (1 step a segment, {prov['segments']} "
+        f"segments, {prov['ckpt_writes']} checkpoint(s)) in "
+        f"{r['segmented_wall_s']:.2f} s on {card}; bitwise d1 except "
+        f"{r['segmented_differs']}; pulls {r['segmented_pulls']}")
+    if r["segmented_differs"]:
+        fail(f"descent d3: segmented differs from d1 in "
+             f"{r['segmented_differs']}")
+    _expect("descent d3: checkpoint pulls (one a segment before the last)",
+            r["segmented_pulls"].get("optimize_checkpoint", 0),
+            rec["steps"] - 1)
+    spec = {"golden": "volturn80", "name": "adam", "device": "cuda",
+            "store": store_dir, "key": "sha256:d3killed", "every": 1}
+    env = dict(os.environ, RAFT_TPU_FAULTS="kill@optimize:step=1")
+    t0 = time.perf_counter()
+    child = subprocess.run(DC.child_command(spec), env=env, cwd=ROOT,
+                           capture_output=True, text=True, timeout=600)
+    r["child_exit"] = child.returncode
+    r["child_wall_s"] = time.perf_counter() - t0
+    steps = CheckpointStore(store_dir).steps(spec["key"])
+    log(f"  descent d3: child under kill@optimize:step=1 exited "
+        f"{child.returncode} after {r['child_wall_s']:.2f} s; its "
+        f"checkpoints {steps}")
+    if child.returncode != 137 or steps != [1]:
+        fail(f"descent d3: the killed child exited {child.returncode} with "
+             f"checkpoints {steps}: {child.stderr[-1500:]}")
+        return r
+    with counted("descent_d3_resume", (K1,)):
+        t0 = time.perf_counter()
+        with transfers.guard("disallow"):
+            res = opt.optimize_designs(
+                base, space, checkpoint_every=1,
+                ckpt_store=CheckpointStore(store_dir), ckpt_key=spec["key"],
+                **DC.call_kwargs(rec))
+        r["resumed_wall_s"] = time.perf_counter() - t0
+    r["resumed_from_step"] = res["resumed_from_step"]
+    r["resumed_differs"] = DC.bitwise_differs(res, mono)
+    log(f"  descent d3: resumed from step {res['resumed_from_step']} in "
+        f"{r['resumed_wall_s']:.2f} s; bitwise d1 except "
+        f"{r['resumed_differs']}")
+    _expect("descent d3: resumed_from_step", res["resumed_from_step"], 1)
+    if r["resumed_differs"]:
+        fail(f"descent d3: the resumed descent differs from d1 in "
+             f"{r['resumed_differs']}")
+    # the segmented run's checkpoint read corrupt: dropped, counted, the
+    # resume falls back one segment (to step 0); then an ENOSPC shed
+    for tag, spec_, key in (("corrupt", "corrupt@checkpoint:once",
+                             "sha256:d3segmented"),
+                            ("shed", "enospc@checkpoint", "sha256:d3shed")):
+        store = CheckpointStore(store_dir)
+        faults.install(spec_)
+        try:
+            with counted(f"descent_d3_{tag}", (K1,)):
+                t0 = time.perf_counter()
+                with transfers.guard("disallow"):
+                    got = opt.optimize_designs(
+                        base, space, checkpoint_every=1, ckpt_store=store,
+                        ckpt_key=key, **DC.call_kwargs(rec))
+                r[f"{tag}_wall_s"] = time.perf_counter() - t0
+        finally:
+            faults.clear()
+        r[f"{tag}_differs"] = DC.bitwise_differs(got, mono)
+        st = store.stats()
+        prov = got["provenance"]
+        log(f"  descent d3: under {spec_} in {r[f'{tag}_wall_s']:.2f} s: "
+            f"resumed from step {got['resumed_from_step']}, corrupt "
+            f"{st['corrupt']}, enospc {st['enospc']}, checkpoint writes "
+            f"{prov['ckpt_writes']}, shed {prov['ckpt_shed']}; bitwise d1 "
+            f"except {r[f'{tag}_differs']}")
+        if tag == "corrupt":
+            ok = got["resumed_from_step"] == 0 and st["corrupt"] == 1
+        else:
+            ok = prov["ckpt_shed"] is True and prov["ckpt_writes"] == 0 \
+                and st["enospc"] == 1
+        if not ok or r[f"{tag}_differs"]:
+            fail(f"descent d3 {tag}: {st}, provenance {prov}, differs "
+                 f"{r[f'{tag}_differs']}")
+    return r
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the partition layer
+# ---------------------------------------------------------------------------
+
+#: (f3)'s inputs, kept by phase 11 for phase 18 (the same worker)
+F3_INPUTS: dict = {}
+
+
+def _shard_devices():
+    """Two shards: two cards when there are, else cuda:0 twice."""
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", i % n) for i in range(2)]
+
+
+def _p1_pair(label, keys, plain, sharded, rtol=0.0, expect=()):
+    """Run ``plain`` and ``sharded`` (each counted as its own path), hold
+    the sharded result to the plain one (partition_cases.parity) and its
+    counted pulls to the plain one's; returns the record."""
+    from raft_tpu_torch.models import descent_cases as DC
+    from raft_tpu_torch.models import partition_cases as PC
+
+    rec = {}
+    outs = {}
+    for tag, fn in (("", plain), ("_mesh", sharded)):
+        p0 = DC.pulls_by_what()
+        with counted(f"partition_{label}{tag}", expect):
+            t0 = time.perf_counter()
+            outs[tag] = fn()
+            torch.cuda.synchronize()
+            rec[f"wall{tag or '_plain'}_s"] = time.perf_counter() - t0
+        rec[f"pulls{tag or '_plain'}"] = DC.pulls_between(p0,
+                                                          DC.pulls_by_what())
+    par = PC.parity(outs["_mesh"], outs[""], keys, rtol=rtol)
+    bad = PC.failures(par)
+    launches = PATH_LAUNCHES[f"partition_{label}_mesh"]
+    rec.update(dev=par["dev"], bitwise=par["bitwise"], exact=par["exact"],
+               launches_plain=PATH_LAUNCHES[f"partition_{label}"],
+               launches_mesh=launches,
+               launches_per_shard={k: v / 2 for k, v in launches.items()})
+    same_pulls = rec["pulls_mesh"] == rec["pulls_plain"]
+    log(f"  p1 {label}: plain {rec['wall_plain_s']:.3f} s, sharded "
+        f"{rec['wall_mesh_s']:.3f} s; worst |dev| "
+        + ", ".join(f"{k} {v:.2e}" for k, v in par["dev"].items())
+        + f"; bitwise {par['bitwise']}; exact facts differ {par['exact']}; "
+        f"K1/K3 launches per shard {rec['launches_per_shard']} (plain "
+        f"{rec['launches_plain']}); pulls equal {same_pulls} "
+        f"({rec['pulls_mesh']})")
+    if bad:
+        fail(f"p1 {label}: sharded vs unsharded: {bad}")
+    if not same_pulls:
+        fail(f"p1 {label}: pulls {rec['pulls_mesh']} against the "
+             f"unsharded {rec['pulls_plain']}")
+    return rec, outs
+
+
+def run_partition(dev):
+    """Phase 18 (p1): the batched entry points on a mesh of two shards
+    against their unsharded calls (see the module docstring)."""
+    from raft_tpu_torch import _config
+    from raft_tpu_torch.io.designs import load_design
+    from raft_tpu_torch.models import descent_cases as DC
+    from raft_tpu_torch.models import farm_cases as FC
+    from raft_tpu_torch.models import partition_cases as PC
+    from raft_tpu_torch.obs import transfers
+    from raft_tpu_torch.parallel import optimize as opt
+    from raft_tpu_torch.parallel import partition
+    from raft_tpu_torch.parallel import variants as vr
+    from raft_tpu_torch.parallel.sweep import (
+        design_fowt, sweep_cases, sweep_farm)
+
+    card = card_line()
+    devs = _shard_devices()
+    two = devs[0] != devs[1]
+    log(f"  p1: a mesh of two shards on {'two cards' if two else 'one card: cuda:0 twice'} "
+        f"({', '.join(map(str, devs))}); {card}")
+    mesh = partition.make_mesh((2,), ("cases",), devs)
+    out = {"two_cards": two, "devices": [str(d) for d in devs]}
+    # phase 5's table, f64 and mixed
+    fowt = design_fowt("OC3spar", devs[0])
+    Hs, Tp, beta = sweep_inputs(SWEEP_CASES)
+    for mode, k in (("f64", "impedance_gj"), ("mixed", "impedance_gj_mixed")):
+        _config.set_precision_mode(mode)
+        try:
+            out[f"sweep_{mode}"], _ = _p1_pair(
+                f"sweep_{mode}", PC.SWEEP_KEYS,
+                lambda: sweep_cases(fowt, Hs, Tp, beta, nIter=10, tol=0.01,
+                                    device=devs[0]),
+                lambda: sweep_cases(fowt, Hs, Tp, beta, nIter=10, tol=0.01,
+                                    mesh=mesh), expect=(k,))
+        finally:
+            _config.set_precision_mode(None)
+    # 16 VolturnUS-S variants
+    design = load_design("VolturnUS-S")
+    thetas, _ = vr.volturn_grid(design)
+    thetas = {k: v[:16] for k, v in thetas.items()}
+    base = design_fowt(design, devs[0])
+    kw = dict(Hs=6.0, Tp=12.0, ballast=True, nIter=10, newton_iters=20)
+    out["variants"], _ = _p1_pair(
+        "variants", PC.VARIANT_KEYS,
+        lambda: vr.sweep_variants(base, thetas, device=devs[0], **kw),
+        lambda: vr.sweep_variants(base, thetas, mesh=mesh, **kw),
+        rtol=PC.VARIANT_RTOL, expect=("impedance_gj",))
+    # (f3): 4 turbines x 256 cases
+    if not F3_INPUTS:
+        fail("p1 farm: phase 11's (f3) inputs are missing")
+    else:
+        f3 = F3_INPUTS
+        c = f3["cases"]
+        args = (FC.F3_LAYOUT, c["Hs"], c["Tp"], c["beta"], c["U_inf"],
+                c["wind_dir"])
+        fkw = dict(curve=f3["curve"], nIter=f3["nIter"],
+                   XiStart=f3["XiStart"])
+        out["farm"], _ = _p1_pair(
+            "farm", PC.FARM_KEYS,
+            lambda: sweep_farm(f3["fowt"], *args, device=devs[0], **fkw),
+            lambda: sweep_farm(f3["fowt"], *args, mesh=mesh, **fkw),
+            expect=("impedance_gj",))
+    # one Adam step of d1's lanes (5, padded to 6), guarded
+    rec = DC.record("volturn80", "adam", steps=1)
+    dbase, space = DC.build(rec, devs[0])
+    p0 = DC.pulls_by_what()
+    with counted("partition_descent_mesh", ("impedance_gj",)):
+        t0 = time.perf_counter()
+        with transfers.guard("disallow"):
+            res = opt.optimize_designs(dbase, space, mesh=mesh,
+                                       **DC.call_kwargs(rec))
+        wall = time.perf_counter() - t0
+    pulls = DC.pulls_between(p0, DC.pulls_by_what())
+    want = DC.expected_pulls(rec, gradients=2)
+    step0 = DC.load("volturn80")["adam"]["trace"][0]
+    xrel = DC._rel(res["x"], step0["x_next"])
+    orel = DC._rel(res["obj_trace"][0], step0["obj_trace"])
+    launches = PATH_LAUNCHES["partition_descent_mesh"]
+    out["descent"] = dict(wall_s=wall, pulls=pulls, x_rel=xrel,
+                          obj_rel=orel, launches=launches,
+                          mesh=res["provenance"]["mesh"])
+    log(f"  p1 descent: 1 Adam step of d1's 5 lanes on the mesh in "
+        f"{wall:.2f} s; vs d1's golden step 0: x rel {xrel:.2e}, "
+        f"objective rel {orel:.2e} (bar {DC.CARD_BARS['value']:g}); K1 per "
+        f"shard {launches.get('impedance_gj', 0) / 2}; pulls {pulls}")
+    if not (xrel <= DC.CARD_BARS["value"] and orel <= DC.CARD_BARS["value"]):
+        fail(f"p1 descent: x rel {xrel:.2e}, objective rel {orel:.2e}")
+    _expect("p1 descent: pulls (the unsharded descent's)", pulls, want)
     return out
 
 
@@ -3523,21 +3900,22 @@ KERNELS = (
      "raft_tpu_torch/csrc/qtf_k5_f64.cu", 900),
 )
 
-#: the drivers of phases 4-13, 16 and 17, by name
+#: the drivers of phases 4-13 and 16-18, by name
 PHASE_RUNS = {
     "main": run_main, "sweep": run_sweeps, "variants": run_variants,
     "golden": lambda dev: run_goldens(dev, "f64"),
     "golden_mixed": lambda dev: run_goldens(dev, "mixed"),
     "qtf": run_qtf, "potflow": run_potflow, "mhk": run_mhk,
     "farm": run_farm, "mcf": run_mcf, "ballast": run_ballast,
-    "codesign": run_codesign, "descent": run_descent}
+    "codesign": run_codesign, "descent": run_descent,
+    "partition": run_partition}
 #: phases 4-6 (then 14 and 15) run in this process; phases 7-13, 16 and
 #: 17 run in these groups, one worker process each (``--worker``), on the
 #: same card at the same time, started after phase 3 and joined after
 #: phase 15.  Each phase is host-bound (the card is idle most of a Model
 #: run), so the groups overlap instead of queueing.
 PARENT_PHASES = ("main", "sweep", "variants")
-WORKER_GROUPS = (("mhk",), ("farm", "mcf"),
+WORKER_GROUPS = (("mhk",), ("farm", "mcf", "partition"),
                  ("golden", "golden_mixed", "qtf", "potflow", "ballast",
                   "codesign"), ("descent",))
 WORKER_TIMEOUT_S = 900   # from their start; the script's own limit is 1200
@@ -3722,6 +4100,7 @@ def main() -> int:
     t0 = time.perf_counter()
     rows = check_kernels(dev)
     check_qtf(dev)
+    check_device_guard(dev)
     PHASE_WALLS["kernels"] = time.perf_counter() - t0
     log(f"kernels: {PHASE_WALLS['kernels']:.1f} s")
     if "--only-kernels" in sys.argv[1:]:
@@ -3809,6 +4188,9 @@ def main() -> int:
                 # phase 17: the descents, every gradient and trial
                 "descent_launches": {p: n for p, n in by_path.items()
                                      if p.startswith("descent")},
+                # phase 18: the partition paths, plain and on the mesh
+                "partition_launches": {p: n for p, n in by_path.items()
+                                       if p.startswith("partition")},
                 "launch_floor_ms": floor}
 
     kernels = [summary(*k) for k in KERNELS]

@@ -111,6 +111,15 @@ class ModelConfigError(RaftError, ValueError):
     phase = "setup"
 
 
+class PartitionRuleError(RaftError, ValueError):
+    """The partition layer cannot place a pytree on the mesh as asked —
+    an unmatched leaf, a mesh/axes shape mismatch, or a mesh wanting
+    more devices than exist (not recoverable by the ladder: the sharding
+    request itself is wrong; see parallel/partition.py)."""
+
+    phase = "setup"
+
+
 #: failure types the degradation ladder may retry (everything a solver
 #: can plausibly survive by re-solving or damping); configuration errors
 #: are excluded on purpose, and a KernelFailure only when injected

@@ -191,6 +191,11 @@ def ledger_from_model(model, run_id: str = None) -> dict:
     """
     config = {"nCases": len(model.results.get("case_metrics", {})),
               "nFOWT": model.nFOWT, "nw": model.nw, "nDOF": model.nDOF}
+    if getattr(model, "mesh", None) is not None:
+        # the topology rides in the config so a partitioned run is told
+        # apart from a single-device one (its entries digest the same)
+        from raft_tpu_torch.parallel import partition
+        config["mesh"] = partition.mesh_facts(model.mesh)
     led = new_ledger(
         kind="analyzeCases", run_id=run_id, config=config,
         environment=capture_environment(model))

@@ -172,7 +172,16 @@ class Model:
     _NEWTON_MAX_ITERS = 50
 
     def __init__(self, design: dict, device=None):
+        from raft_tpu_torch.parallel import partition
+
         self.device = resolve_device(device)
+        #: named device mesh over the batch axes from ``RAFT_TPU_MESH``
+        #: (None when unset): its facts ride in the ledger's config and
+        #: it is `sweep_farm`'s default mesh; a Model run solves case by
+        #: case, so a batch-only mesh changes nothing in it, as in the
+        #: JAX package; a ``freq`` axis raises (ROADMAP A9)
+        self.mesh = partition.ambient_mesh(device=self.device)
+        partition.require_batch_only(self.mesh, "Model")
         design = copy.deepcopy(design)
         design.setdefault("settings", {})
         s = design["settings"]
@@ -1720,7 +1729,7 @@ class Model:
     # farms: the batched farm sweep and the wake module
     # ------------------------------------------------------------------
 
-    def sweep_farm(self, cases=None, **kw):
+    def sweep_farm(self, cases=None, mesh=None, **kw):
         """The batched farm sweep (``parallel/sweep.py:sweep_farm``): every
         turbine x every case of this array in one batch on the model's
         device, wake-coupled through the batched wake equilibrium.
@@ -1735,6 +1744,7 @@ class Model:
         blocks of its stiffness are added to the base platform's own
         mooring stiffness (the lanes are independent solves, so the
         off-diagonal coupling blocks are dropped), as the JAX Model does.
+        ``mesh`` defaults to the model's ambient mesh (``self.mesh``).
         Returns the farm outputs, (n_turbines, ncases, ...) tensors, also
         kept in ``results["farm"]`` as NumPy."""
         import warnings
@@ -1800,7 +1810,8 @@ class Model:
         out = _sweep.sweep_farm(
             fowt, xy, cases["Hs"], cases["Tp"], cases["beta"],
             cases["U_inf"], cases.get("wind_dir"), C_moor_t=C_moor_t,
-            device=self.device, **kw)
+            device=self.device, mesh=self.mesh if mesh is None else mesh,
+            **kw)
         with transfers.phase("farm"):
             host = transfers.device_get(
                 {k: out[k] for k in ("std", "U_wake", "aero_power",

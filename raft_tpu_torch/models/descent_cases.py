@@ -21,6 +21,11 @@ run against its record: x, the objective and its trace relative (the
 ``value`` bar of ``CPU_BARS`` / ``CARD_BARS``), the gradient norms
 relative (``grad``), steps counted, masks, the best lane and the
 linesearch steps exactly, NaN where the record has NaN.
+
+The checkpointed descent: `record` (a golden record with overrides),
+`bitwise_differs` (two results bit for bit), `run_checkpointed` and
+`child_command` (the same call in a fresh process, for the
+``kill@optimize`` seam).
 """
 from __future__ import annotations
 
@@ -220,3 +225,61 @@ def expected_pulls(rec: dict, gradients: int, ls_tests: int = 0,
     if ls_tests:
         out["lbfgs_linesearch"] = ls_tests
     return out
+
+
+# ---------------------------------------------------------------------------
+# the checkpointed descent (optimize_designs(checkpoint_every=...))
+# ---------------------------------------------------------------------------
+
+#: the descent's outputs a checkpointed, resumed or sharded run must give
+#: bit for bit (or, sharded, within the partition bar)
+RESULT_KEYS = ("x", "objective", "grad_norm", "obj_trace", "converged",
+               "nonfinite", "iters")
+
+
+def record(golden: str, name: str, **overrides) -> dict:
+    """Record ``name`` of golden file ``golden`` with ``overrides``."""
+    rec = dict(load(golden)[name])
+    rec.update(overrides)
+    return rec
+
+
+def bitwise_differs(a: dict, b: dict) -> list:
+    """The `RESULT_KEYS` (and ``f_best`` / ``lane_best``) on which two
+    ``optimize_designs`` results are not bitwise equal (NaN equal NaN)."""
+    out = [k for k in RESULT_KEYS
+           if not np.array_equal(np.asarray(a[k]), np.asarray(b[k]),
+                                 equal_nan=True)
+           or np.asarray(a[k]).dtype != np.asarray(b[k]).dtype]
+    return out + [k for k in ("f_best", "lane_best")
+                  if not (a[k] == b[k] or (a[k] != a[k] and b[k] != b[k]))]
+
+
+def run_checkpointed(spec: dict) -> dict:
+    """``optimize_designs`` of ``spec``'s record (``golden``, ``name``,
+    ``overrides``) on ``spec["device"]``, ``checkpoint_every=
+    spec["every"]`` into a ``CheckpointStore(spec["store"])`` under
+    ``spec["key"]``; a child process runs it (`child_command`)."""
+    from raft_tpu_torch.parallel import optimize as opt
+    from raft_tpu_torch.serve.checkpoint import CheckpointStore
+
+    rec = record(spec["golden"], spec["name"], **spec.get("overrides", {}))
+    base, space = build(rec, spec["device"])
+    return opt.optimize_designs(
+        base, space, checkpoint_every=int(spec["every"]),
+        ckpt_store=CheckpointStore(spec["store"]), ckpt_key=spec["key"],
+        **call_kwargs(rec))
+
+
+def child_command(spec: dict) -> list:
+    """argv of a fresh Python process running `run_checkpointed(spec)`
+    with this checkout's package (run it under ``RAFT_TPU_FAULTS=
+    kill@optimize:step=N``: it exits 137 at that segment boundary)."""
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    code = ("import json, sys; sys.path.insert(0, %r); "
+            "from raft_tpu_torch.models import descent_cases as DC; "
+            "DC.run_checkpointed(json.loads(%r))" % (root, json.dumps(spec)))
+    return [sys.executable, "-c", code]

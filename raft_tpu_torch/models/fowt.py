@@ -46,6 +46,7 @@ Yue second-order correction is in ``models/qtf.py``.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 from dataclasses import dataclass
@@ -604,8 +605,9 @@ def fowt_hydro_constants(fowt: FOWTModel, pose):
     # Cm = 4i / (pi (kR)^2 H1'(kR)), blended by a cosine ramp into the
     # Morison Cm for long waves (k < pi / (5R)), zero at k <= 0; on the
     # transverse terms only, the end term stays real
-    if fowt.nodes.MCF is not None and bool(np.any(_host(fowt.nodes.MCF,
-                                                         "mcf_flags"))):
+    if fowt.nodes.MCF is not None and (
+            _MCF_KNOWN[-1] if _MCF_KNOWN
+            else bool(np.any(_host(fowt.nodes.MCF, "mcf_flags")))):
         k = as_real(fowt.k, dev)                      # (nw,)
         R = _nd(fowt, "R", dev)                       # (N,)
         R_safe = torch.where(R > 0, R, 1.0)
@@ -681,6 +683,24 @@ def build_seastate(fowt: FOWTModel, case: dict):
             raise ValueError(f"unknown wave spectrum '{sp}'")
         zeta[ih, :] = np.sqrt(2.0 * S[ih, :] * dw)
     return dict(beta=np.deg2rad(heading), S=S, zeta=zeta, nWaves=nWaves)
+
+
+#: the MacCamy-Fuchs look of a sharded setup, read once for its shards
+_MCF_KNOWN: list = []
+
+
+@contextlib.contextmanager
+def mcf_known(fowt: FOWTModel):
+    """Inside: `fowt_hydro_constants` takes ``fowt``'s MacCamy-Fuchs look
+    (any flagged node?) from ONE counted read made here, instead of one a
+    call: a sharded setup's shards share it, so their pulls are the
+    unsharded setup's."""
+    _MCF_KNOWN.append(fowt.nodes.MCF is not None and bool(
+        np.any(_host(fowt.nodes.MCF, "mcf_flags"))))
+    try:
+        yield
+    finally:
+        _MCF_KNOWN.pop()
 
 
 def _host(x, what="fowt_constant"):

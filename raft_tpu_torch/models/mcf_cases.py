@@ -17,7 +17,10 @@ design's own grid stays (80 bins, 0.005-0.40 Hz; second-order grid
   QTF (kernel K5) plus the Kim & Yue correction of the four
   surface-piercing MCF columns;
 - (c3) `sweep_inputs`: `SWEEP_CASES` seeded sea states for
-  ``sweep_cases`` on (c1)'s FOWT.
+  ``sweep_cases`` on (c1)'s FOWT;
+- (c4) `variant_thetas`: design variants of (c1) (every member's
+  diameters scaled, `VARIANT_SCALES`) for ``sweep_variants``, held to
+  the JAX package's (`variant_deviation`).
 
 Nothing here runs on import.
 """
@@ -72,6 +75,51 @@ def mcf_qtf_design(coarse: bool = False) -> dict:
     d["platform"].update(potSecOrder=1,
                          **(QTF_GRID_COARSE if coarse else QTF_GRID))
     return d
+
+
+#: (c4) design variants of (c1): every member's diameters scaled by
+#: these factors (the JAX package's ``sweep_variants`` holds the port
+#: there, ``tests/golden/variants_mcf_golden.py``), and the solver knobs
+VARIANT_SCALES = (0.9, 0.95, 1.0, 1.05, 1.1)
+VARIANT_KW = dict(ballast=True, nIter=6, newton_iters=8)
+#: (c4)'s bars against the JAX golden: relative, CPU and card
+VARIANT_CPU_RTOL = 1e-10
+VARIANT_CARD_RTOL = 1e-9
+
+
+def variant_thetas(nmem: int, scales=VARIANT_SCALES) -> dict:
+    """(c4) θ batch: ``d_scale`` (nv, nmem, 2), every member's diameters
+    (side lengths) times one factor a variant (numpy)."""
+    f = np.asarray(scales, float)
+    return {"d_scale": np.ones((len(f), int(nmem), 2)) * f[:, None, None]}
+
+
+def variant_deviation(out: dict, gold: dict) -> dict:
+    """Worst relative deviation of each (c4) output of a port
+    ``sweep_variants`` (tensors or arrays) from the golden's ``out``:
+    max |a - b| / max |b| per key (``Xi`` complex).  The equilibrium's
+    outputs (``Xeq``, ``offset``, ``pitch_deg``, this one in radians) are
+    taken relative to the size of the whole equilibrium, max |Xeq|: the
+    design is near-symmetric, so its pitch (~5e-6 deg) and sway sit at
+    the Newton's rounding floor, where a relative measure of their own
+    size reads the floor, not the port."""
+    def host(v):
+        return v.detach().cpu().numpy() if hasattr(v, "detach") \
+            else np.asarray(v)
+
+    eq = float(np.max(np.abs(np.asarray(gold["out"]["Xeq"], float))))
+    res = {}
+    for k, ref in gold["out"].items():
+        b = np.asarray(ref, float)
+        if k == "Xi":
+            b = b[..., 0] + 1j * b[..., 1]
+        d = np.abs(host(out[k]) - b)
+        if k == "pitch_deg":
+            d = np.deg2rad(d)
+        scale = eq if k in ("Xeq", "offset", "pitch_deg") \
+            else float(np.max(np.abs(b)))
+        res[k] = float(np.max(d) / max(scale, 1e-300))
+    return res
 
 
 def sweep_inputs(n: int = SWEEP_CASES, seed: int = SWEEP_SEED):

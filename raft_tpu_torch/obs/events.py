@@ -26,8 +26,12 @@ quarantine       per-case / per-lane quarantine decisions
 recovery         every degradation-ladder transition (``recovery.py``)
 probe            probe samples (``obs.probes``)
 solve_health     a sweep batch's health summary (``RAFT_TPU_HEALTH=1``)
-storage_degraded a chunked sweep that stopped persisting (ENOSPC)
+storage_degraded a chunked sweep or descent that stopped persisting
+                 (ENOSPC)
 ckpt_corrupt     a checkpoint that failed its integrity checks
+ckpt_resume      a descent resumed from its newest valid checkpoint
+ckpt_resume_rej. ``ckpt_resume_rejected``: a checkpoint of another spec
+                 or carry layout, ignored (the descent starts fresh)
 ================ =========================================================
 
 A recorder starts only when an output directory is configured

@@ -356,18 +356,21 @@ def _impedance_cuda(w, M, B, C, F, refine, precision, factor_dtype,
         promoted = torch.zeros(1, dtype=torch.int32, device=dev)
     if lanes:
         lib = _build.load()
-        stream = torch.cuda.current_stream(dev).cuda_stream
         ptrs = (w.data_ptr(), Mc.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
                 Fc.data_ptr(), torch.view_as_real(X).data_ptr())
-        if fd is None:
-            rc = getattr(lib, f"raft_impedance_gj_{suffix}")(
-                *ptrs, nb, nw, n, int(refine), stream)
-        else:
-            tol = DEFAULT_PROMOTE_TOL if promote_tol is None \
-                else float(promote_tol)
-            rc = getattr(lib, f"raft_impedance_gj_{suffix}")(
-                *ptrs, rn.data_ptr(), promoted.data_ptr(), nb, nw, n,
-                int(refine), tol, stream)
+        tol = DEFAULT_PROMOTE_TOL if promote_tol is None \
+            else float(promote_tol)
+        # the launch goes to the runtime's current device: make it the
+        # operands', so the stream and the device agree
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            if fd is None:
+                rc = getattr(lib, f"raft_impedance_gj_{suffix}")(
+                    *ptrs, nb, nw, n, int(refine), stream)
+            else:
+                rc = getattr(lib, f"raft_impedance_gj_{suffix}")(
+                    *ptrs, rn.data_ptr(), promoted.data_ptr(), nb, nw, n,
+                    int(refine), tol, stream)
         _build.check(rc, key, n=n, lanes=lanes)
         LAUNCHES[key] += 1
     if not return_stats:
@@ -482,15 +485,16 @@ def _gj_cuda(A, b, refine, precision, factor_dtype, promote_tol,
             if mixed else None
         if lanes:
             lib = _build.load()
-            stream = torch.cuda.current_stream(dev).cuda_stream
             fn = getattr(lib, f"raft_gj_solve_{fn_suffix}")
-            if not mixed:
-                rc = fn(Ac.data_ptr(), bc.data_ptr(), x.data_ptr(), lanes, ne,
-                        kc, int(refine), stream)
-            else:
-                rc = fn(Ac.data_ptr(), bc.data_ptr(), x.data_ptr(),
-                        rn.data_ptr(), promoted.data_ptr(), lanes, ne, kc,
-                        int(refine), chunk_tol, stream)
+            with torch.cuda.device(dev):      # the operands' device
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                if not mixed:
+                    rc = fn(Ac.data_ptr(), bc.data_ptr(), x.data_ptr(), lanes,
+                            ne, kc, int(refine), stream)
+                else:
+                    rc = fn(Ac.data_ptr(), bc.data_ptr(), x.data_ptr(),
+                            rn.data_ptr(), promoted.data_ptr(), lanes, ne, kc,
+                            int(refine), chunk_tol, stream)
             _build.check(rc, launch_key, n=ne, k=kc, lanes=lanes)
             LAUNCHES[launch_key] += 1
         return x, rn, promoted

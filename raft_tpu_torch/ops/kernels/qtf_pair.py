@@ -356,11 +356,12 @@ def _qtf_cuda(fields, beta, h, rho, g):
     nscr = int(lib.raft_qtf_k5_scratch(nw2, nsub, per))
     scratch = torch.empty(2 * nscr, dtype=torch.float64, device=dev)
     Q = torch.empty((nw2, nw2, 6), dtype=torch.complex128, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.raft_qtf_k5_f64(*(_ptr(ops.get(k)) for k in OPERAND_ORDER),
-                             sub.data_ptr(), scratch.data_ptr(), nscr,
-                             _ptr(Q), nw2, N, nm, nsub, per, beta, h, rho, g,
-                             stream)
+    with torch.cuda.device(dev):          # the operands' device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.raft_qtf_k5_f64(*(_ptr(ops.get(k)) for k in OPERAND_ORDER),
+                                 sub.data_ptr(), scratch.data_ptr(), nscr,
+                                 _ptr(Q), nw2, N, nm, nsub, per, beta, h,
+                                 rho, g, stream)
     _build.check(rc, "qtf_pair", nw2=nw2, N=N, nm=nm, nsub=nsub)
     LAUNCHES["qtf_pair"] += 1
     return Q

@@ -52,17 +52,28 @@ card's queued work falling to the phase whose counted pull waits for
 it.
 ``normalize_request`` is the serve tenant's request check.
 
-Not ported here (ROADMAP A9): the segmented and checkpointed descent
-(``checkpoint_every``, ``ckpt_store``, ...), ``partition`` (``mesh=``),
-and the compiled-program cache (``exec_cache``: the port compiles
-nothing); ``optimize_designs`` refuses ``mesh`` and the checkpoint
-arguments with a typed error.
+``optimize_designs(checkpoint_every=N)`` runs the descent N steps a
+segment through ``make_descent``'s ``segment`` (`_segmented_descent`:
+bitwise the monolithic descent), pulls the carry by stable names
+(`carry_tensors`: x, the masks, the counters and the optimizer's state
+whole) once a segment into a ``serve.checkpoint.CheckpointStore``, and
+resumes a later call from the newest checkpoint whose identity
+(`_ckpt_identity`) and carry layout agree; the ``kill@optimize`` /
+``hang@optimize`` seams sit at the segment boundaries.  ``mesh=``
+(``parallel/partition.py``, batch axes only) shards each value and
+gradient's lanes (`_value_and_grad_sharded`); the carry stays whole.
+
+Not ported here: the compiled-program cache and its per-segment AOT
+programs (``exec_cache``, ``_aot_program``: the port compiles nothing,
+ROADMAP A9), and a mesh's ``freq`` axis (A9's next item).
 """
 from __future__ import annotations
 
 import contextlib
 import json
+import logging
 import math
+import os
 import time
 
 import numpy as np
@@ -112,7 +123,10 @@ class FixedPoint(torch.autograd.Function):
     is the step's state, ``step(state, Xi)`` one drag pass.  The gradient
     reaches the state's tensors (Xi0 gets none, as in JAX).  In PyTorch's
     convention λ is the conjugate of JAX's; the relaxation, the freeze
-    and the test are the same."""
+    and the test are the same.  Sharded: ``Xi0`` a list of per-shard
+    tensors, ``step`` a map of such lists, the outputs one tensor per
+    shard; the forward and the adjoint iterations each run every shard
+    as one (``unrolled_fixed_point`` over lists)."""
 
     @staticmethod
     def forward(ctx, step, rebuild, knobs, Xi0, *tensors):
@@ -124,32 +138,38 @@ class FixedPoint(torch.autograd.Function):
         if knobs["record"] is not None:
             knobs["record"]["passes"] = min(chunks * chunk, n)
         ctx.step, ctx.rebuild, ctx.knobs = step, rebuild, knobs
-        ctx.save_for_backward(Xi, *tensors)
-        return Xi
+        ctx.sharded = isinstance(Xi0, (list, tuple))
+        Xs = list(Xi) if ctx.sharded else [Xi]
+        ctx.nshards = len(Xs)
+        ctx.save_for_backward(*Xs, *tensors)
+        return tuple(Xs) if ctx.sharded else Xi
 
     @staticmethod
-    def backward(ctx, Xbar):
-        Xi, *tensors = ctx.saved_tensors
+    def backward(ctx, *Xbar):
+        saved = ctx.saved_tensors
+        Xi, tensors = saved[:ctx.nshards], saved[ctx.nshards:]
         need = ctx.needs_input_grad[4:]
         knobs = ctx.knobs
         with torch.enable_grad():
-            x = Xi.detach().requires_grad_(True)
+            xs = [x.detach().requires_grad_(True) for x in Xi]
             leaves = [t.detach().requires_grad_(True) if n else t.detach()
                       for t, n in zip(tensors, need)]
-            y = ctx.step(ctx.rebuild(leaves), x)
+            ys = ctx.step(ctx.rebuild(leaves), xs if ctx.sharded else xs[0])
+            ys = list(ys) if ctx.sharded else [ys]
 
-            def pull(lam):
+            def pull(lams):
                 # one pullback of the step: one adjoint impedance solve
-                return Xbar + torch.autograd.grad(y, x, lam,
-                                                  retain_graph=True)[0]
+                # (each shard's own: y_i depends on x_i alone)
+                gs = torch.autograd.grad(ys, xs, lams, retain_graph=True)
+                return [xb + g for xb, g in zip(Xbar, gs)]
 
             n_adj = knobs["adjoint_iters"]
             chunk = knobs["chunk"] or n_adj
             lam, _, _, _, chunks = unrolled_fixed_point(
-                pull, Xbar, n_adj, knobs["tol"], chunk=chunk,
+                pull, list(Xbar), n_adj, knobs["tol"], chunk=chunk,
                 relax=knobs["relax"], what="implicit_adjoint_chunk")
             wanted = [t for t, n in zip(leaves, need) if n]
-            grads = iter(torch.autograd.grad(y, wanted, lam,
+            grads = iter(torch.autograd.grad(ys, wanted, lam,
                                              allow_unused=True)
                          if wanted else ())
         if knobs["record"] is not None:
@@ -172,7 +192,10 @@ def fixed_point_implicit(step, Xi0, state, nIter: int = 10,
     ``record`` dict receives ``passes`` (forward) and, after the
     backward, ``adjoint_passes``.  Returns the relaxed iterate (not the
     raw last output, which lands on the exact zeros of symmetric DOFs
-    where the drag linearization's gradient is NaN)."""
+    where the drag linearization's gradient is NaN).  Sharded
+    (``partition``): ``Xi0`` a list of per-shard seeds, ``state`` a list
+    of per-shard states, ``step(states, Xis)`` a list; returns a tuple,
+    one iterate per shard."""
     leaves, spec = pytree.tree_flatten(state)
     idx = [i for i, v in enumerate(leaves) if isinstance(v, torch.Tensor)]
 
@@ -430,13 +453,16 @@ def make_objective(spec=None):
 
 def make_design_objective(base, space: DesignSpace, objective=None,
                           nIter: int = 10, tol: float = 0.01,
-                          newton_iters: int = 20, **solver_kw):
+                          newton_iters: int = 20, mesh=None, **solver_kw):
     """``obj(x)`` -> scalar tensor for one flat design vector (P,) and
     ``obj.batched(X)`` -> (lanes,) for X (lanes, P), through the
     implicit-diff pipeline on the base model's device, differentiable in
     x; ``obj.spec`` is the canonical objective, ``obj.solver`` the
     variant solver.  A ``ballast`` design variable runs the solver
-    without the density trim, as in the JAX package."""
+    without the density trim, as in the JAX package.  With ``mesh``
+    (batch axes only), ``obj.sharded(xs)`` takes one X block per shard
+    this process runs (on its device, in lane order) and returns their
+    values, through ONE implicit fixed point over every shard."""
     from raft_tpu_torch.parallel.variants import make_variant_solver
 
     fn, spec = make_objective(objective)
@@ -444,7 +470,7 @@ def make_design_objective(base, space: DesignSpace, objective=None,
         base, Hs=float(spec["Hs"]), Tp=float(spec["Tp"]),
         beta=float(spec["beta"]), ballast="ballast" not in space.names,
         nIter=int(nIter), tol=float(tol), newton_iters=int(newton_iters),
-        implicit_diff=True, **solver_kw)
+        implicit_diff=True, mesh=mesh, **solver_kw)
     w = as_real(base.w, base.device)
     to_thetas = torch.func.vmap(space.to_theta)
 
@@ -454,7 +480,13 @@ def make_design_objective(base, space: DesignSpace, objective=None,
     def batched(X):
         return fn(solver.implicit_batched(to_thetas(X)), w)
 
+    def sharded(xs):
+        outs = solver.implicit_sharded([to_thetas(x) for x in xs])
+        return [fn(o, as_real(base.w, x.device)) for o, x in zip(outs, xs)]
+
     obj.batched = batched
+    obj.sharded = sharded
+    obj.mesh = mesh
     obj.spec = spec
     obj.solver = solver
     return obj
@@ -474,11 +506,14 @@ def value_and_grad(obj, X, record: dict = None):
     walls (``setup_s``, ``fixed_point_s`` from the solver,
     ``backward_s``)."""
     dev = obj.solver.device
-    x = as_real(X, dev).detach().requires_grad_(True)
-    with torch.enable_grad():
-        v = obj.batched(x)
-        t0 = time.perf_counter()
-        g, = torch.autograd.grad(torch.sum(v), x)
+    if getattr(obj, "mesh", None) is not None:
+        v, g, t0 = _value_and_grad_sharded(obj, as_real(X, dev))
+    else:
+        x = as_real(X, dev).detach().requires_grad_(True)
+        with torch.enable_grad():
+            v = obj.batched(x)
+            t0 = time.perf_counter()
+            g, = torch.autograd.grad(torch.sum(v), x)
     if record is not None:
         tm, fp = obj.solver.timings, obj.solver.fixed_point
         for key, val in (("gradients", 1), ("passes", fp["passes"]),
@@ -488,6 +523,30 @@ def value_and_grad(obj, X, record: dict = None):
                          ("backward_s", time.perf_counter() - t0)):
             record[key] = record.get(key, 0) + val
     return v.detach(), g.detach()
+
+
+def _value_and_grad_sharded(obj, X):
+    """`value_and_grad` over ``obj.mesh``: X's lanes split into one block
+    per shard (``partition.shard_tree``), each shard's values and its
+    block's gradient taken locally (the forward and the adjoint fixed
+    points each ONE iteration over every shard), then both gathered on
+    X's device in lane order (across processes by ``all_gather``).
+    Returns (values, gradients, the backward's start time)."""
+    from raft_tpu_torch.parallel import partition
+
+    mesh = obj.mesh
+    with partition.spmd(mesh):
+        parts = partition.shard_tree({"x": X.detach()}, mesh,
+                                     partition.VARIANT_INPUT_RULES)
+        xs = [p["x"].detach().requires_grad_(True) for p in parts]
+        with torch.enable_grad():
+            vs = obj.sharded(xs)
+            t0 = time.perf_counter()
+            gs = torch.autograd.grad([torch.sum(v) for v in vs], xs)
+        out = partition.gather_tree(
+            [{"v": v.detach(), "g": g} for v, g in zip(vs, gs)], mesh,
+            X.device)
+    return out["v"], out["g"], t0
 
 
 def grad_guarded(obj):
@@ -620,7 +679,8 @@ def normalize_request(spec, lanes_max: int = None,
 
 def make_descent(base, space: DesignSpace, objective=None,
                  method: str = "adam", steps: int = 40, lr: float = 0.02,
-                 gtol: float = 1e-4, xtol: float = 0.0, **obj_kw):
+                 gtol: float = 1e-4, xtol: float = 0.0, mesh=None,
+                 **obj_kw):
     """``descend(X0 (L, P)) -> result dict``: L independent box-projected
     descents with per-lane convergence masks, as the JAX package's
     ``make_descent``.  A lane whose value or gradient goes non-finite is
@@ -636,8 +696,10 @@ def make_descent(base, space: DesignSpace, objective=None,
     the linesearch trials, the fixed points' passes and their walls
     (`value_and_grad`).  Each step runs in a ``descent_step`` span and
     ``finalize`` in a ``descent_finalize`` span, each with its share of
-    the record as attributes."""
-    obj = make_design_objective(base, space, objective, **obj_kw)
+    the record as attributes.  ``mesh``: each value and gradient of the
+    lane batch shards its lanes (`value_and_grad`); the carry and the
+    optimizer stay whole on the base model's device."""
+    obj = make_design_objective(base, space, objective, mesh=mesh, **obj_kw)
     opt = make_optimizer(method, lr)
     dev = obj.solver.device
     steps = int(steps)
@@ -722,16 +784,191 @@ def make_descent(base, space: DesignSpace, objective=None,
     return descend
 
 
-#: optimize_designs arguments of the JAX package the port does not take yet
-_NOT_PORTED = ("mesh", "checkpoint_every", "ckpt_store", "ckpt_key",
-               "on_checkpoint", "ckpt_resume_only")
+# ---------------------------------------------------------------------------
+# the segmented, checkpointed and resumable descent
+# ---------------------------------------------------------------------------
+
+def _ckpt_identity(base, space, spec, method, steps, lr, gtol, xtol,
+                   nlanes, every, obj_kw=None) -> str:
+    """Content identity of one checkpointable descent — what a resume
+    must agree on before trusting a persisted carry: the base model's
+    digest, the space, the objective, the method and its knobs, the lane
+    count, the segment length and every scalar solver keyword (the carry
+    layout alone cannot tell ``nIter`` or ``tol`` apart).  A checkpoint
+    of another spec is ignored (a fresh start), never mis-resumed."""
+    from raft_tpu_torch.ledger import digest_metrics
+    from raft_tpu_torch.parallel import exec_cache
+
+    return digest_metrics({
+        "model": exec_cache.model_digest(base),
+        "space": json.dumps(space.fingerprint(), sort_keys=True),
+        "objective": json.dumps(spec, sort_keys=True),
+        "method": str(method), "steps": int(steps), "lr": float(lr),
+        "gtol": float(gtol), "xtol": float(xtol),
+        "nlanes": int(nlanes), "every": int(every),
+        "kw": json.dumps({k: v for k, v in (obj_kw or {}).items()
+                          if isinstance(v, (int, float, str, bool))},
+                         sort_keys=True)})
+
+
+def carry_tensors(carry) -> dict:
+    """``make_descent``'s carry by stable name: ``x``, ``done``, ``bad``,
+    ``iters`` and ``state/<key>`` for every tensor of the optimizer's
+    state (L-BFGS's memory, step size and counters whole)."""
+    x, state, done, bad, iters = carry
+    out = {"x": x, "done": done, "bad": bad, "iters": iters}
+    out.update({f"state/{k}": v for k, v in state.items()})
+    return out
+
+
+def carry_layout(carry) -> dict:
+    """name -> [shape, dtype] of `carry_tensors` (what a resume checks)."""
+    return {k: [list(v.shape), str(v.dtype)]
+            for k, v in carry_tensors(carry).items()}
+
+
+def carry_from(arrays: dict, like):
+    """The carry of the host ``arrays`` (`carry_tensors`' names, under
+    ``c/``), every leaf at the dtype and on the device of ``like``'s."""
+    x, state, done, bad, iters = like
+
+    def get(name, t):
+        return _config.to_device(arrays[f"c/{name}"], t.device, t.dtype)
+
+    return (get("x", x), {k: get(f"state/{k}", v) for k, v in state.items()},
+            get("done", done), get("bad", bad), get("iters", iters))
+
+
+def _resume(store, key, steps, identity, layout, nlanes, like):
+    """(carry, obj_trace parts, gnorm_trace parts, step) of the newest
+    valid checkpoint of ``key`` whose identity and carry layout agree,
+    or None.  A corrupt checkpoint the store dropped falls back one
+    segment; one that disagrees is a ``ckpt_resume_rejected`` event."""
+    from raft_tpu_torch import obs
+
+    found = store.latest(key, max_step=steps)
+    if found is None:
+        return None
+    step0, arrays, meta = found
+    ok = (meta.get("identity") == identity
+          and meta.get("carry") == layout
+          and all(f"c/{k}" in arrays for k in layout)
+          and tuple(np.shape(arrays.get("obj_trace")))
+          == (int(step0), int(nlanes))
+          and tuple(np.shape(arrays.get("gnorm_trace")))
+          == (int(step0), int(nlanes)))
+    if not ok:
+        obs.events.emit("ckpt_resume_rejected", step=int(step0),
+                        key=str(key)[:24])
+        return None
+    dev = like[0].device
+    carry = carry_from(arrays, like)
+    ot = _config.to_device(arrays["obj_trace"], dev, REAL)
+    gt = _config.to_device(arrays["gnorm_trace"], dev, REAL)
+    obs.counter("raft_tpu_checkpoint_resumes_total",
+                "descents resumed from a persisted checkpoint instead of "
+                "step 0").inc(1.0)
+    obs.events.emit("ckpt_resume", step=int(step0), steps=int(steps),
+                    key=str(key)[:24])
+    return carry, [ot], [gt], int(step0)
+
+
+def _segmented_descent(descend, x0, *, every: int, steps: int,
+                       ckpt_store=None, ckpt_key: str = None,
+                       on_checkpoint=None, identity: str = None,
+                       resume_only: bool = False):
+    """The chunked outer loop around `make_descent`'s ``segment``:
+    ``every`` steps a segment (``descend.segment(carry, seg_len)``; the
+    chained segments are the monolithic descent step for step, so the
+    result is bitwise the same), the carry and the traces so far pulled
+    once a segment (``optimize_checkpoint``, phase ``optimize``) and put
+    in ``ckpt_store`` under ``ckpt_key`` (``on_checkpoint(step,
+    cdigest)`` after each), a resume from the newest valid checkpoint,
+    the ``kill@optimize:step=N`` / ``hang@optimize:step=N`` seams at every
+    segment boundary (a hang parks after step N's checkpoint is durable)
+    and the ``StorageExhausted`` shed (checkpointing stops; the descent
+    keeps its progress on the device).  ``resume_only`` reads a
+    checkpoint but writes none.
+
+    Returns ``(out, ckpt_info)``: ``descend.finalize``'s result over the
+    whole traces, and the facts ``checkpoint_every``,
+    ``resumed_from_step``, ``segments``, ``ckpt_writes``, ``ckpt_shed``,
+    ``ckpt_resume_only``."""
+    from raft_tpu_torch import obs
+    from raft_tpu_torch.testing import faults
+
+    L = int(x0.shape[0])
+    carry = descend.init_carry(x0)
+    layout = carry_layout(carry)
+    resumed_from, ot_parts, gt_parts = 0, [], []
+    if ckpt_store is not None and ckpt_key:
+        got = _resume(ckpt_store, ckpt_key, steps, identity, layout, L,
+                      carry)
+        if got is not None:
+            carry, ot_parts, gt_parts, resumed_from = got
+    shed = False
+    writes = 0
+    done_steps = resumed_from
+    nseg = 0
+    log = logging.getLogger("raft_tpu_torch.optimize")
+    while done_steps < steps:
+        # the preemption seams, at the boundary whose cumulative step
+        # count is N
+        f = faults.fire_info("optimize", step=done_steps)
+        if f is not None and f["action"] == "kill":
+            log.warning("optimize: injected kill at step %d (os._exit)",
+                        done_steps)
+            os._exit(137)
+        if f is not None and f["action"] == "hang":
+            log.warning("optimize: injected hang at step %d (%.1fs)",
+                        done_steps, f.get("hang_s", 30.0))
+            time.sleep(float(f.get("hang_s", 30.0)))
+        seg_len = min(int(every), int(steps) - done_steps)
+        carry, (ot, gt) = descend.segment(carry, seg_len)
+        done_steps += seg_len
+        nseg += 1
+        ot_parts.append(ot)
+        gt_parts.append(gt)
+        if ckpt_store is not None and ckpt_key and not shed \
+                and not resume_only and done_steps < steps:
+            # ONE counted pull a segment: the carry and the traces so far
+            host = transfers.device_get(
+                (carry_tensors(carry), torch.cat(ot_parts),
+                 torch.cat(gt_parts)),
+                what="optimize_checkpoint", phase="optimize")
+            arrays = {f"c/{k}": v for k, v in host[0].items()}
+            arrays["obj_trace"], arrays["gnorm_trace"] = host[1], host[2]
+            try:
+                cd = ckpt_store.put(
+                    ckpt_key, done_steps, arrays,
+                    meta={"identity": identity, "carry": layout,
+                          "steps": int(steps), "every": int(every),
+                          "nlanes": L})
+                if cd:
+                    writes += 1
+                    if on_checkpoint is not None:
+                        on_checkpoint(done_steps, cd)
+            except errors.StorageExhausted as e:
+                # checkpointing sheds first: the descent keeps its
+                # progress on the device, its durability degrades
+                shed = True
+                obs.events.emit("storage_degraded", component="checkpoint",
+                                step=done_steps, error=str(e)[:200])
+    out = descend.finalize(carry, torch.cat(ot_parts), torch.cat(gt_parts))
+    return out, {"checkpoint_every": int(every),
+                 "resumed_from_step": resumed_from, "segments": nseg,
+                 "ckpt_writes": writes, "ckpt_shed": shed,
+                 "ckpt_resume_only": bool(resume_only)}
 
 
 def optimize_designs(base, space: DesignSpace, objective=None,
                      x0=None, nlanes: int = 64, method: str = "adam",
                      steps: int = 40, lr: float = 0.02,
                      gtol: float = 1e-4, xtol: float = 0.0,
-                     seed: int = 0, strict: bool = True,
+                     mesh=None, seed: int = 0, strict: bool = True,
+                     checkpoint_every: int = None, ckpt_store=None,
+                     ckpt_key: str = None, on_checkpoint=None,
+                     ckpt_resume_only: bool = False,
                      **obj_kw) -> dict:
     """Run ``nlanes`` simultaneous projected descents over ``space`` (the
     JAX package's ``optimize_designs`` without its compiled-program
@@ -746,32 +983,43 @@ def optimize_designs(base, space: DesignSpace, objective=None,
     ``NonFiniteResult`` (``phase="adjoint"``) when EVERY lane's gradient
     went non-finite; no lane ending finite raises ``NonFiniteResult``.
 
-    ``mesh=`` and the checkpoint arguments (``checkpoint_every``,
-    ``ckpt_store``, ``ckpt_key``, ``on_checkpoint``,
-    ``ckpt_resume_only``) raise ``ModelConfigError``: not ported yet
-    (ROADMAP A9)."""
+    ``mesh`` (batch axes only; a ``freq`` axis raises
+    ``PartitionRuleError``): the lanes are padded to the mesh's batch
+    size (copies of the last lane), each value and gradient shards them
+    over the mesh's devices, and the padding is stripped from the result;
+    ``provenance["mesh"]`` holds the topology.
+
+    Preemption tolerance: ``checkpoint_every=N`` runs the descent N steps
+    a segment (bitwise the monolithic descent); with ``ckpt_store`` (a
+    ``serve.checkpoint.CheckpointStore``) and ``ckpt_key`` the carry is
+    pulled once a segment and persisted, a later call with the same key
+    and spec resumes from the newest valid checkpoint
+    (``result["resumed_from_step"]``; a corrupt one falls back one
+    segment, another spec's is ignored), an ENOSPC write sheds
+    checkpointing without losing progress, and ``on_checkpoint(step,
+    cdigest)`` is called after each persisted segment.
+    ``ckpt_resume_only`` resumes but writes nothing.  The checkpoints of
+    a finished descent are deleted."""
     from raft_tpu_torch import obs
     from raft_tpu_torch.ops import linalg as _linalg
+    from raft_tpu_torch.parallel import partition
 
-    refused = sorted(k for k in _NOT_PORTED
-                     if obj_kw.get(k) not in (None, False))
-    if refused:
-        raise errors.ModelConfigError(
-            f"optimize_designs: {', '.join(refused)} not ported yet "
-            "(ROADMAP A9: the segmented and checkpointed descent, "
-            "partition)", args=",".join(refused))
-    obj_kw = {k: v for k, v in obj_kw.items() if k not in _NOT_PORTED}
+    partition.require_batch_only(mesh, "optimize_designs")
     descend = make_descent(base, space, objective, method=method,
                            steps=steps, lr=lr, gtol=gtol, xtol=xtol,
-                           **obj_kw)
+                           mesh=mesh, **obj_kw)
     spec = descend.objective_spec
     if x0 is None:
         x0 = space.sample(nlanes, seed=seed)
     x0 = as_real(x0, base.device)
     nlanes = int(x0.shape[0])
+    npad = 0
+    if mesh is not None:
+        x0, npad = partition.pad_batch(x0, nlanes, partition.batch_size(mesh))
+    mesh_info = partition.mesh_facts(mesh)
     manifest = obs.RunManifest.begin(kind="optimize", config={
         "nlanes": nlanes, "ndim": space.ndim, "steps": int(steps),
-        "method": method, "objective": spec["metric"], "mesh": None,
+        "method": method, "objective": spec["metric"], "mesh": mesh_info,
         "names": ",".join(space.names)})
     obs.record_build_info(run_id=manifest.run_id)
     status = "failed"
@@ -780,9 +1028,28 @@ def optimize_designs(base, space: DesignSpace, objective=None,
                       method=method) as sp:
             cache_info = {"state": "disabled"}
             sp.set(exec_cache=cache_info["state"])
+            if mesh_info is not None:
+                sp.set(mesh=mesh_info["topology"])
+            every = int(checkpoint_every or 0)
+            ckpt_info = None
             t0 = time.perf_counter()
             with obs.span("optimize_execute"):
-                out = descend(x0)
+                if every > 0:
+                    identity = _ckpt_identity(
+                        base, space, spec, method, steps, lr, gtol, xtol,
+                        int(x0.shape[0]), every, obj_kw)
+                    out, ckpt_info = _segmented_descent(
+                        descend, x0, every=every, steps=int(steps),
+                        ckpt_store=ckpt_store, ckpt_key=ckpt_key,
+                        on_checkpoint=on_checkpoint, identity=identity,
+                        resume_only=bool(ckpt_resume_only))
+                    sp.set(resumed_from_step=ckpt_info["resumed_from_step"])
+                else:
+                    out = descend(x0)
+            if npad:
+                # the padded lanes are a placement detail, never a result
+                out = {k: v[:, :nlanes] if k in ("obj_trace", "gnorm_trace")
+                       else v[:nlanes] for k, v in out.items()}
             # one host pull for the descent summary
             res = transfers.device_get(
                 (out["x"], out["objective"], out["grad_norm"],
@@ -833,6 +1100,16 @@ def optimize_designs(base, space: DesignSpace, objective=None,
                     "solver": _linalg.last_dispatch(),
                     "exec_cache": cache_info["state"]},
             }
+            if mesh_info is not None:
+                result["provenance"]["mesh"] = mesh_info
+            if ckpt_info is not None:
+                # the resume point, the segment census and whether the
+                # checkpoints shed, journaled with the result
+                result["resumed_from_step"] = ckpt_info["resumed_from_step"]
+                result["provenance"].update(ckpt_info)
+                if ckpt_store is not None and ckpt_key:
+                    # done: its progress checkpoints are garbage
+                    ckpt_store.delete(ckpt_key)
             sp.set(best=result["f_best"], converged=int(conv.sum()),
                    nonfinite=n_bad)
             if _config.health_enabled():
@@ -881,7 +1158,16 @@ def optimize_designs(base, space: DesignSpace, objective=None,
                 "iters_max": int(iters.max(initial=0)),
                 "wall_s": wall_s,
                 "descents_per_min": 60.0 * nlanes / max(wall_s, 1e-9),
-                "exec_cache": cache_info["state"]}
+                "exec_cache": cache_info["state"],
+                **({k: int(ckpt_info[k]) for k in
+                    ("checkpoint_every", "resumed_from_step", "segments",
+                     "ckpt_writes", "ckpt_shed")}
+                   if ckpt_info is not None else {})}
+            if mesh_info is not None:
+                manifest.extra["partition"] = {
+                    "mesh": mesh_info, "npad": npad,
+                    "rules": partition.rules_fingerprint(
+                        partition.VARIANT_INPUT_RULES)}
             status = "ok"
             return result
     finally:

@@ -43,12 +43,20 @@ impedance solve (one more K1 / K3 launch) a batch — folded by
 `_health_summary` into the ``raft_tpu_solve_*`` gauges, a
 ``solve_health`` event and ``manifest.extra["solve_health"]``.
 
-Not ported here (ROADMAP): the device mesh / partition rules and the
-executable cache (A9); lane quarantine and the health mode of the farm
-sweep; the farm runner of the service (``make_farm_runner``,
+Partition (``parallel/partition.py``): ``sweep_cases``,
+``sweep_cases_chunked`` and ``sweep_farm`` take ``mesh=`` over batch
+axes; the lanes shard over the mesh's devices (`_solve_sharded`), one
+fixed point runs every shard, and the counted pulls are the unsharded
+sweep's.
+
+Not ported here (ROADMAP): a mesh's ``freq`` axis (A9) and the
+executable cache; lane quarantine and the health mode of the farm sweep;
+the farm runner of the service (``make_farm_runner``,
 ``normalize_farm_request``, A10).
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -60,10 +68,11 @@ from raft_tpu_torch.models import mooring as mr
 from raft_tpu_torch.models.fowt import (
     FOWTModel, build_fowt, fowt_bem_excitation, fowt_drag_excitation,
     fowt_drag_precompute, fowt_hydro_constants, fowt_hydro_excitation,
-    fowt_hydro_linearization_pre, fowt_pose, fowt_statics,
+    fowt_hydro_linearization_pre, fowt_pose, fowt_statics, mcf_known,
 )
 from raft_tpu_torch.ops.linalg import impedance_solve
 from raft_tpu_torch.obs import transfers
+from raft_tpu_torch.parallel import partition
 from raft_tpu_torch.ops.spectra import get_rms, jonswap
 from raft_tpu_torch.recovery import relax_weights
 from raft_tpu_torch.testing import faults
@@ -81,40 +90,56 @@ def unrolled_fixed_point(step, Xi0, nIter, tol, chunk: int = 2,
     item has converged.  That is exact: a frozen pass is an identity on
     the whole carry.  ``chunk=nIter`` (or 0) runs every pass.
 
-    Returns (XiLast, Xi, done, iters, chunks_run): ``iters`` is the
-    per-item count of executed (non-frozen) passes and ``chunks_run`` the
-    number of chunks that ran."""
+    Sharded (``partition``): ``Xi0`` a list of per-shard tensors and
+    ``step`` a map of such lists; every shard's pass is launched before
+    the next shard's work waits, the chunk check is one pull over every
+    shard's flags (and-ed over the processes of a multi-process mesh,
+    ``partition.agree``), so the stop condition is global and the
+    counts do not depend on the mesh.
+
+    Returns (XiLast, Xi, done, iters, chunks_run) (lists when sharded):
+    ``iters`` is the per-item count of executed (non-frozen) passes and
+    ``chunks_run`` the number of chunks that ran."""
+    if not isinstance(Xi0, (list, tuple)):
+        out = unrolled_fixed_point(lambda zs: [step(zs[0])], [Xi0], nIter,
+                                   tol, chunk=chunk, relax=relax, what=what)
+        return tuple(v[0] for v in out[:4]) + (out[4],)
     chunk = int(chunk) if chunk else int(nIter)
     keep, relax = relax_weights(relax)
-    nb = Xi0.shape[0]
-    XiLast, Xi = Xi0, Xi0
-    done = torch.zeros(nb, dtype=torch.bool, device=Xi0.device)
-    iters = torch.zeros(nb, dtype=torch.int32, device=Xi0.device)
+    XiLast, Xi = list(Xi0), list(Xi0)
+    done = [torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+            for x in Xi0]
+    iters = [torch.zeros(x.shape[0], dtype=torch.int32, device=x.device)
+             for x in Xi0]
     chunks_run = 0
     remaining = int(nIter)
     while remaining > 0:
         count = min(chunk, remaining)
         remaining -= count
-        if bool(transfers.device_get(torch.all(done), what=what)):
+        flags = [torch.all(d) for d in done]
+        pulled = transfers.device_get(flags[0] if len(flags) == 1
+                                      else tuple(flags), what=what)
+        if partition.agree(bool(np.all(pulled))):
             continue
         for _ in range(count):
-            Xin = step(XiLast)
-            rel = torch.abs(Xin - XiLast) / (torch.abs(Xin) + tol)
-            conv = torch.all(torch.all(rel < tol, dim=-1), dim=-1)
-            frozen = done[:, None, None]
-            XiNext = torch.where(frozen | conv[:, None, None], XiLast,
-                                 keep * XiLast + relax * Xin)
-            Xi = torch.where(frozen, Xi, Xin)
-            iters = iters + (~done).to(torch.int32)
-            done = done | conv
-            XiLast = XiNext
+            Xins = step(XiLast)
+            for i, Xin in enumerate(Xins):
+                rel = torch.abs(Xin - XiLast[i]) / (torch.abs(Xin) + tol)
+                conv = torch.all(torch.all(rel < tol, dim=-1), dim=-1)
+                frozen = done[i][:, None, None]
+                XiNext = torch.where(frozen | conv[:, None, None], XiLast[i],
+                                     keep * XiLast[i] + relax * Xin)
+                Xi[i] = torch.where(frozen, Xi[i], Xin)
+                iters[i] = iters[i] + (~done[i]).to(torch.int32)
+                done[i] = done[i] | conv
+                XiLast[i] = XiNext
         chunks_run += 1
     return XiLast, Xi, done, iters, chunks_run
 
 
 def make_case_solver(fowt: FOWTModel, nIter: int = 10, tol: float = 0.01,
                      XiStart: float = 0.1, r6=None, fp_chunk: int = 2,
-                     relax: float = 0.8, health: bool = False):
+                     relax: float = 0.8, health: bool = False, mesh=None):
     """Per-case response solver (no aero; wave loading) on the model's
     device: ``solve(Hs, Tp, beta)`` for one case, ``solve.batched(Hs, Tp,
     beta, Xi0=None)`` for a batch.  Hs, Tp [m, s], beta [rad].
@@ -126,7 +151,11 @@ def make_case_solver(fowt: FOWTModel, nIter: int = 10, tol: float = 0.01,
     ``health_cond`` (nc,), the largest condition number of its impedance
     over the frequencies (inf where a bin is not finite).  It only adds
     outputs: ``Xi``, ``std``, ``iters`` and ``converged`` are those of the
-    solve without it."""
+    solve without it.
+
+    ``mesh`` (``parallel/partition.py``, batch axes only): the batched
+    solve shards its lanes over the mesh's devices."""
+    partition.require_batch_only(mesh, "make_case_solver")
     if fowt.potSecOrder > 0:
         import warnings
         warnings.warn(
@@ -194,14 +223,16 @@ def make_case_solver(fowt: FOWTModel, nIter: int = 10, tol: float = 0.01,
         for a batch (the excitation then carries a leading case axis)."""
         return sea_state(case_constants(), Hs, Tp, beta)
 
-    def setup_lanes(Hs, Tp, beta, r6_b, C_moor_b):
+    def setup_lanes(Hs, Tp, beta, r6_b, C_moor_b, r6_host=None):
         """Case state of a batch whose lanes each have their own reference
         pose ``r6_b`` (nc, 6) and mooring stiffness ``C_moor_b`` (nc, 6,
         6), the JAX package's ``vmap(setup)`` with the farm overrides: the
         pose constants are computed once per distinct pose (one host read
         of ``r6_b``), the sea state per lane, and every pose-dependent
-        entry carries the lane axis."""
-        r6_h = transfers.device_get(r6_b, what="lane_poses")
+        entry carries the lane axis.  ``r6_host``: the host copy of
+        ``r6_b`` when the caller has it (else one counted read)."""
+        r6_h = transfers.device_get(r6_b, what="lane_poses") \
+            if r6_host is None else np.asarray(r6_host)
         uniq, inv = np.unique(r6_h, axis=0, return_inverse=True)
         inv = inv.reshape(-1)
         parts, order = [], []
@@ -257,19 +288,11 @@ def make_case_solver(fowt: FOWTModel, nIter: int = 10, tol: float = 0.01,
             XiLast = keep * XiLast + relax_w * Xin
         return dict(Xi=Xi, std=get_rms(Xi, axis=-1))
 
-    def solve_batched(Hs, Tp, beta, Xi0=None, r6_b=None, C_moor_b=None,
-                      B_add=None, F_add=None):
-        """A batch of cases, Hs/Tp/beta (nc,).  ``Xi0`` (nc, 6, nw)
-        complex seeds the fixed point per case (a warm start moves only
-        the starting point).
-
-        Farm hooks (the JAX package's): ``r6_b`` / ``C_moor_b`` ((nc, 6)
-        / (nc, 6, 6), both or neither), each lane's reference pose and
-        mooring stiffness — the farm evaluates the mooring stiffness at
-        the base position and passes it, never implicitly at a translated
-        pose; ``B_add`` (nc, 6, 6), linear damping added to the radiation
-        damping (the aero damping at a turbine's waked wind speed);
-        ``F_add`` (nc, 6, nw) complex, added excitation."""
+    def prepare(Hs, Tp, beta, Xi0=None, r6_b=None, C_moor_b=None,
+                B_add=None, F_add=None, r6_host=None):
+        """(case state, fixed-point seed) of a batch (`solve_batched`'s
+        arguments; ``r6_host``, the host copy of ``r6_b`` when the caller
+        has it)."""
         if (r6_b is None) != (C_moor_b is None):
             raise errors.ModelConfigError(
                 "solve_batched: r6_b and C_moor_b come as a pair — the "
@@ -282,7 +305,8 @@ def make_case_solver(fowt: FOWTModel, nIter: int = 10, tol: float = 0.01,
             st = setup_lanes(Hs, as_real(Tp, dev).reshape(-1),
                              as_real(beta, dev).reshape(-1),
                              as_real(r6_b, dev).reshape(-1, 6),
-                             as_real(C_moor_b, dev).reshape(-1, 6, 6))
+                             as_real(C_moor_b, dev).reshape(-1, 6, 6),
+                             r6_host=r6_host)
         if B_add is not None:
             st = dict(st)
             st["B_BEM"] = st["B_BEM"] + as_real(B_add, dev)[..., None]
@@ -295,23 +319,51 @@ def make_case_solver(fowt: FOWTModel, nIter: int = 10, tol: float = 0.01,
             Xi0 = torch.zeros((nc, 6, nw), dtype=COMPLEX, device=dev) + XiStart
         else:
             Xi0 = torch.as_tensor(Xi0, device=dev).to(COMPLEX)
+        return st, Xi0
+
+    def solve_batched(Hs, Tp, beta, Xi0=None, r6_b=None, C_moor_b=None,
+                      B_add=None, F_add=None):
+        """A batch of cases, Hs/Tp/beta (nc,).  ``Xi0`` (nc, 6, nw)
+        complex seeds the fixed point per case (a warm start moves only
+        the starting point).
+
+        Farm hooks (the JAX package's): ``r6_b`` / ``C_moor_b`` ((nc, 6)
+        / (nc, 6, 6), both or neither), each lane's reference pose and
+        mooring stiffness — the farm evaluates the mooring stiffness at
+        the base position and passes it, never implicitly at a translated
+        pose; ``B_add`` (nc, 6, 6), linear damping added to the radiation
+        damping (the aero damping at a turbine's waked wind speed);
+        ``F_add`` (nc, 6, nw) complex, added excitation.
+
+        With ``mesh`` the lanes (nc a multiple of the mesh's batch size)
+        shard over it (`_solve_sharded`); the outputs come back on this
+        solver's device in lane order."""
+        if mesh is not None:
+            return _solve_sharded(solve, mesh, dict(
+                Hs=Hs, Tp=Tp, beta=beta, Xi0=Xi0, r6_b=r6_b,
+                C_moor_b=C_moor_b, B_add=B_add, F_add=F_add))
+        st, Xi0 = prepare(Hs, Tp, beta, Xi0, r6_b, C_moor_b, B_add, F_add)
         _, Xi, done, iters, chunks = unrolled_fixed_point(
             lambda XiLast: drag_step(st, XiLast), Xi0, nIter, tol,
             chunk=fp_chunk, relax=relax)
         out = dict(Xi=Xi, std=get_rms(Xi, axis=-1), converged=done,
                    iters=iters, fp_chunks=chunks)
         if health:
-            out.update(health_lanes(st, Xi))
+            res, Zs, bin_ok = health_parts(st, Xi)
+            # the SVD's error check reads the card: one counted read
+            conds = transfers.sync_point(torch.linalg.cond, Zs,
+                                         what="health_cond_check")
+            out.update(health_finish(res, conds, bin_ok))
         return out
 
-    def health_lanes(st, Xi):
-        """(health_residual, health_cond) of each lane at the drag
-        linearization of ``Xi``: one more drag pass and impedance solve
-        (K1, or K3 under mixed), then the residual of that solve,
-        contracted element-wise per lane (a batched product would round
-        by batch size, and a chunk of lanes must give the table's lanes),
-        and the conditioning over the frequency stack with the identity
-        in place of a non-finite bin."""
+    def health_parts(st, Xi):
+        """Each lane's relative residual at the drag linearization of
+        ``Xi`` — one more drag pass and impedance solve (K1, or K3 under
+        mixed), the residual of that solve contracted element-wise per
+        lane (a batched product would round by batch size, and a chunk of
+        lanes must give the table's lanes) — and its (nc, nw, 6, 6)
+        impedance with the identity in place of a non-finite bin, and the
+        bins' finite mask (`health_finish` takes their conditioning)."""
         B6_h, Bmat_h = fowt_hydro_linearization_pre(
             fowt, st["pose"], st["drag_pre"], Xi)
         F_h = st["F_lin"] + fowt_drag_excitation(fowt, st["pose"], Bmat_h,
@@ -328,12 +380,15 @@ def make_case_solver(fowt: FOWTModel, nIter: int = 10, tol: float = 0.01,
                                      & torch.isfinite(Zs.imag), dim=-1),
                            dim=-1)
         eye = torch.eye(Zs.shape[-1], dtype=Zs.dtype, device=Zs.device)
-        # the SVD's error check reads the card: one counted read
-        conds = transfers.sync_point(
-            torch.linalg.cond, torch.where(bin_ok[..., None, None], Zs, eye),
-            what="health_cond_check")
+        return (num / (den + 1e-300),
+                torch.where(bin_ok[..., None, None], Zs, eye), bin_ok)
+
+    def health_finish(residual, conds, bin_ok):
+        """(health_residual, health_cond) of each lane: the largest
+        condition number over its frequencies (inf where a bin is not
+        finite)."""
         inf = torch.full_like(conds, float("inf"))
-        return dict(health_residual=num / (den + 1e-300),
+        return dict(health_residual=residual,
                     health_cond=torch.amax(torch.where(bin_ok, conds, inf),
                                            dim=-1))
 
@@ -341,7 +396,85 @@ def make_case_solver(fowt: FOWTModel, nIter: int = 10, tol: float = 0.01,
     solve.setup = setup
     solve.setup_lanes = setup_lanes
     solve.drag_step = drag_step
+    solve.prepare = prepare
+    solve.health_parts = health_parts
+    solve.health_finish = health_finish
+    solve.fowt = fowt
+    solve.device = dev
+    solve.knobs = dict(nIter=nIter, tol=tol, XiStart=XiStart, r6=r6,
+                       fp_chunk=fp_chunk, relax=relax, health=health)
+    solve.peers = {partition.canonical_device(dev): solve}
     return solve
+
+
+#: the per-lane operands of a sharded case batch (the sweep's inputs,
+#: CASE_INPUT_RULES, and the farm's and warm start's lane arrays)
+_LANE_RULES = partition.CASE_INPUT_RULES + (
+    (r"^(Xi0|r6_b|C_moor_b|B_add|F_add)$", partition.Spec(partition.BATCH)),)
+
+
+def _peer(solver, device):
+    """The solver's twin on ``device`` (the model carried there once)."""
+    d = partition.canonical_device(device)
+    if d not in solver.peers:
+        solver.peers[d] = make_case_solver(on_device(solver.fowt, d),
+                                           **solver.knobs)
+    return solver.peers[d]
+
+
+def _solve_sharded(solver, mesh, lanes):
+    """`make_case_solver`'s batch over ``mesh``: the lane operands split
+    into one block per shard (`partition.shard_tree`), each block set up
+    by the solver's twin on its device, then ONE fixed point over every
+    shard (`unrolled_fixed_point` over lists: one counted pull a chunk),
+    the health mode's conditioning in one counted read over every shard,
+    and the outputs gathered on the solver's device in lane order (across
+    processes by ``all_gather``).  The farm's lane poses are pulled once
+    for the whole batch, as the unsharded setup pulls them."""
+    lanes = {k: v for k, v in lanes.items() if v is not None}
+    r6_host = None
+    if "r6_b" in lanes:
+        r6_host = transfers.device_get(
+            as_real(lanes["r6_b"], solver.device).reshape(-1, 6),
+            what="lane_poses")
+    lanes.update({k: as_real(lanes[k], solver.device).reshape(-1)
+                  for k in ("Hs", "Tp", "beta")})
+    # the farm's setup looks at the model once a pose, per shard as
+    # unsharded; a case batch's once for every shard
+    look = contextlib.nullcontext() if r6_host is not None \
+        else mcf_known(solver.fowt)
+    with partition.spmd(mesh), look:
+        parts = partition.shard_tree(lanes, mesh, _LANE_RULES)
+        peers, states, seeds = [], [], []
+        for (i, d, _), part in zip(partition.local_shards(mesh), parts):
+            peer = _peer(solver, d)
+            nl = part["Hs"].shape[0]
+            st, X0 = peer.prepare(
+                r6_host=None if r6_host is None
+                else r6_host[i * nl:(i + 1) * nl], **part)
+            peers.append(peer)
+            states.append(st)
+            seeds.append(X0)
+        kn = solver.knobs
+        _, Xi, done, iters, chunks = unrolled_fixed_point(
+            lambda zs: [p.drag_step(st, z)
+                        for p, st, z in zip(peers, states, zs)],
+            seeds, kn["nIter"], kn["tol"], chunk=kn["fp_chunk"],
+            relax=kn["relax"])
+        outs = [dict(Xi=x, std=get_rms(x, axis=-1), converged=dn, iters=it)
+                for x, dn, it in zip(Xi, done, iters)]
+        if kn["health"]:
+            hp = [p.health_parts(st, x)
+                  for p, st, x in zip(peers, states, Xi)]
+            # every shard's SVD error check in one counted read
+            conds = transfers.sync_point(
+                lambda zs: [torch.linalg.cond(z) for z in zs],
+                [z for _, z, _ in hp], what="health_cond_check")
+            for o, p, (res, _, ok), c in zip(outs, peers, hp, conds):
+                o.update(p.health_finish(res, c, ok))
+        out = partition.gather_tree(outs, mesh, solver.device)
+    out["fp_chunks"] = chunks
+    return out
 
 
 #: the pose entries the drag pass reads, given a lane axis by setup_lanes
@@ -372,8 +505,9 @@ def on_device(fowt_or_design, device) -> FOWTModel:
     is built there."""
     if not isinstance(fowt_or_design, FOWTModel):
         return design_fowt(fowt_or_design, device)
-    if fowt_or_design.device == device and isinstance(fowt_or_design.w,
-                                                      torch.Tensor):
+    if partition.canonical_device(fowt_or_design.device) == \
+            partition.canonical_device(device) and isinstance(
+                fowt_or_design.w, torch.Tensor):
         return fowt_or_design
     from raft_tpu_torch.convert import state_from_numpy
     return state_from_numpy(fowt_or_design, device)
@@ -537,7 +671,8 @@ def _solver_facts() -> dict:
 def sweep_cases(fowt_or_design, Hs, Tp, beta, nIter: int = 10,
                 tol: float = 0.01, XiStart: float = 0.1, fp_chunk: int = 2,
                 relax: float = 0.8, r6=None, Xi0=None, device=None,
-                quarantine: str = "nonfinite", health: bool = None):
+                quarantine: str = "nonfinite", health: bool = None,
+                mesh=None):
     """Solve a batch of load cases of one floating turbine.
 
     ``fowt_or_design``: a FOWTModel, a design dict, or the name of a
@@ -560,6 +695,16 @@ def sweep_cases(fowt_or_design, Hs, Tp, beta, nIter: int = 10,
     ``health_residual`` and ``health_cond`` (nc,) to the outputs (see
     `make_case_solver`) and their summary to the manifest.
 
+    ``mesh`` (``parallel/partition.py``, batch axes only; a ``freq``
+    axis raises ``PartitionRuleError``): the case axis is padded to the
+    mesh's batch size (copies of the last case), sharded over the mesh's
+    devices (the sweep runs on its first device, or on ``device``), and
+    the padding is stripped before any pull, metric, manifest or result:
+    the outputs, ``fp_chunks`` and the counted pulls are the unsharded
+    sweep's.  The manifest's ``config["mesh"]`` and
+    ``extra["partition"]`` (``npad``, the rules' fingerprint) and the
+    ``raft_tpu_mesh_devices`` gauge record the topology.
+
     Observability: spans ``sweep_cases`` > ``sweep_build`` /
     ``sweep_execute`` (/ ``sweep_quarantine_resolve``), the sweep
     metrics, the ``sweep_lanes`` probe, and a ``RunManifest`` (kind
@@ -571,15 +716,19 @@ def sweep_cases(fowt_or_design, Hs, Tp, beta, nIter: int = 10,
         raise errors.ModelConfigError(
             f"quarantine {quarantine!r} not in {_QUARANTINE_MODES}")
     health = _config.health_enabled() if health is None else bool(health)
-    dev = resolve_device(device)
+    partition.require_batch_only(mesh, "sweep_cases")
+    dev = mesh_device(mesh, device)
     fowt = on_device(fowt_or_design, dev)
     kw = dict(nIter=nIter, tol=tol, XiStart=XiStart, r6=r6,
               fp_chunk=fp_chunk, relax=relax)
     ncases = int(np.size(Hs)) if not isinstance(Hs, torch.Tensor) \
         else int(Hs.numel())
+    mesh_info = partition.mesh_facts(mesh)
+    sharded = mesh is not None
     manifest = obs.RunManifest.begin(kind="sweep_cases", config={
-        "ncases": ncases, "nw": fowt.nw, "sharded": False,
-        "mesh_devices": 0, "device": str(dev), "quarantine": quarantine,
+        "ncases": ncases, "nw": fowt.nw, "sharded": sharded,
+        "mesh_devices": 0 if mesh is None else mesh.size, "mesh": mesh_info,
+        "device": str(dev), "quarantine": quarantine,
         **({"health": True} if health else {}),
         **{k: v for k, v in kw.items() if isinstance(v, (int, float, str))}})
     obs.record_build_info(run_id=manifest.run_id)
@@ -588,16 +737,27 @@ def sweep_cases(fowt_or_design, Hs, Tp, beta, nIter: int = 10,
     status = "failed"
     ledger = None
     try:
-        with obs.span("sweep_cases", ncases=ncases, sharded=False) as sp, \
+        with obs.span("sweep_cases", ncases=ncases, sharded=sharded) as sp, \
                 transfers.phase("sweep"):
             with obs.span("sweep_build", ncases=ncases):
-                solver = make_case_solver(fowt, health=health, **kw)
+                solver = make_case_solver(fowt, health=health, mesh=mesh,
+                                          **kw)
                 Hs, Tp, beta = (as_real(x, dev).reshape(-1)
                                 for x in (Hs, Tp, beta))
                 if Xi0 is not None:
                     Xi0 = _config.to_device(Xi0, dev, COMPLEX)
+                npad = 0
+                if sharded:
+                    lanes = {"Hs": Hs, "Tp": Tp, "beta": beta,
+                             **({} if Xi0 is None else {"Xi0": Xi0})}
+                    lanes, npad = partition.pad_batch(
+                        lanes, ncases, partition.batch_size(mesh))
             with obs.span("sweep_execute", ncases=ncases):
-                out = solver.batched(Hs, Tp, beta, Xi0=Xi0)
+                out = solver.batched(**lanes) if sharded else \
+                    solver.batched(Hs, Tp, beta, Xi0=Xi0)
+            if npad:
+                # the padding is a placement detail, never a result
+                out = _unpad(out, ncases)
             if faults.any_active():
                 out = _sweep_seam(out, ncases)
             # ONE summary pull: the lane flags, the iteration counts, the
@@ -635,6 +795,7 @@ def sweep_cases(fowt_or_design, Hs, Tp, beta, nIter: int = 10,
             iters_max = int(np.max(iters, initial=0))
             sp.set(converged=n_conv, iters_max=iters_max,
                    fp_chunks=fp_chunks)
+            _mesh_gauge(sp, mesh_info)
             obs.histogram(
                 "raft_sweep_fixed_point_iterations",
                 "per-case drag fixed-point iterations in the batched sweep",
@@ -642,11 +803,11 @@ def sweep_cases(fowt_or_design, Hs, Tp, beta, nIter: int = 10,
             obs.gauge(
                 "raft_sweep_converged_cases",
                 "cases whose drag fixed point converged within nIter",
-                ).set(n_conv, sharded="false")
+                ).set(n_conv, sharded=str(sharded).lower())
             obs.gauge(
                 "raft_sweep_batch_cases",
                 "case-batch size of the most recent sweep",
-                ).set(ncases, sharded="false")
+                ).set(ncases, sharded=str(sharded).lower())
             obs.gauge(
                 "raft_sweep_fixed_point_chunks",
                 "drag fixed-point chunks actually executed by the "
@@ -665,6 +826,12 @@ def sweep_cases(fowt_or_design, Hs, Tp, beta, nIter: int = 10,
                     "sweep", pulled[2], pulled[3], lane_ok, iters)
                 sp.set(health_residual_max=health_info["residual_rel_max"],
                        health_nonfinite=health_info["nonfinite_lanes"])
+        if sharded:
+            manifest.extra["partition"] = {
+                "mesh": mesh_info, "npad": npad,
+                "rules": partition.rules_fingerprint(
+                    partition.CASE_INPUT_RULES, partition.STATE_RULES,
+                    partition.XI_SPEC)}
         if info is not None:
             manifest.extra["quarantine"] = info
         manifest.extra["solver"] = _solver_facts()
@@ -685,6 +852,35 @@ def sweep_cases(fowt_or_design, Hs, Tp, beta, nIter: int = 10,
     finally:
         obs.finish_run(manifest, status=status, write_trace=False,
                        ledger=ledger)
+
+
+def mesh_device(mesh, device=None) -> torch.device:
+    """The device a batched entry point runs on: ``device`` when given,
+    else the first device of ``mesh`` this process runs, else the card
+    (`resolve_device`)."""
+    if device is not None or mesh is None:
+        return resolve_device(device)
+    return partition.shard_devices(mesh)[0]
+
+
+def _unpad(out, n):
+    """A batch's outputs without their padded lanes (``fp_chunks`` and
+    any other scalar pass through)."""
+    return {k: v[:n] if isinstance(v, torch.Tensor) and v.ndim else v
+            for k, v in out.items()}
+
+
+def _mesh_gauge(sp, mesh_info):
+    """The mesh topology on the entry point's span and in the
+    ``raft_tpu_mesh_devices`` gauge (nothing without a mesh)."""
+    if mesh_info is None:
+        return
+    sp.set(mesh=mesh_info["topology"])
+    obs.gauge(
+        "raft_tpu_mesh_devices",
+        "devices in the active sweep mesh, labeled by the ordered axis "
+        "topology").set(mesh_info["devices"],
+                        topology=mesh_info["topology"])
 
 
 def _host_f64(x) -> np.ndarray:
@@ -728,7 +924,8 @@ def sweep_cases_chunked(fowt_or_design, Hs, Tp, beta, *, store, key: str,
         raise errors.ModelConfigError(
             "sweep_cases_chunked takes no Xi0 (a warm start per chunk "
             "would not be covered by the chunk's content guard)")
-    dev = resolve_device(kw.pop("device", None))
+    mesh = kw.get("mesh")
+    dev = mesh_device(mesh, kw.pop("device", None))
     health = kw.pop("health", None)
     health = _config.health_enabled() if health is None else bool(health)
     fowt = on_device(fowt_or_design, dev)
@@ -751,7 +948,10 @@ def sweep_cases_chunked(fowt_or_design, Hs, Tp, beta, *, store, key: str,
                       _config.precision_tol()],
         "device": dev.type,
         # only when on: health-off guards stay those of earlier stores
-        **({"health": True} if health else {})})
+        **({"health": True} if health else {}),
+        # the topology (unsharded guards stay those of earlier stores)
+        **({"mesh": str(sorted(partition.mesh_key(mesh)))}
+           if mesh is not None else {})})
     fields = ("Xi", "std", "iters", "converged")
     if health:
         fields = fields + ("health_residual", "health_cond")
@@ -828,7 +1028,7 @@ def aero_damping_table(curve, zhub):
 def make_farm_solver(fowt: FOWTModel, xy, curve=None, C_moor_t=None,
                      aero: bool = True, k_w: float = 0.05,
                      wake_max_iter: int = 100, wake_tol: float = 1e-4,
-                     wake_relax: float = 0.5, **kw):
+                     wake_relax: float = 0.5, mesh=None, **kw):
     """Batched farm solver (``raft_tpu/parallel/sweep.py:make_farm_solver``)
     on the FOWT's device: N turbines of one design (``fowt``, replicated at
     the positions ``xy`` (N, 2) [m]) x M cases.
@@ -841,7 +1041,9 @@ def make_farm_solver(fowt: FOWTModel, xy, curve=None, C_moor_t=None,
     ``aero``: add each lane's aero damping at its waked wind speed to its
     radiation damping; False solves wave-only lanes (the wake outputs
     still come).  ``kw`` goes to `make_case_solver` (``nIter``, ``tol``,
-    ``XiStart``, ``fp_chunk``, ``relax``).
+    ``XiStart``, ``fp_chunk``, ``relax``).  ``mesh``: the lanes shard
+    over it (the wake equilibrium, replicated in the JAX program, runs
+    once on the fowt's device).
 
     Returns ``solve_farm(Hs, Tp, beta, U_inf, wind_dir, Xi0=None)``: Hs,
     Tp, beta (L,) turbine-major lanes, L = N * ncases (lane t * ncases +
@@ -877,7 +1079,7 @@ def make_farm_solver(fowt: FOWTModel, xy, curve=None, C_moor_t=None,
     r6_t = np.zeros((nt, 6))
     r6_t[:, :2] = xy
 
-    case = make_case_solver(fowt, **kw)
+    case = make_case_solver(fowt, mesh=mesh, **kw)
     cs, cCt, cP = wk.curve_tensors(curve, dev)
     xy_d = as_real(xy, dev)
     D_d = as_real(D, dev)
@@ -948,9 +1150,9 @@ def _farm_reshape(out, nt, ncases):
 
 
 def sweep_farm(fowt_or_design, xy, Hs, Tp, beta, U_inf, wind_dir=None,
-               device=None, **kw):
+               device=None, mesh=None, **kw):
     """Solve an N-turbine x M-case farm batch (``raft_tpu/parallel/
-    sweep.py:sweep_farm`` on one device, no mesh): ``xy`` (N, 2) layout
+    sweep.py:sweep_farm``): ``xy`` (N, 2) layout
     [m]; Hs, Tp, beta (ncases,) sea states shared by every turbine of a
     case; U_inf (ncases,) free-stream hub wind speeds of the wake
     equilibrium, ``wind_dir`` (ncases,) [deg] (default 0).  ``kw`` goes
@@ -959,14 +1161,22 @@ def sweep_farm(fowt_or_design, xy, Hs, Tp, beta, U_inf, wind_dir=None,
     ``iters``, ``U_wake``, ``Ct_wake``, ``aero_power``, the per-case
     ``wake_iters`` and ``fp_chunks``.
 
+    ``mesh`` (batch axes only): the case axis is padded to the mesh's
+    batch size, so the N * cases lanes (``FARM_INPUT_RULES``: the sea
+    states by lane, the wake drivers replicated) shard over it; the
+    padding is stripped before any pull, metric or result, as in
+    `sweep_cases`.
+
     Observability as `sweep_cases`': spans ``sweep_farm`` >
     ``farm_build`` / ``farm_execute``, the sweep metrics and the wake
     iterations, and a ``RunManifest`` (kind ``sweep_farm``) with the
     flattened lanes' ledger; host pulls in phase ``farm`` (the lane
     poses, one a wake iteration, one a fixed-point chunk, one summary
     pull)."""
-    dev = resolve_device(device) if device is not None or not isinstance(
-        fowt_or_design, FOWTModel) else fowt_or_design.device
+    partition.require_batch_only(mesh, "sweep_farm")
+    dev = mesh_device(mesh, device) if device is not None or mesh is not None \
+        or not isinstance(fowt_or_design, FOWTModel) \
+        else fowt_or_design.device
     fowt = on_device(fowt_or_design, dev)
     xy = np.asarray(xy, float).reshape(-1, 2)
     nt = int(xy.shape[0])
@@ -985,9 +1195,12 @@ def sweep_farm(fowt_or_design, xy, Hs, Tp, beta, U_inf, wind_dir=None,
             U_inf=int(U_inf.shape[0]), wind_dir=int(wind_dir.shape[0]))
     from raft_tpu_torch.parallel import exec_cache
     ldig = exec_cache.model_digest({"layout": xy})
+    mesh_info = partition.mesh_facts(mesh)
+    sharded = mesh is not None
     manifest = obs.RunManifest.begin(kind="sweep_farm", config={
         "ncases": ncases, "n_turbines": nt, "nw": fowt.nw,
-        "layout_digest": ldig, "sharded": False, "mesh_devices": 0,
+        "layout_digest": ldig, "sharded": sharded,
+        "mesh_devices": 0 if mesh is None else mesh.size, "mesh": mesh_info,
         "device": str(dev),
         **{k: v for k, v in kw.items()
            if isinstance(v, (int, float, str))}})
@@ -998,12 +1211,27 @@ def sweep_farm(fowt_or_design, xy, Hs, Tp, beta, U_inf, wind_dir=None,
     ledger = None
     try:
         with obs.span("sweep_farm", ncases=ncases, n_turbines=nt,
-                      sharded=False) as sp, transfers.phase("farm"):
+                      sharded=sharded) as sp, transfers.phase("farm"):
             with obs.span("farm_build", ncases=ncases, n_turbines=nt):
-                solver = make_farm_solver(fowt, xy, **kw)
+                solver = make_farm_solver(fowt, xy, mesh=mesh, **kw)
+                npad = 0
+                if sharded:
+                    # pad the CASE axis: N * the padded cases then divide
+                    # the mesh's batch size for any N
+                    (Hs, Tp, beta, U_inf, wind_dir), npad = \
+                        partition.pad_batch((Hs, Tp, beta, U_inf, wind_dir),
+                                            ncases, partition.batch_size(mesh))
+                lanes = {"Hs": _farm_lane_tile(Hs, nt),
+                         "Tp": _farm_lane_tile(Tp, nt),
+                         "beta": _farm_lane_tile(beta, nt),
+                         "U_inf": U_inf, "wind_dir": wind_dir}
+                # every input's placement is deliberate (the lanes are
+                # split by the case solver, the wake drivers stay whole)
+                partition.match_partition_rules(partition.FARM_INPUT_RULES,
+                                                lanes)
             with obs.span("farm_execute", ncases=ncases):
-                out = solver(_farm_lane_tile(Hs, nt), _farm_lane_tile(Tp, nt),
-                             _farm_lane_tile(beta, nt), U_inf, wind_dir)
+                out = solver(lanes["Hs"], lanes["Tp"], lanes["beta"],
+                             lanes["U_inf"], lanes["wind_dir"])
             out = _farm_reshape(out, nt, ncases)
             # ONE summary pull for the whole farm batch, the wake facts
             # and the stds (for the ledger) in it
@@ -1024,6 +1252,7 @@ def sweep_farm(fowt_or_design, xy, Hs, Tp, beta, U_inf, wind_dir=None,
                    iters_max=int(np.max(iters, initial=0)),
                    fp_chunks=fp_chunks, wake_iters_max=wake_max,
                    nonfinite_lanes=nonfinite)
+            _mesh_gauge(sp, mesh_info)
             obs.histogram(
                 "raft_sweep_fixed_point_iterations",
                 "per-case drag fixed-point iterations in the batched sweep",
@@ -1031,11 +1260,11 @@ def sweep_farm(fowt_or_design, xy, Hs, Tp, beta, U_inf, wind_dir=None,
             obs.gauge(
                 "raft_sweep_converged_cases",
                 "cases whose drag fixed point converged within nIter",
-                ).set(n_conv, sharded="false")
+                ).set(n_conv, sharded=str(sharded).lower())
             obs.gauge(
                 "raft_sweep_batch_cases",
                 "case-batch size of the most recent sweep",
-                ).set(n_lanes, sharded="false")
+                ).set(n_lanes, sharded=str(sharded).lower())
             obs.gauge(
                 "raft_tpu_farm_wake_iterations",
                 "wake-equilibrium fixed-point iterations of the most "
@@ -1044,6 +1273,12 @@ def sweep_farm(fowt_or_design, xy, Hs, Tp, beta, U_inf, wind_dir=None,
             "n_turbines": nt, "ncases": ncases, "layout_digest": ldig,
             "aero": solver.aero, "wake": solver.wake_kw,
             "wake_iters_max": wake_max, "nonfinite_lanes": nonfinite}
+        if sharded:
+            manifest.extra["partition"] = {
+                "mesh": mesh_info, "npad": npad,
+                "rules": partition.rules_fingerprint(
+                    partition.FARM_INPUT_RULES, partition.STATE_RULES,
+                    partition.XI_SPEC)}
         manifest.extra["solver"] = _solver_facts()
         manifest.extra["fixed_point"] = {
             "chunks_run": fp_chunks,

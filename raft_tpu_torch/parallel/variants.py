@@ -23,7 +23,9 @@ from θ.  ``make_variant_solver(implicit_diff=True)`` makes the pipeline
 differentiable in θ by implicit differentiation (``parallel/optimize.py``:
 the Newton through ``newton_implicit``, ``solve.implicit`` /
 ``solve.implicit_batched`` through ``fixed_point_implicit``, whose
-adjoint passes launch K1 / K3).  Not ported here: the device mesh (A9).
+adjoint passes launch K1 / K3).  ``mesh=`` (``parallel/partition.py``,
+batch axes only) shards the variant axis: each shard's setup on its
+device, one fixed point over every shard.
 """
 from __future__ import annotations
 
@@ -35,13 +37,14 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-from raft_tpu_torch._config import COMPLEX, REAL, as_real, resolve_device
+from raft_tpu_torch._config import COMPLEX, REAL, as_real
 from raft_tpu_torch.errors import ModelConfigError
 from raft_tpu_torch.models import mooring as mr
 from raft_tpu_torch.models.fowt import (
     FOWTModel, ballast_density_trim, build_fowt, fowt_drag_excitation, fowt_drag_precompute,
     fowt_hydro_constants, fowt_hydro_excitation,
-    fowt_hydro_linearization_pre, fowt_pose, fowt_statics, member_node_cols,
+    fowt_hydro_linearization_pre, fowt_pose, fowt_statics, mcf_known,
+    member_node_cols,
 )
 from raft_tpu_torch.ops.linalg import impedance_solve
 from raft_tpu_torch.ops.spectra import get_rms, jonswap
@@ -216,7 +219,7 @@ def make_variant_solver(base: FOWTModel, Hs=6.0, Tp=12.0, beta=0.0,
                         tol: float = 0.01, XiStart: float = 0.1,
                         newton_iters: int = 20, fp_chunk: int = 2,
                         chunk_size=None, implicit_diff: bool = False,
-                        adjoint_iters=None):
+                        adjoint_iters=None, mesh=None):
     """The per-variant function θ -> outputs, on the base model's device
     (``solve.device``): ``solve(theta)`` for one variant,
     ``solve.batched(thetas)`` for a batch (leading variant axis on every
@@ -240,7 +243,22 @@ def make_variant_solver(base: FOWTModel, Hs=6.0, Tp=12.0, beta=0.0,
     reference parametersweep metrics), Xeq (6,), Xi (6,nw), std (6,).
     ``chunk_size`` bounds how many variants the vmapped setup holds at
     once (None: all).  After ``solve.batched`` the wall seconds of its
-    two phases are in ``solve.timings`` (``setup``, ``fixed_point``)."""
+    two phases are in ``solve.timings`` (``setup``, ``fixed_point``).
+
+    ``mesh`` (``parallel/partition.py``, batch axes only): ``batched``
+    takes a variant axis that is a multiple of the mesh's batch size and
+    shards it: each shard's vmapped setup runs on its device (the
+    solver's twin there), one fixed point runs every shard, and the
+    outputs come back on this device in lane order; ``implicit_sharded``
+    is the differentiable path over per-shard θ lists."""
+    from raft_tpu_torch.parallel import partition
+
+    partition.require_batch_only(mesh, "make_variant_solver")
+    knobs = dict(Hs=Hs, Tp=Tp, beta=beta, F_env=F_env, A_turb=A_turb,
+                 B_turb=B_turb, ballast=ballast, nIter=nIter, tol=tol,
+                 XiStart=XiStart, newton_iters=newton_iters,
+                 fp_chunk=fp_chunk, chunk_size=chunk_size,
+                 implicit_diff=implicit_diff, adjoint_iters=adjoint_iters)
     dev = base.device
     w = as_real(base.w, dev)
     nw = base.nw
@@ -354,9 +372,75 @@ def make_variant_solver(base: FOWTModel, Hs=6.0, Tp=12.0, beta=0.0,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    def peer(device):
+        """This solver's twin on ``device`` (the base carried there)."""
+        d = partition.canonical_device(device)
+        if d not in solve.peers:
+            solve.peers[d] = make_variant_solver(on_device(base, d), **knobs)
+        return solve.peers[d]
+
+    def solve_sharded(thetas):
+        """`solve_batched` over ``mesh`` (see `make_variant_solver`)."""
+        t0 = time.perf_counter()
+        with partition.spmd(mesh), mcf_known(base):
+            parts = partition.shard_tree(thetas, mesh,
+                                         partition.VARIANT_INPUT_RULES)
+            peers = [peer(d) for d in partition.shard_devices(mesh)]
+            sts = [torch.func.vmap(p.setup, chunk_size=chunk_size)(
+                {k: as_real(v, p.device) for k, v in part.items()})
+                for p, part in zip(peers, parts)]
+            t1 = time.perf_counter()
+            seeds = [torch.zeros((st["Xeq"].shape[0], 6, nw), dtype=COMPLEX,
+                                 device=p.device) + XiStart
+                     for p, st in zip(peers, sts)]
+            _, Xi, done, iters, chunks = unrolled_fixed_point(
+                lambda zs: [p.drag_step(st, z)
+                            for p, st, z in zip(peers, sts, zs)],
+                seeds, nIter + 1, tol, chunk=fp_chunk)
+            outs = [dict(p.finish(st, x), converged=dn, iters=it)
+                    for p, st, x, dn, it in zip(peers, sts, Xi, done, iters)]
+            out = partition.gather_tree(outs, mesh, dev)
+        out["fp_chunks"] = chunks
+        solve.timings = dict(setup=t1 - t0,
+                             fixed_point=time.perf_counter() - t1)
+        return out
+
+    def implicit_sharded(thetas_list):
+        """`implicit_batched` over ``mesh``: ``thetas_list`` holds one θ
+        batch per shard this process runs (on its device, in lane
+        order); returns one output dict per shard.  The drag fixed point
+        is ONE ``fixed_point_implicit`` over every shard (its forward and
+        adjoint chunk pulls are the unsharded batch's)."""
+        peers = [peer(d) for d in partition.shard_devices(mesh)]
+        t0 = time.perf_counter()
+        with mcf_known(base):
+            sts = [torch.func.vmap(functools.partial(p.setup, implicit=True),
+                                   chunk_size=chunk_size)(
+                pytree.tree_map(lambda v: as_real(v, p.device), th))
+                for p, th in zip(peers, thetas_list)]
+        t1 = time.perf_counter()
+        seeds = [torch.zeros((st["Xeq"].shape[0], 6, nw), dtype=COMPLEX,
+                             device=p.device) + XiStart
+                 for p, st in zip(peers, sts)]
+        record = {}
+        with partition.spmd(mesh):
+            Xi = fixed_point_implicit(
+                lambda states, zs: [p.drag_step(st, z) for p, st, z
+                                    in zip(peers, states, zs)],
+                seeds, [{k: st[k] for k in _STEP_STATE} for st in sts],
+                nIter=nIter, tol=tol, adjoint_iters=adjoint_iters,
+                chunk=fp_chunk, record=record)
+        solve.fixed_point = record
+        outs = [p.finish(st, x) for p, st, x in zip(peers, sts, Xi)]
+        solve.timings = dict(setup=t1 - t0,
+                             fixed_point=time.perf_counter() - t1)
+        return outs
+
     def solve_batched(thetas):
         """A batch of variants: the vmapped setup, then the hand-batched
         fixed point with per-variant convergence freezing."""
+        if mesh is not None:
+            return solve_sharded(thetas)
         thetas = {k: as_real(v, dev) for k, v in thetas.items()}
         t0 = time.perf_counter()
         st = torch.func.vmap(setup, chunk_size=chunk_size)(thetas)
@@ -407,6 +491,10 @@ def make_variant_solver(base: FOWTModel, Hs=6.0, Tp=12.0, beta=0.0,
         solve.implicit = implicit
         solve.implicit_batched = implicit_batched
         solve.fixed_point = {}
+        if mesh is not None:
+            solve.implicit_sharded = implicit_sharded
+    solve.mesh = mesh
+    solve.peers = {partition.canonical_device(dev): solve}
     solve.device = dev
     solve.setup = setup
     solve.drag_step = drag_step
@@ -415,18 +503,36 @@ def make_variant_solver(base: FOWTModel, Hs=6.0, Tp=12.0, beta=0.0,
     return solve
 
 
-def sweep_variants(base, thetas: dict, device=None, **kw):
+def sweep_variants(base, thetas: dict, device=None, mesh=None, **kw):
     """Solve a batch of design variants of ``base`` (a FOWTModel, a
     design dict or a vendored design name).  ``thetas``: dict of arrays
     with a leading variant axis (see :func:`variant_fowt`); ``kw`` go to
     :func:`make_variant_solver`.  Runs on the card unless
     ``device="cpu"`` (``device=None`` with no card raises).  Returns the
     per-variant outputs as tensors on the device, plus ``converged``,
-    ``iters`` and ``fp_chunks`` of the fixed point and ``timings``."""
-    dev = resolve_device(device)
+    ``iters`` and ``fp_chunks`` of the fixed point and ``timings``.
+
+    ``mesh`` (batch axes only; ``VARIANT_INPUT_RULES``): the variant axis
+    is padded to the mesh's batch size (copies of the last variant),
+    sharded over the mesh's devices (the call runs on its first device,
+    or on ``device``) and the padding stripped from every output; a
+    ``sweep_variants`` span and the ``raft_tpu_mesh_devices`` gauge
+    record the topology."""
+    from raft_tpu_torch import obs
+    from raft_tpu_torch.parallel import partition
+    from raft_tpu_torch.parallel.sweep import _mesh_gauge, _unpad, mesh_device
+
+    partition.require_batch_only(mesh, "sweep_variants")
+    dev = mesh_device(mesh, device)
     base = on_device(base, dev)
-    solver = make_variant_solver(base, **kw)
-    out = solver.batched(thetas)
+    nv = len(pytree.tree_leaves(thetas)[0])
+    with obs.span("sweep_variants", nv=nv, sharded=mesh is not None) as sp:
+        _mesh_gauge(sp, partition.mesh_facts(mesh))
+        solver = make_variant_solver(base, mesh=mesh, **kw)
+        if mesh is not None:
+            thetas, _ = partition.pad_batch(thetas, nv,
+                                            partition.batch_size(mesh))
+        out = _unpad(solver.batched(thetas), nv)
     out["timings"] = dict(solver.timings)
     return out
 

@@ -15,11 +15,13 @@ dynamics    ``Model._fowt_linearize`` after the drag fixed point
 kernel      ``ops.linalg.impedance_solve``, before any launch
 sweep       ``parallel.sweep.sweep_cases`` after the batched solve
 checkpoint  ``serve.checkpoint.CheckpointStore`` reads and writes
+optimize    ``parallel.optimize`` segmented descent, at each segment
+            boundary (``kill``: ``os._exit(137)``; ``hang``: park)
 ==========  ===========================================================
 
 The other sites of the grammar (``exec_cache``, ``serve``, ``journal``,
-``replica``, ``resultstore``, ``optimize``, ``fleet``) parse as they do
-in the JAX package; nothing in the port fires them yet.
+``replica``, ``resultstore``, ``fleet``) parse as they do in the JAX
+package; nothing in the port fires them yet.
 
 Spec grammar (comma-separated specs)::
 

@@ -551,3 +551,60 @@ def test_descent_on_the_card(card):
         + tot["adjoint_passes"] + 2 * tot["gradients"]
     dev = DC.deviations(rec, res)
     assert not DC.failures(dev, DC.CPU_BARS), dev
+
+
+@pytest.mark.cuda
+def test_k1_launches_on_its_operands_device(card):
+    """K1 with its operands on cuda:1 while cuda:0 is the current device:
+    the wrapper makes the operands' device current for the launch, so the
+    kernel runs there and agrees with the plain version."""
+    import torch
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards (K1 on cuda:1 with cuda:0 "
+                    "current)")
+    rng = np.random.default_rng(23)
+    d1 = torch.device("cuda", 1)
+    nb, n, nw = 3, 6, 80
+    w = torch.tensor(np.linspace(0.03, 2.5, nw), device=d1)
+    M = torch.tensor(rng.standard_normal((nb, n, n, nw))
+                     + 5.0 * np.eye(n)[None, :, :, None], device=d1)
+    B = torch.tensor(0.1 * rng.standard_normal((nb, n, n, nw)), device=d1)
+    C = torch.tensor(_systems(rng, "random", nb, n) * 10.0, device=d1)
+    F = torch.tensor(rng.standard_normal((nb, n, nw))
+                     + 1j * rng.standard_normal((nb, n, nw)), device=d1)
+    G.reset_launches()
+    with torch.cuda.device(0):
+        X = G.impedance_gj_solve(w, M, B, C, F)
+        torch.cuda.synchronize(d1)
+    assert G.LAUNCHES["impedance_gj"] == 1 and X.device == d1
+    assert _rel(X, G.impedance_gj_solve_plain(w, M, B, C, F)) < 1e-10
+
+
+@pytest.mark.cuda
+def test_sharded_sweep_on_the_card(card):
+    """sweep_cases on a mesh of two shards on the card (two cards when
+    there are, else cuda:0 twice) against the unsharded call: floats
+    within partition_cases.ATOL, counts and counted pulls exact, K1
+    launched once a shard a pass."""
+    import torch
+
+    from raft_tpu_torch.models import descent_cases as DC
+    from raft_tpu_torch.models import partition_cases as PC
+    from raft_tpu_torch.parallel import partition
+    from raft_tpu_torch.parallel.sweep import sweep_cases
+
+    devs = [torch.device("cuda", i % torch.cuda.device_count())
+            for i in range(2)]
+    fowt = PC.cylinder(devs[0])
+    G.reset_launches()
+    p0 = DC.pulls_by_what()
+    ref = sweep_cases(fowt, *PC.cases(8), device=devs[0], **PC.SWEEP_KW)
+    p1 = DC.pulls_by_what()
+    k_ref = G.LAUNCHES["impedance_gj"]
+    out = sweep_cases(fowt, *PC.cases(8), **PC.SWEEP_KW,
+                      mesh=partition.make_mesh((2,), ("cases",), devs))
+    p2 = DC.pulls_by_what()
+    assert PC.failures(PC.parity(out, ref, PC.SWEEP_KEYS)) == []
+    assert DC.pulls_between(p1, p2) == DC.pulls_between(p0, p1)
+    assert G.LAUNCHES["impedance_gj"] - k_ref == 2 * k_ref

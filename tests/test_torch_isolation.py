@@ -86,6 +86,40 @@ def test_probe_covers_the_descent_modules(probed_modules):
         assert name in probed_modules, name
 
 
+def test_probe_covers_the_partition_modules(probed_modules):
+    """The partition layer and its shared cases are among the probed
+    modules."""
+    for name in ("raft_tpu_torch.parallel.partition",
+                 "raft_tpu_torch.models.partition_cases"):
+        assert name in probed_modules, name
+
+
+_GROUP_PROBE = r"""
+import importlib, pkgutil, sys
+sys.path.insert(0, {root!r})
+import raft_tpu_torch
+for m in pkgutil.walk_packages(raft_tpu_torch.__path__, "raft_tpu_torch."):
+    importlib.import_module(m.name)
+import torch.distributed as dist
+print(dist.is_available() and dist.is_initialized())
+"""
+
+
+def test_import_opens_no_process_group():
+    """Importing every module of the port opens no ``torch.distributed``
+    process group, even with the multi-process knobs set: only
+    ``partition.ensure_distributed`` does."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(RAFT_TPU_DIST="1", RAFT_TPU_COORDINATOR="localhost:1",
+               RAFT_TPU_NUM_PROCESSES="2", RAFT_TPU_PROCESS_ID="0")
+    out = subprocess.run([sys.executable, "-c",
+                          _GROUP_PROBE.format(root=ROOT)],
+                         capture_output=True, text=True, env=env, cwd=ROOT,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "False"
+
+
 def _sources():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "raft_tpu_torch")):

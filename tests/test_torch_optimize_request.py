@@ -1,10 +1,12 @@
 """``optimize_designs``' edges and ``normalize_request`` in the port,
 against the JAX package.
 
-- ``mesh=`` and the checkpoint arguments (``checkpoint_every``,
-  ``ckpt_store``, ``ckpt_key``, ``on_checkpoint``, ``ckpt_resume_only``)
-  are refused with a typed ``ModelConfigError`` naming ROADMAP A9 (not
-  ported yet), and so is an unknown method;
+- a mesh with a ``freq`` axis is refused with a typed
+  ``PartitionRuleError`` naming ROADMAP A9 (not ported yet) by
+  ``optimize_designs``, ``sweep_cases``, ``sweep_variants``,
+  ``sweep_farm`` and ``Model`` under ``RAFT_TPU_MESH``, and a mesh wider
+  than its devices by ``make_mesh``; an unknown method is a
+  ``ModelConfigError``;
 - every lane NaN (``cylinder.json``'s ``adam_all_nan``):
   ``NonFiniteResult`` with ``phase == "adjoint"``, its message and
   context the JAX package's;
@@ -29,9 +31,12 @@ import pytest
 from raft_tpu import errors as jerrors
 from raft_tpu.parallel import optimize as jopt
 
+import torch
+
 from raft_tpu_torch import errors, obs
 from raft_tpu_torch.models import descent_cases as DC
 from raft_tpu_torch.parallel import optimize as opt
+from raft_tpu_torch.parallel import partition, sweep, variants
 
 GOLD = DC.load("cylinder")["adam"]
 #: a cheap call of the golden's design and objective
@@ -45,13 +50,59 @@ def cyl():
     return DC.build(GOLD, "cpu")
 
 
-@pytest.mark.parametrize("arg, value", [
-    ("mesh", object()), ("checkpoint_every", 1), ("ckpt_store", object()),
-    ("ckpt_key", "k"), ("on_checkpoint", print), ("ckpt_resume_only", True)])
-def test_unported_arguments_are_refused(cyl, arg, value):
-    with pytest.raises(errors.ModelConfigError) as ei:
-        opt.optimize_designs(*cyl, **DC.call_kwargs(SMALL), **{arg: value})
-    assert "ROADMAP A9" in str(ei.value) and arg in str(ei.value)
+def _freq_mesh():
+    cpu = torch.device("cpu")
+    return partition.make_mesh((2, 2), ("cases", "freq"), [cpu] * 4)
+
+
+def _refuse_optimize(cyl):
+    opt.optimize_designs(*cyl, **DC.call_kwargs(SMALL), mesh=_freq_mesh())
+
+
+def _refuse_sweep(cyl):
+    sweep.sweep_cases(cyl[0], [4.0, 5.0], [8.0, 9.0], [0.0, 0.0],
+                      mesh=_freq_mesh())
+
+
+def _refuse_variants(cyl):
+    variants.sweep_variants(cyl[0], {"d_scale": np.ones((2, 1, 2))},
+                            mesh=_freq_mesh())
+
+
+def _refuse_farm(cyl):
+    sweep.sweep_farm(cyl[0], [[0.0, 0.0]], [4.0], [8.0], [0.0], [10.0],
+                     mesh=_freq_mesh())
+
+
+def _refuse_model(cyl):
+    import os
+    from raft_tpu_torch.io.designs import load_design
+    from raft_tpu_torch.model import Model
+    os.environ["RAFT_TPU_MESH"] = "cases=2,freq=2"
+    try:
+        Model(load_design("Vertical_cylinder"), device="cpu")
+    finally:
+        del os.environ["RAFT_TPU_MESH"]
+
+
+def _refuse_wide_mesh(cyl):
+    partition.make_mesh((4,), ("cases",), [torch.device("cpu")] * 2)
+
+
+@pytest.mark.parametrize("arg, call", [
+    ("optimize_designs", _refuse_optimize), ("sweep_cases", _refuse_sweep),
+    ("sweep_variants", _refuse_variants), ("sweep_farm", _refuse_farm),
+    ("Model", _refuse_model), ("wants 4 devices", _refuse_wide_mesh)])
+def test_unported_arguments_are_refused(cyl, arg, call):
+    """What the port still refuses with a typed error: a mesh with a
+    ``freq`` axis at every batched entry point and at ``Model``
+    construction under ``RAFT_TPU_MESH`` (ROADMAP A9's next item), and a
+    mesh wider than its devices (as ``make_mesh`` does in JAX)."""
+    with pytest.raises(errors.PartitionRuleError) as ei:
+        call(cyl)
+    assert arg in str(ei.value)
+    if arg != "wants 4 devices":
+        assert "ROADMAP A9" in str(ei.value) and "freq" in str(ei.value)
 
 
 def test_every_lane_nan_is_a_typed_adjoint_failure(cyl):
