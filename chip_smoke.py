@@ -264,16 +264,43 @@ Phases (any failure exits non-zero; no phase's failure is turned into a
               converged, fp_chunks exact; the descent against d1's
               golden step 0 at 1e-8) with the counted pulls the
               unsharded call's, the K1 / K3 launches per shard printed;
-19. prints the kernels JSON line, the card line, and the final JSON line.
-Phases 7-13 and 16-18 run in four worker processes on the same card
-(mhk; farm, mcf and partition; golden, golden_mixed, qtf, potflow,
-ballast and codesign; descent: ``--worker NAMES``, WORKER_GROUPS), started after
-phase 3 and running
+19. serve   — the serving path (raft_tpu_torch/serve,
+              models/serve_cases.py, golden of tests/golden/serve_golden.py)
+              on VolturnUS-S at its 80 bins, each service's runner built
+              before its counted path: (s1) Model.make_service(batch_cases
+              8) with a journal and a result store, 24 seeded requests
+              submitted before start() (3 batches of 8), served under
+              obs.transfers.guard("disallow"): each std bitwise the
+              batched solver's on the same 8 lanes and its digest
+              digest_metrics of those, against the JAX golden at 1e-9
+              (iters, converged, seq exact); K1 launches (2 a fixed-point
+              chunk) and counted pulls (1 serve_batch and 5 fixed-point
+              checks) a batch; (s2) 8 resubmissions answered from the
+              store, 0 launches, equal digests; (s3) a new service on the
+              journal recovers the 24 with 0 launches; (s4) a warm-start
+              service (s1's first batch cold, 8 near requests seeded, 8
+              seeded and audited) against the golden's rows and warm
+              facts (audit mismatches 0), iterations warm against cold;
+              (s5) the HTTP front door on 127.0.0.1:0: two /submit (one an
+              s1 request: s1's digest), /result, /stats, /healthz,
+              /metrics; (s6) a batch_cases 64 service on 64 requests, in
+              f64 (K1) and under RAFT_TPU_PRECISION=mixed (K3), bitwise
+              the batched solver; (s7) one /farm request, (f3)'s layout x
+              8 cases, on the runner a first request with other cases
+              built: bitwise sweep_farm, K1 launches 2 a fixed-point
+              chunk; (s8) one submit_optimize with
+              d1's space and objective, 2 lanes, steps 1, bitwise
+              optimize_designs called directly (both guarded);
+20. prints the kernels JSON line, the card line, and the final JSON line.
+Phases 7-13 and 16-19 run in four worker processes on the same card
+(mhk and serve; farm, mcf and partition; golden, golden_mixed, qtf,
+potflow, ballast and codesign; descent: ``--worker NAMES``,
+WORKER_GROUPS), started after phase 3 and running
 beside phases 4-6, 14 and 15 of this process; it then joins them, replays
 their output and merges their launches, rows, walls and failures.  The
-walls and the timed rows of phases 4-17 are taken with the card and the
+walls and the timed rows of phases 4-19 are taken with the card and the
 host shared.
-Each path of phases 4-17 runs with the launch counters set to 0 just
+Each path of phases 4-19 runs with the launch counters set to 0 just
 before it and read just after; every kernel of a path must launch in it.
 Every Model run of phases 4-13 must end with no recovery attempt and no
 quarantined case, and every sweep_cases with no quarantined lane;
@@ -285,7 +312,7 @@ Options: --only-kernels stops after phase 3 (the short call after a
 kernel edit); --out DIR sets where the full
 record (ptxas.log, chip_smoke.json, each worker's output and record) is
 written (default build/chip_smoke); --worker NAMES runs only those phases
-of 7-13, 16 and 17 (comma-separated) and writes their record, as the
+of 7-13 and 16-19 (comma-separated) and writes their record, as the
 workers do.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -3882,6 +3909,377 @@ def run_partition(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the serving path
+# ---------------------------------------------------------------------------
+
+SERVE_WAIT = 900.0    # a ticket's wait (s); every wait has one
+
+
+def _serve_dir(name):
+    d = os.path.join(OUT, "serve", name)
+    shutil.rmtree(d, ignore_errors=True)
+    return d
+
+
+def _served_rows(results, label):
+    """The held rows of served results; fail on a failed request."""
+    from raft_tpu_torch.models import serve_cases as SC
+
+    bad = [r.error for r in results if not r.ok]
+    if bad:
+        fail(f"{label}: {len(bad)} request(s) failed: {bad[:3]}")
+    return [SC.row(r) for r in results if r.ok]
+
+
+def _bitwise_batches(label, results, solver, Hs, Tp, beta, batch):
+    """Each served std against ``solver.batched`` on its batch's lanes,
+    bit for bit, and its digest against digest_metrics of those; returns
+    the reference batches' fp_chunks."""
+    from raft_tpu_torch.ledger import digest_metrics
+
+    chunks, off = [], 0
+    for b in range(0, len(results), batch):
+        sl = slice(b, b + batch)
+        ref = solver.batched(Hs[sl], Tp[sl], beta[sl])
+        std, it, cv = (ref[k].cpu().numpy()
+                       for k in ("std", "iters", "converged"))
+        chunks.append(int(ref["fp_chunks"]))
+        for i, r in enumerate(results[sl]):
+            want = digest_metrics({"std": std[i], "iters": int(it[i]),
+                                   "converged": bool(cv[i])})
+            if not (np.array_equal(np.asarray(r.std), std[i])
+                    and r.iters == int(it[i]) and r.digest == want):
+                off += 1
+    log(f"  {label}: {len(results)} results bitwise the batched solver "
+        f"(std, iters, digest): {len(results) - off}/{len(results)}")
+    if off:
+        fail(f"{label}: {off} result(s) differ from the batched solver")
+    return chunks
+
+
+def run_serve(dev):
+    """Phase 19 (see the module docstring): (s1)-(s8) on VolturnUS-S at
+    its 80 bins."""
+    import threading
+    import urllib.request
+
+    from raft_tpu_torch import _config
+    from raft_tpu_torch.io.designs import load_design
+    from raft_tpu_torch.model import Model
+    from raft_tpu_torch.models import descent_cases as DC
+    from raft_tpu_torch.models import farm_cases as FC
+    from raft_tpu_torch.models import serve_cases as SC
+    from raft_tpu_torch.obs import transfers
+    from raft_tpu_torch.ops.kernels import gj_solve as G
+    from raft_tpu_torch.parallel import optimize as opt
+    from raft_tpu_torch.parallel.sweep import make_case_solver, sweep_farm
+    from raft_tpu_torch.serve import ServeConfig, SweepService
+    from raft_tpu_torch.serve.http import make_serve_server
+
+    K1, K3 = "impedance_gj", "impedance_gj_mixed"
+    card = card_line()
+    gold = SC.load()
+    out = {"card": card}
+    design = load_design(SC.DESIGN)
+    t0 = time.perf_counter()
+    model = Model(design, device=dev)
+    if not np.array_equal(model.w, np.asarray(gold["w"])):
+        fail("serve: the model's grid is not the golden's")
+    svc = model.make_service(batch_cases=SC.BATCH,
+                             journal_dir=_serve_dir("wal"),
+                             store_dir=_serve_dir("store"))
+    fowt = svc.fowt
+    solver = make_case_solver(fowt)
+    runner = svc._ensure_runner("full")
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    out["runner_build_s"] = runner.build_s
+    log(f"  serve: Model, coarse rung and runner built in "
+        f"{out['build_s']:.2f} s (runner {runner.build_s:.2f} s, warm-up "
+        f"batch included); ladder {'->'.join(svc.ladder)}; {card}")
+
+    # (s1) 24 requests before start(): 3 batches of 8
+    Hs, Tp, beta = SC.s1_requests()
+    tickets = [svc.submit(float(h), float(t), float(b))
+               for h, t, b in zip(Hs, Tp, beta)]
+    p0 = DC.pulls_by_what()
+    with counted("serve_s1", (K1,)):
+        with transfers.guard("disallow"):
+            t1 = time.perf_counter()
+            svc.start()
+            s1 = [t.result(SERVE_WAIT) for t in tickets]
+            wall = time.perf_counter() - t1
+        k1 = G.LAUNCHES[K1]
+    pulls = DC.pulls_between(p0, DC.pulls_by_what())
+    rows = _served_rows(s1, "s1")
+    chunks = _bitwise_batches("s1", s1, solver, Hs, Tp, beta, SC.BATCH)
+    worst, differ = SC.deviation(rows, gold["s1"])
+    summ = svc.summary()
+    out["s1"] = dict(
+        wall_s=wall, batch_wall_s=wall / SC.NBATCH, k1=k1, pulls=pulls,
+        fp_chunks=chunks, golden_rel=worst, golden_differ=differ,
+        batches=summ["batches"], phase_solve_p50_s=summ.get(
+            "phase_solve_p50_s"), ema_batch_s=summ["ema_batch_s"],
+        iters=[r["iters"] for r in rows])
+    log(f"  s1: {len(s1)} requests, {summ['batches']} batches of "
+        f"{SC.BATCH} in {wall:.3f} s ({wall / SC.NBATCH:.3f} s a batch, "
+        f"solve phase p50 {summ.get('phase_solve_p50_s')}); K1 launches "
+        f"{k1} ({k1 / SC.NBATCH:.1f} a batch), pulls {pulls} "
+        f"({pulls.get('serve_batch', 0) / SC.NBATCH:.1f} serve_batch a "
+        f"batch); vs the JAX golden worst std rel {worst:.2e} (bar "
+        f"{SC.GOLDEN_RTOL:g}), iters/converged/seq differ at {differ}; "
+        f"{card}")
+    _expect("s1 batches", summ["batches"], SC.NBATCH)
+    _expect("s1 K1 launches (2 a fixed-point chunk)", k1, 2 * sum(chunks))
+    _expect("s1 counted pulls", pulls,
+            {"serve_batch": SC.NBATCH, "sweep_fp_chunk": 5 * SC.NBATCH})
+    if worst > SC.GOLDEN_RTOL or differ:
+        fail(f"s1 off the JAX golden: worst std rel {worst:.2e}, "
+             f"differ {differ}")
+
+    # (s2) resubmissions: the store answers, nothing launches
+    lat = []
+    with counted("serve_s2", ()):
+        s2 = []
+        for i in range(0, 24, 3):
+            t2 = time.perf_counter()
+            s2.append(svc.submit(float(Hs[i]), float(Tp[i]),
+                                 float(beta[i])).result(SERVE_WAIT))
+            lat.append(1e3 * (time.perf_counter() - t2))
+        k1 = sum(G.LAUNCHES.values())
+    same = [r.digest == s1[i].digest and r.source == "cached"
+            for r, i in zip(s2, range(0, 24, 3))]
+    out["s2"] = dict(latency_ms=lat, launches=k1, equal=sum(same))
+    log(f"  s2: 8 resubmissions from the store, {sum(same)}/8 with s1's "
+        f"digest, launches {k1}; latency ms min {min(lat):.3f} median "
+        f"{float(np.median(lat)):.3f} max {max(lat):.3f}; {card}")
+    _expect("s2 launches", k1, 0)
+    _expect("s2 results equal to s1's, from the store", sum(same), 8)
+
+    # (s3) a new service on the same journal: recovered, no solve
+    with counted("serve_s3", ()):
+        svc3 = SweepService(fowt, ServeConfig(
+            batch_cases=SC.BATCH, journal_dir=svc.cfg.journal_dir),
+            device=dev)
+        info = svc3.recover()
+        got = [svc3.fetch(r.digest) for r in s1]
+        svc3.stop(timeout=SERVE_WAIT)
+        k1 = sum(G.LAUNCHES.values())
+    ok3 = sum(g is not None and g.std == r.std and g.source == "recovered"
+              for g, r in zip(got, s1))
+    out["s3"] = dict(recovered=info["recovered"], replayed=info["replayed"],
+                     equal=ok3, launches=k1)
+    log(f"  s3: recovered {info['recovered']}, replayed "
+        f"{info['replayed']}, {ok3}/24 equal to s1's; launches {k1}")
+    _expect("s3 recovered results", info["recovered"], 24)
+    _expect("s3 equal to s1", ok3, 24)
+    _expect("s3 launches", k1, 0)
+
+    # (s4) warm starts over a fresh store
+    svc4 = SweepService(fowt, ServeConfig(store_dir=_serve_dir("warm"),
+                                          **SC.WARM_CONFIG), device=dev)
+    svc4._ensure_runner("full")
+    wH, wT, wb = SC.warm_requests()
+    tickets = [svc4.submit(float(h), float(t), float(b))
+               for h, t, b in zip(wH, wT, wb)]
+    with counted("serve_s4", (K1,)):
+        with transfers.guard("disallow"):
+            t4 = time.perf_counter()
+            svc4.start()
+            s4 = [t.result(SERVE_WAIT) for t in tickets]
+            wall = time.perf_counter() - t4
+        k1 = G.LAUNCHES[K1]
+    summ4 = svc4.stop(timeout=SERVE_WAIT)
+    rows4 = _served_rows(s4, "s4")
+    worst4, differ4 = SC.deviation(rows4, gold["warm"])
+    facts = {k: summ4[k] for k in SC.WARM_FACTS}
+    cold = solver.batched(wH[8:16], wT[8:16], wb[8:16])["iters"]
+    warm_it = [r["iters"] for r in rows4[8:16]]
+    out["s4"] = dict(wall_s=wall, k1=k1, facts=facts, golden_rel=worst4,
+                     golden_differ=differ4, warm_iters=warm_it,
+                     cold_iters=cold.cpu().tolist(),
+                     iter_savings=summ4["warm_start_iter_savings"])
+    log(f"  s4: {len(s4)} requests (batch 0 cold, 1 seeded, 2 seeded and "
+        f"audited) in {wall:.3f} s, K1 {k1}; facts {facts} (golden "
+        f"{gold['warm_facts']}); batch 1 iterations warm {warm_it} vs "
+        f"cold {cold.cpu().tolist()}, savings "
+        f"{summ4['warm_start_iter_savings']}; vs the JAX golden worst std "
+        f"rel {worst4:.2e} (bar {SC.GOLDEN_RTOL:g}), differ at {differ4}")
+    _expect("s4 warm facts", facts, gold["warm_facts"])
+    _expect("s4 audit mismatches", facts["warm_start_digest_mismatch"], 0)
+    if worst4 > SC.GOLDEN_RTOL or differ4:
+        fail(f"s4 off the JAX golden: {worst4:.2e}, differ {differ4}")
+
+    # (s5) the HTTP front door on the s1 service
+    srv = make_serve_server(svc, "127.0.0.1", 0)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    base = "http://%s:%d" % srv.server_address[:2]
+
+    def call(path, doc=None):
+        data = None if doc is None else json.dumps(doc).encode()
+        req = urllib.request.Request(base + path, data=data,
+                                     method="GET" if doc is None else "POST")
+        with urllib.request.urlopen(req, timeout=SERVE_WAIT) as r:
+            return r.status, r.read()
+
+    try:
+        with counted("serve_s5", (K1,)):
+            code_a, body = call("/submit", {"hs": float(Hs[4]),
+                                            "tp": float(Tp[4]),
+                                            "heading_rad": float(beta[4])})
+            rid = json.loads(body)["request_id"]
+            code_b, body = call("/submit", {"hs": 3.3, "tp": 11.1,
+                                            "heading_deg": 20.0,
+                                            "wait": True})
+            new = json.loads(body)
+            k1 = G.LAUNCHES[K1]
+        code_r, body = call(f"/result?id={rid}")
+        rep = json.loads(body)
+        code_s, body = call("/stats")
+        stats = json.loads(body)
+        code_h, _ = call("/healthz")
+        code_m, body = call("/metrics")
+        metrics = body.decode()
+        out["s5"] = dict(codes=[code_a, code_b, code_r, code_s, code_h,
+                                code_m], repeat_digest_equal=(
+                                    rep.get("digest") == s1[4].digest),
+                         new_ok=bool(new.get("ok")), k1=k1,
+                         completed=stats.get("completed"))
+        log(f"  s5: HTTP {base}: codes {out['s5']['codes']}; the repeated "
+            f"s1 request's digest equal {out['s5']['repeat_digest_equal']}"
+            f" (source {rep.get('source')}); the new one ok "
+            f"{out['s5']['new_ok']} (K1 {k1}); /stats completed "
+            f"{stats.get('completed')}; /metrics "
+            f"{len(metrics.splitlines())} lines")
+        if out["s5"]["codes"] != [202, 200, 200, 200, 200, 200] or not (
+                out["s5"]["repeat_digest_equal"] and out["s5"]["new_ok"]
+                and "raft_tpu_serve_requests_total" in metrics):
+            fail(f"s5: the front door answered {out['s5']}")
+
+        # (s7) one /farm request: (f3)'s layout x 8 cases.  A first
+        # request on the same layout, case count and k_w (other cases,
+        # so that it is not deduped) builds the farm runner and its
+        # warm-up batch outside the counted request.
+        def farm_spec(c):
+            return {"layout": FC.F3_LAYOUT.tolist(), "wait": True,
+                    **{k: c[k].tolist() for k in ("Hs", "Tp", "beta",
+                                                  "U_inf", "wind_dir")}}
+
+        t7 = time.perf_counter()
+        code_w, body = call("/farm", farm_spec(FC.f3_cases(8, seed=1)))
+        first_wall = time.perf_counter() - t7
+        if code_w != 200 or not json.loads(body).get("ok"):
+            fail(f"s7: the runner-building /farm request failed ({code_w})")
+        c = FC.f3_cases(8)
+        with counted("serve_s7", (K1,)):
+            t7 = time.perf_counter()
+            code_f, body = call("/farm", farm_spec(c))
+            wall = time.perf_counter() - t7
+            k1 = G.LAUNCHES[K1]
+        farm = json.loads(body)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    ref = sweep_farm(fowt, FC.F3_LAYOUT, c["Hs"], c["Tp"], c["beta"],
+                     c["U_inf"], c["wind_dir"], device=dev, k_w=0.05)
+    ex = farm.get("extra") or {}
+    eq = (code_f == 200 and farm.get("ok") and farm.get("source") == "solved"
+          and np.array_equal(np.asarray(ex.get("std")),
+                             ref["std"].cpu().numpy())
+          and np.array_equal(np.asarray(ex.get("U_wake")),
+                             ref["U_wake"].cpu().numpy()))
+    out["s7"] = dict(wall_s=wall, first_wall_s=first_wall, k1=k1,
+                     fp_chunks=int(ref["fp_chunks"]), bitwise=bool(eq),
+                     turbines=len(FC.F3_LAYOUT), cases=8,
+                     build_s=(ex.get("provenance") or {}).get("build_s"))
+    log(f"  s7: /farm {len(FC.F3_LAYOUT)} turbines x 8 cases in "
+        f"{wall:.3f} s on the warm runner (the first request, which built "
+        f"it in {out['s7']['build_s']} s: {first_wall:.2f} s), K1 {k1}; "
+        f"bitwise sweep_farm (std, U_wake): {bool(eq)}; {card}")
+    if not eq:
+        fail(f"s7: the farm answer differs from sweep_farm ({code_f})")
+    _expect("s7 K1 launches (2 a fixed-point chunk)", k1,
+            2 * int(ref["fp_chunks"]))
+
+    # (s8) one optimize request: d1's space and objective, 2 lanes, 1 step
+    rec = DC.load("volturn80")["adam"]
+    sp = rec["space"]
+    spec = {"bounds": {n: [lo, hi] for n, lo, hi in
+                       zip(sp["names"], sp["lower"], sp["upper"])},
+            "objective": rec["objective"], "nlanes": 2, "steps": 1,
+            "method": rec["method"], "lr": rec["lr"], "gtol": rec["gtol"],
+            "seed": 0, "nIter": rec["solver"]["nIter"],
+            "tol": rec["solver"]["tol"]}
+    with counted("serve_s8", (K1,)):
+        with transfers.guard("disallow"):
+            t8 = time.perf_counter()
+            res = svc.submit_optimize(dict(spec)).result(SERVE_WAIT)
+            wall = time.perf_counter() - t8
+        k1 = G.LAUNCHES[K1]
+    norm = opt.normalize_request(spec)
+    with transfers.guard("disallow"):
+        direct = opt.optimize_designs(
+            fowt, opt.DesignSpace(fowt, {k: tuple(v) for k, v in
+                                         norm["bounds"].items()}),
+            objective=norm["objective"], nlanes=norm["nlanes"],
+            steps=norm["steps"], method=norm["method"], lr=norm["lr"],
+            gtol=norm["gtol"], seed=norm["seed"], nIter=norm["nIter"],
+            tol=norm["tol"])
+    ex = res.extra or {}
+    eq = (res.ok and ex.get("design") == direct["design"]
+          and ex.get("f_best") == direct["f_best"]
+          and (ex.get("provenance") or {}).get("objective_trace") == [
+              float(v) for v in direct["obj_trace"][:, direct["lane_best"]]])
+    out["s8"] = dict(wall_s=wall, k1=k1, bitwise=bool(eq),
+                     f_best=ex.get("f_best"), design=ex.get("design"))
+    log(f"  s8: submit_optimize (2 lanes, 1 Adam step) in {wall:.2f} s, "
+        f"K1 {k1}; bitwise optimize_designs (design, f_best, trace): "
+        f"{bool(eq)}; {card}")
+    if not eq:
+        fail(f"s8: the optimize answer differs from optimize_designs: "
+             f"{ex.get('design')} vs {direct['design']}")
+    summ = svc.stop(timeout=SERVE_WAIT)
+    out["summary"] = {k: summ[k] for k in (
+        "admitted", "completed", "failed", "batches", "store_hits",
+        "unhandled", "retries", "p50_latency_s", "p99_latency_s")}
+    if summ["failed"] or summ["unhandled"]:
+        fail(f"serve: failed {summ['failed']}, unhandled "
+             f"{summ['unhandled']}")
+
+    # (s6) batch 64 (5,120 K1 lanes a batch), f64 then mixed (K3)
+    H6, T6, b6 = SC.s1_requests(64, seed=SC.SEED + 1)
+    for mode, key in (("f64", K1), ("mixed", K3)):
+        _config.set_precision_mode(None if mode == "f64" else "mixed")
+        try:
+            svc6 = SweepService(fowt, ServeConfig(batch_cases=64),
+                                device=dev)
+            svc6._ensure_runner("full")
+            tickets = [svc6.submit(float(h), float(t), float(b))
+                       for h, t, b in zip(H6, T6, b6)]
+            with counted(f"serve_s6_{mode}", (key,)):
+                with transfers.guard("disallow"):
+                    t6 = time.perf_counter()
+                    svc6.start()
+                    s6 = [t.result(SERVE_WAIT) for t in tickets]
+                    wall = time.perf_counter() - t6
+                k = G.LAUNCHES[key]
+            svc6.stop(timeout=SERVE_WAIT)
+            _served_rows(s6, f"s6 {mode}")
+            chunks = _bitwise_batches(f"s6 {mode}", s6,
+                                      make_case_solver(fowt), H6, T6, b6,
+                                      64)
+        finally:
+            _config.set_precision_mode(None)
+        out[f"s6_{mode}"] = dict(wall_s=wall, launches=k, fp_chunks=chunks,
+                                 lanes=64 * fowt.nw)
+        log(f"  s6 {mode}: 64 requests, one batch of {64 * fowt.nw} "
+            f"lanes, in {wall:.3f} s; {key} launches {k}; {card}")
+        _expect(f"s6 {mode} {key} launches", k, 2 * sum(chunks))
+    return out
+
+
 # kernel line: (JSON name, launch key, TPU kernel it replaces, CUDA source,
 # the main-path shape its times are taken at)
 KERNELS = (
@@ -3900,7 +4298,7 @@ KERNELS = (
      "raft_tpu_torch/csrc/qtf_k5_f64.cu", 900),
 )
 
-#: the drivers of phases 4-13 and 16-18, by name
+#: the drivers of phases 4-13 and 16-19, by name
 PHASE_RUNS = {
     "main": run_main, "sweep": run_sweeps, "variants": run_variants,
     "golden": lambda dev: run_goldens(dev, "f64"),
@@ -3908,14 +4306,14 @@ PHASE_RUNS = {
     "qtf": run_qtf, "potflow": run_potflow, "mhk": run_mhk,
     "farm": run_farm, "mcf": run_mcf, "ballast": run_ballast,
     "codesign": run_codesign, "descent": run_descent,
-    "partition": run_partition}
-#: phases 4-6 (then 14 and 15) run in this process; phases 7-13, 16 and
-#: 17 run in these groups, one worker process each (``--worker``), on the
+    "partition": run_partition, "serve": run_serve}
+#: phases 4-6 (then 14 and 15) run in this process; phases 7-13 and
+#: 16-19 run in these groups, one worker process each (``--worker``), on the
 #: same card at the same time, started after phase 3 and joined after
 #: phase 15.  Each phase is host-bound (the card is idle most of a Model
 #: run), so the groups overlap instead of queueing.
 PARENT_PHASES = ("main", "sweep", "variants")
-WORKER_GROUPS = (("mhk",), ("farm", "mcf", "partition"),
+WORKER_GROUPS = (("mhk", "serve"), ("farm", "mcf", "partition"),
                  ("golden", "golden_mixed", "qtf", "potflow", "ballast",
                   "codesign"), ("descent",))
 WORKER_TIMEOUT_S = 900   # from their start; the script's own limit is 1200
@@ -3935,7 +4333,7 @@ def _worker_tag(names) -> str:
 
 
 def run_worker(names, dev) -> int:
-    """``--worker NAMES``: run the named phases of 7-13, 16, 17 here (each
+    """``--worker NAMES``: run the named phases of 7-13, 16-19 here (each
     Model run and sweep checked as a clean path) and write their record
     (results, launches by path, rows, walls, failures, clean-path counts)
     to OUT/<tag>.json."""
@@ -4191,6 +4589,10 @@ def main() -> int:
                 # phase 18: the partition paths, plain and on the mesh
                 "partition_launches": {p: n for p, n in by_path.items()
                                        if p.startswith("partition")},
+                # phase 19: the served batches, the farm and optimize
+                # tenants
+                "serve_launches": {p: n for p, n in by_path.items()
+                                   if p.startswith("serve")},
                 "launch_floor_ms": floor}
 
     kernels = [summary(*k) for k in KERNELS]

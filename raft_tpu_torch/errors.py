@@ -76,6 +76,35 @@ class KernelFailure(RaftError, RuntimeError):
     phase = "dynamics"
 
 
+class CacheCorruption(RaftError, RuntimeError):
+    """A persisted artifact (a journal record, a result-store entry)
+    failed its integrity check.  The stores recover by delete-and-miss;
+    this type surfaces only when a caller opts into strict mode."""
+
+    phase = "cache"
+
+
+class JournalCorrupt(CacheCorruption):
+    """A write-ahead/resume journal record failed to parse or verify
+    (torn tail, bit rot, schema drift).  Replay treats corruption as a
+    skip-and-count miss by default; this type surfaces only under strict
+    scanning (``serve.journal.replay(..., strict=True)``)."""
+
+    phase = "journal"
+
+
+class ResultStoreCorrupt(CacheCorruption):
+    """A persistent result-store entry (:mod:`raft_tpu_torch.serve.
+    resultstore`) failed an integrity check: size/sha256 sidecar
+    mismatch, a torn or unparseable payload, a key/payload digest
+    disagreement (a *stale* entry answering for the wrong request), or a
+    payload whose recorded result digest no longer matches its own
+    metrics.  The store recovers by delete-and-miss; this type surfaces
+    only when a caller opts into strict reads."""
+
+    phase = "cache"
+
+
 class StorageExhausted(RaftError, OSError):
     """A persistence tier (the checkpoint store) hit proven resource
     exhaustion: an ``ENOSPC`` write failure.  Raised only from write
@@ -83,6 +112,16 @@ class StorageExhausted(RaftError, OSError):
     solving and stops persisting)."""
 
     phase = "storage"
+
+
+class WarmStartRejected(RaftError, RuntimeError):
+    """A neighbour-seeded (warm-started) solve tripped the divergence
+    guard and the service fell back to a cold start, quarantining the
+    seed.  A degradation signal recorded per occurrence, never a
+    caller-visible failure: the fallback result is always delivered,
+    bit-identical to a cold start."""
+
+    phase = "serve"
 
 
 class FaultInjected(RaftError, RuntimeError):
@@ -118,6 +157,41 @@ class PartitionRuleError(RaftError, ValueError):
     request itself is wrong; see parallel/partition.py)."""
 
     phase = "setup"
+
+
+class AdmissionRejected(RaftError, RuntimeError):
+    """The serving layer (:mod:`raft_tpu_torch.serve`) refused a request
+    at admission: queue depth or deadline pressure beyond the configured
+    watermarks, or the service is in its ``reject`` degradation mode.
+    Carries ``retry_after_s``, the caller's earliest useful resubmission
+    time, as an attribute and in :meth:`context`.  Not recoverable by
+    the ladder: backpressure only works if the rejection reaches the
+    caller."""
+
+    phase = "admission"
+
+    def __init__(self, message: str = "", retry_after_s: float = 0.0,
+                 **context):
+        self.retry_after_s = float(retry_after_s)
+        super().__init__(message, retry_after_s=self.retry_after_s,
+                         **context)
+
+
+class ReplicaLagExceeded(RaftError, RuntimeError):
+    """The write-ahead-journal mirror (:mod:`raft_tpu_torch.serve.
+    replica`) fell further behind the primary than its record budget.
+    A degradation signal: raised only from :meth:`WalMirror.check`;
+    the serving loop folds it into the degradation ladder instead."""
+
+    phase = "replication"
+
+
+class DeadlineExceeded(RaftError, TimeoutError):
+    """A request (or the batch carrying it) overran its deadline: the
+    serving watchdog's abandon signal and the typed failure of a request
+    quarantined for hanging."""
+
+    phase = "serve"
 
 
 #: failure types the degradation ladder may retry (everything a solver

@@ -1729,6 +1729,39 @@ class Model:
     # farms: the batched farm sweep and the wake module
     # ------------------------------------------------------------------
 
+    def make_service(self, config=None, coarse_stride: int = 2,
+                     **config_kw):
+        """An always-on sweep service over this model's (single) FOWT on
+        the model's device (``raft_tpu/model.py:make_service``'s port).
+
+        Builds a :class:`raft_tpu_torch.serve.SweepService` whose warm
+        batch runner keeps the FOWT's constants on the device, and hands
+        it a frequency-decimated sibling (every ``coarse_stride``-th bin,
+        built on ``w[::coarse_stride]``) as the ``coarse`` degradation
+        rung.  Keyword arguments construct the ``ServeConfig`` when
+        ``config`` is not given.  The caller starts and stops it::
+
+            with model.make_service(batch_cases=8) as svc:
+                result = svc.submit(Hs, Tp, heading_rad).result(60.0)
+
+        Farm models (``nFOWT > 1``) are refused with a typed
+        ``ModelConfigError``: the batched case solver is single-FOWT."""
+        from raft_tpu_torch.serve import ServeConfig, SweepService
+
+        if self.nFOWT != 1:
+            raise errors.ModelConfigError(
+                "make_service needs a single-FOWT model",
+                nFOWT=self.nFOWT)
+        degraded = None
+        if coarse_stride and int(coarse_stride) > 1:
+            w_coarse = np.asarray(self.w)[::int(coarse_stride)]
+            degraded = {"coarse": build_fowt(
+                self.design, w_coarse, depth=self.depth,
+                device=self.device)}
+        return SweepService(self.fowtList[0],
+                            config or ServeConfig(**config_kw),
+                            degraded_fowts=degraded, device=self.device)
+
     def sweep_farm(self, cases=None, mesh=None, **kw):
         """The batched farm sweep (``parallel/sweep.py:sweep_farm``): every
         turbine x every case of this array in one batch on the model's

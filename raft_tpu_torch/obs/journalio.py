@@ -3,12 +3,15 @@
 The port's copy of ``raft_tpu/obs/journalio.py`` (what the port uses of
 it): one serialization for JSON records, one whole-file write (``tmp ->
 fsync -> rename``) for the case journal (``recovery.CaseJournal``) and
-the checkpoint store (``serve/checkpoint.CheckpointStore``), the
-line-flushed, size-rotated JSONL writer and the torn-tail-tolerant
-readers of the flight recorder (``obs/events.py``), and the count of
-corrupt entries read as misses, kept in the registry counter
+the checkpoint store (``serve/checkpoint.CheckpointStore``) and the
+result store (``serve/resultstore.py``), the line-flushed, size-rotated
+JSONL writer (with the replication hooks of the serve WAL,
+``serve/journal.py`` / ``serve/replica.py``) and the torn-tail-tolerant
+readers of the flight recorder (``obs/events.py``) and the WAL, a
+directory's byte count for the disk gauges, and the count of corrupt
+entries read as misses, kept in the registry counter
 ``raft_tpu_journal_corrupt_total{kind}`` (``kind`` "case",
-"checkpoint"; `corrupt_count` reads it).
+"checkpoint", "serve", "resultstore"; `corrupt_count` reads it).
 """
 from __future__ import annotations
 
@@ -54,6 +57,24 @@ def fsync_write(path: str, data: bytes):
         raise
 
 
+def dir_bytes(path: str) -> int:
+    """Total bytes of the files directly under ``path`` (every journal or
+    store tier is flat), 0 when unreadable; feeds the per-component
+    ``raft_tpu_disk_bytes`` gauges."""
+    total = 0
+    try:
+        with os.scandir(path) as entries:
+            for e in entries:
+                try:
+                    if e.is_file(follow_symlinks=False):
+                        total += e.stat(follow_symlinks=False).st_size
+                except OSError:
+                    continue
+    except OSError:
+        return 0
+    return total
+
+
 def count_corrupt(kind: str, n: int = 1):
     """Count ``n`` corrupt entries of journal ``kind`` in
     ``raft_tpu_journal_corrupt_total{kind}`` (never raises)."""
@@ -79,20 +100,29 @@ def corrupt_count(kind: str) -> int:
 class JsonlWriter:
     """One append-only, line-flushed JSONL file with size rotation.
 
-    Not thread-safe on its own (the flight recorder holds its own lock).
-    ``header`` (optional) is called as ``header(part)`` after every fresh
-    open, the first included, and its dict becomes the part's first
-    record, so a rotated generation is self-describing.  When a part
-    outgrows ``max_bytes`` it moves to ``<path>.1`` (older generations
-    shuffle up, the newest ``keep`` are kept)."""
+    Not thread-safe on its own (the flight recorder and the serve journal
+    hold their own locks).  ``header`` (optional) is called as
+    ``header(part)`` after every fresh open, the first included, and its
+    dict becomes the part's first record, so a rotated generation is
+    self-describing.  When a part outgrows ``max_bytes`` it moves to
+    ``<path>.1`` (older generations shuffle up, the newest ``keep`` are
+    kept).
+
+    Replication hooks (optional; a hook that fails never fails the
+    write): ``post_flush(writer)`` runs after every record's write and
+    flush, while the caller's lock is held (the serve WAL mirror ships
+    the fresh bytes there); ``post_rotate(writer, sealed_part)`` runs
+    after a rotation sealed a part, before the fresh part opens."""
 
     def __init__(self, path: str, *, max_bytes: int = None, keep: int = 2,
-                 header=None):
+                 header=None, post_flush=None, post_rotate=None):
         self.path = str(path)
         self.max_bytes = max_bytes
         self.keep = max(0, int(keep))
         self.part = 0
         self._header = header
+        self.post_flush = post_flush
+        self.post_rotate = post_rotate
         self._fh = None
         os.makedirs(os.path.dirname(os.path.abspath(self.path)),
                     exist_ok=True)
@@ -110,6 +140,11 @@ class JsonlWriter:
         outgrew ``max_bytes``.  Raises on I/O trouble."""
         self._fh.write(dumps(doc) + "\n")
         self._fh.flush()
+        if self.post_flush is not None:
+            try:
+                self.post_flush(self)
+            except Exception:                        # pragma: no cover
+                pass
         if rotate and self.max_bytes is not None \
                 and self._fh.tell() > self.max_bytes:
             self.rotate()
@@ -139,7 +174,18 @@ class JsonlWriter:
             except OSError:                          # pragma: no cover
                 pass
         self.part += 1
+        # before the fresh part opens (and writes its header): a mirror
+        # shuffles its generations while the sealed bytes still name the
+        # live path
+        if self.post_rotate is not None:
+            try:
+                self.post_rotate(self, self.part - 1)
+            except Exception:                        # pragma: no cover
+                pass
         self._open_fresh()
+
+    def tell(self) -> int:
+        return self._fh.tell()
 
     def close(self):
         """Close the stream (idempotent)."""
@@ -154,6 +200,20 @@ class JsonlWriter:
     @property
     def closed(self) -> bool:
         return self._fh is None
+
+    def tear_tail(self, nbytes: int = 7):
+        """Truncate the file mid-record: what a crash between the write
+        and the flush of the next record looks like (the ``torn@journal``
+        fault action only; readers skip the torn line)."""
+        try:
+            self._fh.flush()
+            end = self._fh.tell()
+            self._fh.close()
+            with open(self.path, "ab") as f:
+                f.truncate(max(0, end - int(nbytes)))
+            self._fh = open(self.path, "a", encoding="utf-8")
+        except OSError:                              # pragma: no cover
+            pass
 
 
 def read(path: str, kind: str = None) -> list[dict]:

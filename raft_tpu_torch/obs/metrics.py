@@ -249,6 +249,20 @@ def to_prometheus() -> str:
     return REGISTRY.to_prometheus()
 
 
+def exposition(run_id: str = None) -> str:
+    """The Prometheus text page with a process-identity comment (pid,
+    hostname, optional run id) ahead of the samples, so a saved page
+    names its producer (comment lines that are not HELP/TYPE are legal
+    exposition-format noise)."""
+    import socket
+
+    head = (f"# raft_tpu exposition pid={os.getpid()} "
+            f"hostname={socket.gethostname()}")
+    if run_id:
+        head += f" run_id={run_id}"
+    return head + "\n" + to_prometheus()
+
+
 def record_build_info(run_id: str = None) -> dict:
     """Info-style ``raft_tpu_build_info`` gauge (value 1, facts as
     labels: git SHA, dirty working tree, package, torch and CUDA
@@ -330,6 +344,16 @@ def record_solve_health(phase: str, residual_max, residual_med,
               "max drag fixed-point iterations over the batch "
               "(health mode only)").set(
                   float(iters_max), phase=str(phase))
+
+
+def record_disk_bytes(component: str, nbytes) -> None:
+    """Set the per-component persistence disk gauge
+    (``raft_tpu_disk_bytes{component}``: journal / resultstore /
+    checkpoint)."""
+    gauge("raft_tpu_disk_bytes",
+          "bytes held on disk per persistence component (journal / "
+          "resultstore / checkpoint / exec_cache)").set(
+              float(nbytes), component=str(component))
 
 
 def record_exec_cache_event(event: str):

@@ -23,6 +23,14 @@ host-to-device copy, boolean-mask indexing, ``torch.nonzero``, a linalg
 error check), while :func:`device_get` and :func:`sync_point` stay legal
 (they lift the mode around their own copy).  On the CPU, as the JAX
 package's guard there, it is vacuous: host tensors need no transfer.
+
+Pulls may come from several threads at once (the service's batch and
+long-request workers beside the caller's own): the phase stack is per
+thread, and the lift is reference-counted under one lock, so the mode a
+guard armed comes back only when the last overlapping pull ends.  The
+debug mode itself is process-wide, so while any thread pulls, an
+unsanctioned sync in another thread goes untrapped (never falsely
+trapped).
 """
 from __future__ import annotations
 
@@ -35,55 +43,86 @@ import torch
 _LOCK = threading.Lock()
 #: per-phase totals: {phase: {"events": int, "arrays": int, "bytes": int}}
 _PHASES: dict[str, dict] = {}
-#: stack of active phase names (the solve path is host-single-threaded;
-#: nested phases label the innermost)
-_STACK: list[str] = []
+#: per-thread stack of active phase names (nested phases label the
+#: innermost; a pull is counted against its own thread's phase)
+_TLS = threading.local()
+#: the sanctioned-read lift: pulls in flight, and the sync debug mode to
+#: put back when the last of them ends
+_LIFT = {"n": 0, "saved": 0}
 
 _UNPHASED = "unphased"
 _MODES = {"disallow": "error", "log": "warn", "allow": 0}
 
 
+def _stack() -> list[str]:
+    st = getattr(_TLS, "stack", None)
+    if st is None:
+        st = _TLS.stack = []
+    return st
+
+
 def reset():
-    """Forget all accumulated transfer accounting (test isolation)."""
+    """Forget all accumulated transfer accounting and this thread's
+    phase stack (test isolation)."""
     with _LOCK:
         _PHASES.clear()
-        del _STACK[:]
+    del _stack()[:]
 
 
 @contextlib.contextmanager
 def phase(name: str):
-    """Attribute sanctioned pulls inside the block to ``name``."""
-    with _LOCK:
-        _STACK.append(str(name))
+    """Attribute this thread's sanctioned pulls inside the block to
+    ``name``."""
+    st = _stack()
+    st.append(str(name))
     try:
         yield
     finally:
-        with _LOCK:
-            if _STACK and _STACK[-1] == str(name):
-                _STACK.pop()
-            elif str(name) in _STACK:          # pragma: no cover
-                _STACK.remove(str(name))
+        if st and st[-1] == str(name):
+            st.pop()
+        elif str(name) in st:                  # pragma: no cover
+            st.remove(str(name))
 
 
 def current_phase() -> str:
-    with _LOCK:
-        return _STACK[-1] if _STACK else _UNPHASED
+    st = _stack()
+    return st[-1] if st else _UNPHASED
 
 
 @contextlib.contextmanager
 def _lifted():
-    """Lift a :func:`guard` around one sanctioned host read."""
+    """Lift a :func:`guard` around one sanctioned host read.  The first
+    of overlapping reads saves the armed mode and the last puts it
+    back."""
     if not torch.cuda.is_available():
         yield
         return
-    prev = torch.cuda.get_sync_debug_mode()
-    if prev:
-        torch.cuda.set_sync_debug_mode(0)
+    with _LOCK:
+        if _LIFT["n"] == 0:
+            _LIFT["saved"] = torch.cuda.get_sync_debug_mode()
+            if _LIFT["saved"]:
+                torch.cuda.set_sync_debug_mode(0)
+        _LIFT["n"] += 1
     try:
         yield
     finally:
-        if prev:
-            torch.cuda.set_sync_debug_mode(prev)
+        with _LOCK:
+            _LIFT["n"] -= 1
+            if _LIFT["n"] == 0 and _LIFT["saved"]:
+                torch.cuda.set_sync_debug_mode(_LIFT["saved"])
+
+
+def _arm(mode):
+    """Set the sync debug mode a guard wants and return the one it
+    replaces; while pulls are lifted, the mode is what the last of them
+    puts back."""
+    with _LOCK:
+        if _LIFT["n"]:
+            prev, _LIFT["saved"] = _LIFT["saved"], mode
+        else:
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(mode)
+    return prev
 
 
 def _host(tree, stats):
@@ -160,12 +199,11 @@ def guard(mode: str = "disallow"):
     if not torch.cuda.is_available():
         yield
         return
-    prev = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode(_MODES[mode])
+    prev = _arm(_MODES[mode])
     try:
         yield
     finally:
-        torch.cuda.set_sync_debug_mode(prev)
+        _arm(prev)
 
 
 def snapshot() -> dict:

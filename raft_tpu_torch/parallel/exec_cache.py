@@ -1,8 +1,10 @@
 """Content digests of models.
 
-Of ``raft_tpu/parallel/exec_cache.py`` only `model_digest` for now: the
-content address that keys the case journal (``recovery.CaseJournal``) and
-guards the chunks of ``sweep.sweep_cases_chunked``.
+Of ``raft_tpu/parallel/exec_cache.py`` only the digests: `model_digest`,
+the content address that keys the case journal (``recovery.CaseJournal``)
+and guards the chunks of ``sweep.sweep_cases_chunked``, and
+`layout_digest`, a farm layout's short digest that keys the serving
+layer's farm runners and salts farm request digests.
 """
 from __future__ import annotations
 
@@ -74,3 +76,14 @@ def model_digest(obj) -> str:
             flat[path] = arr.ravel()
             flat[path + ".meta"] = f"{tuple(arr.shape)}:{arr.dtype}"
     return digest_metrics(flat)
+
+
+def layout_digest(xy, D=None) -> str:
+    """Short content digest of a farm layout: the (n, 2) turbine
+    positions (and rotor diameters when given) rounded to the millimetre,
+    so host float noise cannot fork it.  The JAX package's recipe, the
+    same hex for the same layout."""
+    flat: dict = {"xy": np.round(np.asarray(xy, dtype=np.float64), 3)}
+    if D is not None:
+        flat["D"] = np.round(np.asarray(D, dtype=np.float64), 3)
+    return digest_metrics(flat)[7:][:16]

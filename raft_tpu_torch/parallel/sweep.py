@@ -49,10 +49,15 @@ axes; the lanes shard over the mesh's devices (`_solve_sharded`), one
 fixed point runs every shard, and the counted pulls are the unsharded
 sweep's.
 
+Serving (``serve/service.py``): `make_batch_runner` builds one case
+solver whose constants stay on the card and answers fixed-size batches,
+bitwise ``make_case_solver(...).batched``; `make_farm_runner` is its farm
+twin over `make_farm_solver`, bitwise `sweep_farm`;
+`normalize_farm_request` validates a farm request at admission.
+
 Not ported here (ROADMAP): a mesh's ``freq`` axis (A9) and the
-executable cache; lane quarantine and the health mode of the farm sweep;
-the farm runner of the service (``make_farm_runner``,
-``normalize_farm_request``, A10).
+executable cache; lane quarantine and the health mode of the farm sweep
+and of the farm runner.
 """
 from __future__ import annotations
 
@@ -393,6 +398,7 @@ def make_case_solver(fowt: FOWTModel, nIter: int = 10, tol: float = 0.01,
                                            dim=-1))
 
     solve.batched = solve_batched
+    solve.case_constants = case_constants
     solve.setup = setup
     solve.setup_lanes = setup_lanes
     solve.drag_step = drag_step
@@ -1297,3 +1303,223 @@ def sweep_farm(fowt_or_design, xy, Hs, Tp, beta, U_inf, wind_dir=None,
     finally:
         obs.finish_run(manifest, status=status, write_trace=False,
                        ledger=ledger)
+
+
+def make_batch_runner(fowt: FOWTModel, ncases: int, warmup: bool = True,
+                      mesh=None, device=None, **kw):
+    """One warm, reusable batched case solve for the serving loop
+    (:mod:`raft_tpu_torch.serve`), ``raft_tpu/parallel/sweep.py:
+    make_batch_runner``'s port.
+
+    ``make_case_solver`` is built once: the model is carried to the card
+    (``device``, resolved by ``resolve_device``: the card unless
+    ``device="cpu"``; no card raises) and its sea-state-free constants
+    (pose, hydro constants, M/B/C, the mooring stiffness) are computed at
+    build time and stay resident across requests.  ``warmup`` runs one
+    batch at build time, so that the kernels' build and first launch land
+    before the first request.
+
+    Returns ``run(Hs, Tp, beta, Xi0=None) -> dict(Xi, std, converged,
+    iters, fp_chunks)`` (device tensors; inputs ``(run.ncases,)``, the
+    service pads short batches), bitwise ``make_case_solver(fowt,
+    **kw).batched`` on the same lanes.  ``Xi0`` (``(ncases, 6, nw)``
+    complex) seeds the drag fixed point per lane (None: the cold
+    ``XiStart`` fill).  Unlike the JAX runner, whose ``warm_start`` flag
+    picks a second compiled program, this one always takes ``Xi0``, so
+    there is no flag: ``.warm_start`` is True, and the service's
+    ``ServeConfig.warm_start`` alone decides whether batches are seeded.
+    ``mesh`` (batch axes) rounds ``ncases`` up to
+    ``partition.batch_size(mesh)`` and shards every batch over it.
+
+    The callable carries ``.ncases``, ``.cache_state``, ``.key``,
+    ``.mesh``, ``.health``, ``.devprof``, ``.warm_start``, ``.nw``,
+    ``.xistart`` and ``.build_s``.  The port has no
+    executable cache (nothing is traced or compiled per program; the
+    kernels are built once per process by ``ops/kernels/_build.py``), so
+    ``cache_state`` is ``"disabled"`` and ``key`` None; the device
+    profile of a compiled program is ROADMAP A8's, so ``devprof`` is
+    None."""
+    import time as _time
+
+    t0 = _time.perf_counter()
+    dev = mesh_device(mesh, device)
+    fowt = on_device(fowt, dev)
+    ncases = int(ncases)
+    health = kw.pop("health", None)
+    health = _config.health_enabled() if health is None else bool(health)
+    if mesh is not None:
+        ncases += (-ncases) % partition.batch_size(mesh)
+    with obs.span("serve_build", ncases=ncases), \
+            transfers.phase("serve_build"):
+        solver = make_case_solver(fowt, mesh=mesh, health=health, **kw)
+        # the sea-state-free constants now, resident from here on
+        solver.case_constants()
+    nw = fowt.nw
+    xistart = float(kw.get("XiStart", 0.1))
+
+    def run(Hs, Tp, beta, Xi0=None):
+        Hs, Tp, beta = (as_real(x, dev).reshape(-1) for x in (Hs, Tp, beta))
+        if Xi0 is not None:
+            Xi0 = _config.to_device(Xi0, dev, COMPLEX)
+        return solver.batched(Hs, Tp, beta, Xi0=Xi0)
+
+    if warmup:
+        with transfers.phase("serve_build"):
+            run(np.full(ncases, 1.0), np.full(ncases, 8.0),
+                np.zeros(ncases))
+
+    run.ncases = ncases
+    run.cache_state = "disabled"
+    run.key = None
+    run.mesh = mesh
+    run.health = health
+    run.devprof = None
+    run.warm_start = True
+    run.nw = int(nw)
+    run.xistart = xistart
+    run.build_s = _time.perf_counter() - t0
+    return run
+
+
+def make_farm_runner(fowt: FOWTModel, xy, ncases: int,
+                     warmup: bool = True, mesh=None, device=None, **kw):
+    """One warm, reusable farm solve for the serving loop, the port of
+    ``raft_tpu/parallel/sweep.py:make_farm_runner`` (`make_batch_runner`'s
+    farm twin): `make_farm_solver` built once on the card (``device`` as
+    `make_batch_runner`'s), ``warmup`` runs one batch at build time.
+
+    ``ncases`` is the per-turbine case count, rounded up to the mesh's
+    batch size.  Returns ``run(Hs, Tp, beta, U_inf, wind_dir) -> out``
+    taking (run.ncases,) case arrays (the service pads short batches) and
+    returning the lane-shaped outputs and the wake state, as
+    `make_farm_solver` documents: bitwise `sweep_farm` on the same inputs.
+    The callable carries ``.ncases``, ``.n_turbines``, ``.layout``,
+    ``.layout_digest``, ``.curve``, ``.cache_state`` (``"disabled"``),
+    ``.key``, ``.mesh``, ``.health``, ``.devprof`` (None), ``.nw`` and
+    ``.build_s``."""
+    import time as _time
+
+    from raft_tpu_torch.parallel import exec_cache
+
+    t0 = _time.perf_counter()
+    dev = mesh_device(mesh, device)
+    fowt = on_device(fowt, dev)
+    ncases = int(ncases)
+    health = kw.pop("health", None)
+    health = _config.health_enabled() if health is None else bool(health)
+    if health:
+        raise errors.ModelConfigError(
+            "the farm runner has no health mode yet (ROADMAP A10)")
+    if mesh is not None:
+        ncases += (-ncases) % partition.batch_size(mesh)
+    with obs.span("farm_serve_build", ncases=ncases):
+        solver = make_farm_solver(fowt, xy, mesh=mesh, **kw)
+    nt = solver.n_turbines
+
+    def run(Hs, Tp, beta, U_inf, wind_dir):
+        Hs, Tp, beta, U_inf, wind_dir = (
+            as_real(x, dev).reshape(-1)
+            for x in (Hs, Tp, beta, U_inf, wind_dir))
+        lanes = {"Hs": _farm_lane_tile(Hs, nt),
+                 "Tp": _farm_lane_tile(Tp, nt),
+                 "beta": _farm_lane_tile(beta, nt),
+                 "U_inf": U_inf, "wind_dir": wind_dir}
+        partition.match_partition_rules(partition.FARM_INPUT_RULES, lanes)
+        return solver(lanes["Hs"], lanes["Tp"], lanes["beta"],
+                      lanes["U_inf"], lanes["wind_dir"])
+
+    if warmup:
+        with transfers.phase("serve_build"):
+            run(np.full(ncases, 1.0), np.full(ncases, 8.0),
+                np.zeros(ncases), np.full(ncases, 10.0), np.zeros(ncases))
+
+    run.ncases = ncases
+    run.n_turbines = nt
+    run.layout = solver.layout
+    run.layout_digest = exec_cache.layout_digest(solver.layout)
+    run.curve = solver.curve
+    run.cache_state = "disabled"
+    run.key = None
+    run.mesh = mesh
+    run.health = health
+    run.devprof = None
+    run.nw = int(fowt.nw)
+    run.build_s = _time.perf_counter() - t0
+    return run
+
+
+def normalize_farm_request(spec, turbines_max: int = 16,
+                           cases_max: int = 4096) -> dict:
+    """Validate and canonicalize a farm serve request spec into plain
+    floats and arrays (a copy of the JAX package's; typed
+    :class:`~raft_tpu_torch.errors.ModelConfigError` on junk, the
+    admission boundary).
+
+    Spec keys: ``layout`` (required, (n_turbines, 2) positions [m]),
+    ``Hs``/``Tp``/``beta``/``U_inf`` (required, equal-length per-case
+    lists), ``wind_dir`` (optional, default zeros), ``k_w`` (optional
+    wake-expansion knob)."""
+    if not isinstance(spec, dict):
+        raise errors.ModelConfigError(
+            "farm spec must be a mapping", got=type(spec).__name__)
+    try:
+        layout = np.asarray(spec["layout"], float)
+    except KeyError:
+        raise errors.ModelConfigError("farm spec needs a layout")
+    except (TypeError, ValueError) as e:
+        raise errors.ModelConfigError(
+            "farm layout must be an (n_turbines, 2) array of positions",
+            error=str(e)[:200])
+    if layout.ndim != 2 or layout.shape[1] != 2 or layout.shape[0] < 1:
+        raise errors.ModelConfigError(
+            "farm layout must be an (n_turbines, 2) array of positions",
+            shape=list(layout.shape))
+    if not np.all(np.isfinite(layout)):
+        raise errors.ModelConfigError("farm layout must be finite")
+    nt = int(layout.shape[0])
+    if nt > int(turbines_max):
+        raise errors.ModelConfigError(
+            "farm turbine count exceeds the tenant cap",
+            n_turbines=nt, turbines_max=int(turbines_max))
+    arrays = {}
+    for k in ("Hs", "Tp", "beta", "U_inf"):
+        if k not in spec:
+            raise errors.ModelConfigError(
+                f"farm spec needs per-case '{k}'")
+        try:
+            arrays[k] = np.atleast_1d(np.asarray(spec[k], float))
+        except (TypeError, ValueError) as e:
+            raise errors.ModelConfigError(
+                f"farm '{k}' must be a numeric per-case list",
+                error=str(e)[:200])
+        if arrays[k].ndim != 1 or not np.all(np.isfinite(arrays[k])):
+            raise errors.ModelConfigError(
+                f"farm '{k}' must be a finite 1-D per-case list")
+    ncases = int(arrays["Hs"].shape[0])
+    if ncases < 1 or ncases > int(cases_max):
+        raise errors.ModelConfigError(
+            "farm case count outside the tenant cap",
+            ncases=ncases, cases_max=int(cases_max))
+    if any(int(a.shape[0]) != ncases for a in arrays.values()):
+        raise errors.ModelConfigError(
+            "farm per-case lists must share one length",
+            lengths={k: int(a.shape[0]) for k, a in arrays.items()})
+    wd = spec.get("wind_dir")
+    wd = (np.zeros(ncases) if wd is None
+          else np.atleast_1d(np.asarray(wd, float)))
+    if wd.shape[0] != ncases or not np.all(np.isfinite(wd)):
+        raise errors.ModelConfigError(
+            "farm wind_dir must be a finite per-case list",
+            ncases=ncases, got=int(wd.shape[0]))
+    k_w = spec.get("k_w", 0.05)
+    try:
+        k_w = float(k_w)
+    except (TypeError, ValueError):
+        raise errors.ModelConfigError("farm k_w must be a number",
+                                      got=repr(k_w)[:50])
+    if not (0.0 < k_w < 1.0):
+        raise errors.ModelConfigError(
+            "farm k_w outside (0, 1)", k_w=k_w)
+    return dict(layout=layout, Hs=arrays["Hs"], Tp=arrays["Tp"],
+                beta=arrays["beta"], U_inf=arrays["U_inf"],
+                wind_dir=wd, k_w=k_w, n_turbines=nt, ncases=ncases)

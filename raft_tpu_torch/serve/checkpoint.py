@@ -23,8 +23,9 @@ write failure is a counted gap.  Fault seams
 (:mod:`raft_tpu_torch.testing.faults`): ``corrupt@checkpoint[:entry=HEX]
 [:step=N]`` damages the bytes read before the checks; ``enospc@checkpoint``
 injects the full-disk write failure; ``eio@checkpoint`` the transient
-read error.  Counts live in :meth:`CheckpointStore.stats` (the port's
-metrics registry is a later slice).
+read error.  Counts live in :meth:`CheckpointStore.stats`, the
+directory's bytes in the ``raft_tpu_disk_bytes`` gauge; ``budget_bytes``
+makes a put over budget the same typed ``StorageExhausted``.
 """
 from __future__ import annotations
 
@@ -81,21 +82,41 @@ def _unpack(data: bytes) -> dict:
         return {k: z[k].copy() for k in z.files}
 
 
+def disk_gauge(component: str, nbytes: int):
+    """Set the per-component ``raft_tpu_disk_bytes`` gauge (guarded:
+    telemetry never takes down a persistence path)."""
+    try:
+        from raft_tpu_torch.obs.metrics import record_disk_bytes
+        record_disk_bytes(component, nbytes)
+    except Exception:  # pragma: no cover
+        pass
+
+
 class CheckpointStore:
-    """One checkpoint directory (see the module docstring); thread-safe."""
+    """One checkpoint directory (see the module docstring); thread-safe.
+
+    ``budget_bytes`` bounds the directory: a put that would exceed it
+    raises the same typed ``StorageExhausted`` a real ENOSPC does, so the
+    serving layer's shed ladder can be driven before a disk fills.
+    ``component`` labels the ``raft_tpu_disk_bytes`` gauge."""
 
     #: a payload younger than this with no sidecar may be a concurrent put
     #: that has not landed its sidecar yet, and is left alone; older ones
     #: are torn-put orphans and are reclaimed
     TORN_GRACE_S = 60.0
 
-    def __init__(self, ckpt_dir: str):
+    def __init__(self, ckpt_dir: str, *, budget_bytes: int = None,
+                 component: str = "checkpoint"):
         self.dir = str(ckpt_dir)
         os.makedirs(self.dir, exist_ok=True)
+        self.budget_bytes = int(budget_bytes) if budget_bytes else None
+        self.component = str(component)
         self._lock = threading.Lock()
+        self._bytes = journalio.dir_bytes(self.dir)
         self._counts = {k: 0 for k in (
             "writes", "write_errors", "enospc", "hits", "misses",
             "corrupt", "read_errors", "deletes")}
+        disk_gauge(self.component, self._bytes)
 
     def _count(self, name: str, n: int = 1):
         with self._lock:
@@ -189,6 +210,14 @@ class CheckpointStore:
         entry, sidecar = self._paths(key, step)
         data = _pack(arrays)
         cdigest = "sha256:" + hashlib.sha256(data).hexdigest()
+        with self._lock:
+            projected = self._bytes + len(data)
+        if self.budget_bytes is not None and projected > self.budget_bytes:
+            self._count("enospc")
+            raise errors.StorageExhausted(
+                "checkpoint store disk budget exceeded",
+                component=self.component, budget=self.budget_bytes,
+                bytes=projected)
         try:
             if faults.fire_info("checkpoint", action="enospc",
                                 entry=_stem(key), step=int(step)):
@@ -213,8 +242,16 @@ class CheckpointStore:
                          _stem(key)[:12], step, e)
             return None
         self._count("writes")
+        # re-anchored on the directory: an overwrite replaces bytes
+        self._refresh_bytes()
         self._count_metric("raft_tpu_checkpoint_writes_total")
         return cdigest
+
+    def _refresh_bytes(self):
+        n = journalio.dir_bytes(self.dir)
+        with self._lock:
+            self._bytes = n
+        disk_gauge(self.component, n)
 
     # -- read path -------------------------------------------------------
 
@@ -307,9 +344,15 @@ class CheckpointStore:
                 pass
         if n:
             self._count("deletes")
+            self._refresh_bytes()
 
     # -- introspection ---------------------------------------------------
 
+    def disk_bytes(self) -> int:
+        with self._lock:
+            return int(self._bytes)
+
     def stats(self) -> dict:
         with self._lock:
-            return {**self._counts, "dir": self.dir}
+            return {**self._counts, "disk_bytes": int(self._bytes),
+                    "dir": self.dir}

@@ -17,11 +17,16 @@ sweep       ``parallel.sweep.sweep_cases`` after the batched solve
 checkpoint  ``serve.checkpoint.CheckpointStore`` reads and writes
 optimize    ``parallel.optimize`` segmented descent, at each segment
             boundary (``kill``: ``os._exit(137)``; ``hang``: park)
+serve       ``serve.service`` batch worker, per request before the solve
+            (``raise``, ``hang``, ``kill``)
+journal     ``serve.journal`` WAL writes (``torn``, ``enospc``)
+replica     ``serve.replica`` WAL mirroring (``drop``, ``lag``)
+resultstore ``serve.resultstore`` reads and writes (``corrupt``,
+            ``stale``, ``enospc``, ``eio``)
 ==========  ===========================================================
 
-The other sites of the grammar (``exec_cache``, ``serve``, ``journal``,
-``replica``, ``resultstore``, ``fleet``) parse as they do in the JAX
-package; nothing in the port fires them yet.
+The other sites of the grammar (``exec_cache``, ``fleet``) parse as they
+do in the JAX package; nothing in the port fires them yet.
 
 Spec grammar (comma-separated specs)::
 

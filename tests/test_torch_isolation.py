@@ -59,6 +59,19 @@ def test_probe_covers_the_sweep_modules(probed_modules):
         assert name in probed_modules, name
 
 
+def test_probe_covers_the_serve_modules(probed_modules):
+    """The serving path (the service, its WAL and mirror, the result
+    store, the HTTP front door and the command line) is among the probed
+    (and so JAX-free) modules."""
+    for name in ("raft_tpu_torch.serve.service",
+                 "raft_tpu_torch.serve.journal",
+                 "raft_tpu_torch.serve.replica",
+                 "raft_tpu_torch.serve.resultstore",
+                 "raft_tpu_torch.serve.http",
+                 "raft_tpu_torch.serve.__main__"):
+        assert name in probed_modules, name
+
+
 def test_probe_covers_the_potential_flow_modules(probed_modules):
     """The WAMIT I/O, the panel mesher, the native BEM wrapper and the
     shared potential-flow cases are among the probed modules."""

@@ -373,6 +373,59 @@ def test_guard_is_vacuous_on_the_cpu_and_checks_its_mode():
             pass
 
 
+def test_overlapping_pulls_from_two_threads_keep_the_guard(monkeypatch):
+    """Two threads pull at once under ``guard("log")``: both copies run
+    lifted, the first to end does not re-arm the guard under the other,
+    the guard is armed again once both end, each pull is counted against
+    its own thread's phase, and the guard's exit puts the mode back.
+    The card's process-wide debug mode is stood in for by a variable."""
+    import threading
+
+    mode = [0]
+    monkeypatch.setattr(transfers.torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(transfers.torch.cuda, "get_sync_debug_mode",
+                        lambda: mode[0])
+    monkeypatch.setattr(transfers.torch.cuda, "set_sync_debug_mode",
+                        lambda m: mode.__setitem__(0, m))
+    both_in, a_out = threading.Barrier(2), threading.Event()
+    seen, errs = {}, []
+
+    def pull(name):
+        def inside():
+            seen[name, "in"] = mode[0]
+            both_in.wait(timeout=30)
+            if name == "b":
+                assert a_out.wait(timeout=30)
+                seen[name, "after_a"] = mode[0]
+            return 1
+
+        try:
+            with transfers.phase(f"thread_{name}"):
+                transfers.sync_point(inside, what="overlap")
+        except Exception as exc:               # pragma: no cover
+            errs.append(exc)
+        finally:
+            if name == "a":
+                a_out.set()
+
+    with transfers.phase("caller"), transfers.guard("log"):
+        assert mode[0] == "warn"
+        threads = [threading.Thread(target=pull, args=(n,), daemon=True)
+                   for n in ("a", "b")]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not errs and not any(t.is_alive() for t in threads)
+        assert seen == {("a", "in"): 0, ("b", "in"): 0, ("b", "after_a"): 0}
+        assert mode[0] == "warn"
+        assert transfers.current_phase() == "caller"
+    assert mode[0] == 0
+    for name in ("a", "b"):
+        assert transfers.counts(f"thread_{name}")["events"] == 1
+    assert transfers.counts("caller")["events"] == 0
+
+
 @pytest.mark.parametrize("mode,expect", [("off", 0), ("sampled", 2),
                                          ("full", 3)])
 def test_probe_modes_budget_and_suppress(mode, expect, tmp_path):
